@@ -1,0 +1,74 @@
+"""repro_torch.api — the public surface of the PyTorch port.
+
+Live service (sessions over one shared cache + sampler)::
+
+    from repro_torch.api import SenecaServer
+
+    server = SenecaServer.for_dataset(ds, cache_frac=0.35)   # on CUDA
+    with server.open_session(batch_size=32) as sess:
+        ids, forms = sess.next_batch_ids()
+
+``device=None`` (the default) places the HBM tier and the device
+executor on CUDA and raises where CUDA is missing; ``device="cpu"`` runs
+the same code with the kernels' plain PyTorch versions.  Policies,
+telemetry, adaptive repartitioning and the closed-form performance model
+behave as in the reference package.  What is not ported yet (the
+simulator, the sharded data plane, fault injection, workloads, the JAX
+ODS engine) is not exported here; see ROADMAP.md.
+"""
+from repro_torch.api.backends import (AugmentBackend, CudaAugmentBackend,
+                                      NumpyAugmentBackend, NumpyOdsBackend,
+                                      OdsBackend, augment_backend_names,
+                                      backend_names,
+                                      register_augment_backend,
+                                      register_backend,
+                                      resolve_augment_backend,
+                                      resolve_backend)
+from repro_torch.api.policies import (AdmissionPolicy, CapacityAdmission,
+                                      EvictionPolicy, LruEviction,
+                                      NaiveSampler, OdsSampler,
+                                      RefcountEviction, SamplerPolicy,
+                                      UnseenOnlyAdmission, policy_names,
+                                      register_policy, resolve_policy)
+from repro_torch.api.server import (CODE_FORM, FORM_CODE, SLO,
+                                    RepartitionController, SenecaConfig,
+                                    SenecaServer, SenecaService, Session,
+                                    SessionClosed, state_from_reference)
+from repro_torch.api.telemetry import (Ewma, TelemetryAggregator,
+                                       TelemetrySnapshot)
+# hardware / dataset profiles + the closed-form DSI model
+from repro_torch.core.perf_model import (AWS_P3, AZURE_NC96, DATASETS,
+                                         EVAL_PROFILES, GB, Gbit,
+                                         IMAGENET_1K, IMAGENET_22K,
+                                         IN_HOUSE, KB, MB, OPENIMAGES,
+                                         VALIDATION_PROFILES,
+                                         DatasetProfile, HardwareProfile,
+                                         JobProfile, dsi_throughput,
+                                         dsi_throughput_tiered)
+
+__all__ = [
+    # server / session facade
+    "SenecaServer", "Session", "SessionClosed", "SenecaConfig",
+    "SenecaService", "SLO", "FORM_CODE", "CODE_FORM",
+    "state_from_reference",
+    # telemetry + adaptive repartitioning
+    "RepartitionController", "TelemetryAggregator", "TelemetrySnapshot",
+    "Ewma",
+    # policies
+    "SamplerPolicy", "AdmissionPolicy", "EvictionPolicy",
+    "OdsSampler", "NaiveSampler", "UnseenOnlyAdmission",
+    "CapacityAdmission", "RefcountEviction", "LruEviction",
+    "register_policy", "resolve_policy", "policy_names",
+    # backends
+    "OdsBackend", "NumpyOdsBackend",
+    "register_backend", "resolve_backend", "backend_names",
+    "AugmentBackend", "NumpyAugmentBackend", "CudaAugmentBackend",
+    "register_augment_backend", "resolve_augment_backend",
+    "augment_backend_names",
+    # profiles + closed-form model
+    "HardwareProfile", "DatasetProfile", "JobProfile", "dsi_throughput",
+    "dsi_throughput_tiered",
+    "AZURE_NC96", "AWS_P3", "IN_HOUSE", "VALIDATION_PROFILES",
+    "EVAL_PROFILES", "DATASETS", "IMAGENET_1K", "IMAGENET_22K",
+    "OPENIMAGES", "GB", "MB", "KB", "Gbit",
+]

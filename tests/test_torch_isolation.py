@@ -1,0 +1,84 @@
+"""The port stands alone: no ``jax``, no ``jaxlib``, no ``repro``.
+
+The test process already holds jax (the parity tests import both
+packages), so the import check runs in a subprocess under a meta-path
+finder that refuses those packages, imports ``repro_torch``, drives one
+CPU device-executor batch and exits 0.  A static scan of the port's
+sources backs it up for modules the run does not import.
+"""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+pytest.importorskip("torch")
+
+ROOT = Path(__file__).resolve().parents[1]
+BLOCKED = ("jax", "jaxlib", "repro")
+
+_CHILD = '''
+import importlib.abc, sys
+
+class Refuse(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in {blocked!r}:
+            raise ImportError(f"{{name}} is refused in this process")
+        return None
+
+sys.meta_path.insert(0, Refuse())
+
+import numpy as np
+import repro_torch.api
+from repro_torch.api import SenecaServer
+from repro_torch.data.pipeline import DSIPipeline
+from repro_torch.data.storage import RemoteStorage
+from repro_torch.data.synthetic import tiny
+
+ds = tiny(n=16)
+server = SenecaServer.for_dataset(
+    ds, use_ods=False, split=(0.5, 0.0, 0.5),
+    device_cache_bytes=16 * ds.augmented_bytes(),
+    hbm_split=(0.0, 0.0, 1.0), device="cpu")
+pipe = DSIPipeline(server.open_session(batch_size=8), RemoteStorage(ds),
+                   executor="device", sync_refills=True)
+batch = pipe.next_batch()
+assert tuple(batch["images"].shape) == (8, *ds.crop_hw, 3)
+assert np.isfinite(batch["images"].numpy()).all()
+pipe.stop()
+server.close()
+held = sorted(m for m in sys.modules if m.split(".")[0] in {blocked!r})
+assert not held, held
+print("ok")
+'''
+
+
+def test_port_runs_with_jax_and_reference_refused():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run(
+        [sys.executable, "-c", _CHILD.format(blocked=BLOCKED)],
+        cwd=str(ROOT), env=env, capture_output=True, text=True,
+        timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert proc.stdout.strip().endswith("ok")
+
+
+def _imports(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+@pytest.mark.parametrize("where", ["src/repro_torch", "chip_smoke.py"])
+def test_sources_import_nothing_of_jax_or_reference(where):
+    target = ROOT / where
+    files = sorted(target.rglob("*.py")) if target.is_dir() else [target]
+    assert files
+    bad = [(str(f.relative_to(ROOT)), mod) for f in files
+           for mod in _imports(f) if mod.split(".")[0] in BLOCKED]
+    assert not bad, bad
