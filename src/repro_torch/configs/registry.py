@@ -1,0 +1,51 @@
+"""Architecture registry: ``--arch <id>`` resolution.
+
+``get(arch_id)`` returns the full ModelConfig and ``get_reduced(arch_id)``
+the smoke-test config, as in the reference.  Every arch the reference
+knows is listed; only the dense and ssm families are ported so far, and
+asking for any other arch raises ``NotImplementedError``.  The
+reference's layout policy (``default_parallelism``) belongs to the
+distributed layer, which is not ported yet.
+"""
+from __future__ import annotations
+
+import importlib
+from typing import Dict, List
+
+from repro_torch.configs.base import ModelConfig
+
+#: arch id -> module of the port (None: not ported yet)
+_MODULES: Dict[str, "str | None"] = {
+    "seamless-m4t-large-v2": None,
+    "qwen1.5-32b": None,
+    "llama3-405b": None,
+    "qwen3-8b": "repro_torch.configs.qwen3_8b",
+    "deepseek-7b": None,
+    "deepseek-moe-16b": None,
+    "kimi-k2-1t-a32b": None,
+    "internvl2-2b": None,
+    "zamba2-1.2b": None,
+    "mamba2-1.3b": "repro_torch.configs.mamba2_1_3b",
+    "vit-huge": None,
+}
+
+
+def list_archs() -> List[str]:
+    return list(_MODULES)
+
+
+def _module(arch_id: str):
+    if arch_id not in _MODULES:
+        raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(_MODULES)}")
+    if _MODULES[arch_id] is None:
+        raise NotImplementedError(
+            f"arch {arch_id!r} is not ported yet; see ROADMAP.md")
+    return importlib.import_module(_MODULES[arch_id])
+
+
+def get(arch_id: str) -> ModelConfig:
+    return _module(arch_id).CONFIG
+
+
+def get_reduced(arch_id: str) -> ModelConfig:
+    return _module(arch_id).reduced()

@@ -1,0 +1,244 @@
+"""Transformer building blocks — functions over ParamDef-declared params.
+
+The port's twin of ``repro.models.layers``.  Conventions as there:
+
+* activations in the parameter type (bf16 by default), reductions, norms
+  and softmax accumulate in float32;
+* attention layout (B, S, H, hd); GQA groups q-heads over kv-heads;
+* every block has a full-sequence form and a single-token decode form.
+
+Full-sequence self-attention goes through K4 (``ops.flash_mha``): on a
+CUDA tensor the hand-written kernel, on a CPU tensor its plain twin.
+The reference's XLA paths (``_sdpa`` for short sequences,
+``blockwise_attention`` for long ones) compute the same function and are
+what the parity tests hold the port to.  Sliding windows
+and cross-attention (hence ``Sq != Sk``) belong to families not ported
+yet and raise ``NotImplementedError``.  One-token decode stays plain torch
+(``_sdpa``): the reference has no kernel for it.  There is no
+sharding: the port runs on one device.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.flash_attention.ops import flash_mha
+from repro_torch.models.params import ParamDef
+
+F32 = torch.float32
+NEG_INF = -1e30
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+def rmsnorm_def(d: int) -> ParamDef:
+    return ParamDef((d,), ("embed",), init="ones")
+
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
+    xf = x.to(F32)
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * scale.to(F32)).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embedding
+# ---------------------------------------------------------------------------
+
+def rotary(x: torch.Tensor, positions: torch.Tensor,
+           theta: float) -> torch.Tensor:
+    """x: (B, S, H, hd); positions: (S,) or (B, S)."""
+    hd = x.shape[-1]
+    half = hd // 2
+    freqs = 1.0 / (theta ** (torch.arange(0, half, dtype=F32,
+                                          device=x.device) / half))
+    if positions.dim() == 1:
+        ang = positions.to(F32)[:, None] * freqs[None, :]       # (S, half)
+        ang = ang[None, :, None, :]                              # (1,S,1,half)
+    else:
+        ang = positions.to(F32)[..., None] * freqs               # (B,S,half)
+        ang = ang[:, :, None, :]
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = x[..., :half].to(F32), x[..., half:].to(F32)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Attention
+# ---------------------------------------------------------------------------
+
+def attention_defs(cfg: ModelConfig, *, cross: bool = False) -> Dict:
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    H, K = cfg.n_heads, cfg.n_kv_heads
+    defs = {
+        "wq": ParamDef((d, H * hd), ("embed", "q_heads")),
+        "wk": ParamDef((d, K * hd), ("embed", "kv_heads")),
+        "wv": ParamDef((d, K * hd), ("embed", "kv_heads")),
+        "wo": ParamDef((H * hd, d), ("q_heads", "embed"),
+                       scale=1.0 / max(1, (2 * cfg.n_layers)) ** 0.5),
+    }
+    if cfg.qkv_bias and not cross:
+        defs["bq"] = ParamDef((H * hd,), ("q_heads",), init="zeros")
+        defs["bk"] = ParamDef((K * hd,), ("kv_heads",), init="zeros")
+        defs["bv"] = ParamDef((K * hd,), ("kv_heads",), init="zeros")
+    if cfg.qk_norm:
+        defs["q_norm"] = ParamDef((hd,), (None,), init="ones")
+        defs["k_norm"] = ParamDef((hd,), (None,), init="ones")
+    return defs
+
+
+def _project_qkv(p, x: torch.Tensor, kv_x: torch.Tensor, cfg: ModelConfig,
+                 positions, kv_positions, *, use_rope: bool = True):
+    B = x.shape[0]
+    hd = cfg.resolved_head_dim
+    H, K = cfg.n_heads, cfg.n_kv_heads
+    q = torch.matmul(x, p["wq"])
+    k = torch.matmul(kv_x, p["wk"])
+    v = torch.matmul(kv_x, p["wv"])
+    if "bq" in p:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q = q.reshape(B, -1, H, hd)
+    k = k.reshape(B, -1, K, hd)
+    v = v.reshape(B, -1, K, hd)
+    if "q_norm" in p:
+        q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
+        k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
+    if use_rope:
+        q = rotary(q, positions, cfg.rope_theta)
+        k = rotary(k, kv_positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _sdpa(q, k, v, mask, cfg: ModelConfig):
+    """Grouped scaled-dot-product attention. q:(B,Sq,H,hd) k/v:(B,Sk,K,hd).
+
+    Materializes (Sq, Sk) scores; the port uses it for one-token decode
+    only (full sequences go through K4).  The reference's ``_sdpa``
+    grouping, mask and softmax, in K4's arithmetic: inputs cast to
+    float32, scores scaled by ``1/sqrt(hd)``, float32 probabilities and
+    ``P·V``, one cast at the end.  The reference's decode shares its
+    forward's arithmetic (both run ``_sdpa``, which casts the
+    probabilities to the activation type); the port's forward runs K4,
+    so its decode takes K4's, and decode after prefill continues the
+    prefill's logits as closely as in the reference.
+    """
+    B, Sq, H, hd = q.shape
+    K = k.shape[2]
+    G = H // K if K else 1
+    qg = q.reshape(B, Sq, K, G, hd).to(F32)
+    scores = torch.einsum("bqkgh,bskh->bkgqs", qg, k.to(F32)) \
+        * (1.0 / hd ** 0.5)
+    if mask is not None:
+        scores = torch.where(mask, scores, torch.full((), NEG_INF,
+                                                      device=q.device))
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgqs,bskh->bqkgh", probs, v.to(F32))
+    return out.reshape(B, Sq, H, hd).to(q.dtype)
+
+
+def attention(p, x: torch.Tensor, cfg: ModelConfig, *,
+              positions: torch.Tensor, causal: bool, window: int = 0,
+              kv_x: Optional[torch.Tensor] = None,
+              kv_positions: Optional[torch.Tensor] = None,
+              use_rope: bool = True, return_kv: bool = False):
+    """Full-sequence self-attention (training / prefill) through K4."""
+    if window:
+        raise NotImplementedError(
+            "windowed attention (hybrid family) is not ported yet; see "
+            "ROADMAP.md")
+    if kv_x is not None or kv_positions is not None:
+        raise NotImplementedError(
+            "cross-attention (encdec family) is not ported yet; see "
+            "ROADMAP.md")
+    q, k, v = _project_qkv(p, x, x, cfg, positions, positions,
+                           use_rope=use_rope)
+    out = flash_mha(q, k, v, causal=causal)
+    out = out.reshape(x.shape[0], -1, cfg.n_heads * cfg.resolved_head_dim)
+    y = torch.matmul(out, p["wo"])
+    if return_kv:
+        return y, k, v
+    return y
+
+
+def attention_decode(p, x: torch.Tensor, cfg: ModelConfig, *,
+                     cache_k: torch.Tensor, cache_v: torch.Tensor,
+                     index: int, window: int = 0, use_rope: bool = True):
+    """One-token decode against a preallocated KV cache.
+
+    x: (B, 1, D); cache_k/v: (B, S_max, K, hd); index: the position.
+    Writes the new key and value at ``index`` in place (the reference
+    returns updated copies; the caller keeps only the new cache either
+    way) and returns ``(y, cache_k, cache_v)``.  Like the reference's
+    ``dynamic_update_slice``, a key of another type than the cache
+    raises ``TypeError``.
+    """
+    if window:
+        raise NotImplementedError(
+            "windowed decode (hybrid family) is not ported yet; see "
+            "ROADMAP.md")
+    B = x.shape[0]
+    hd = cfg.resolved_head_dim
+    pos = torch.full((1,), index, dtype=torch.int32, device=x.device)
+    q, k, v = _project_qkv(p, x, x, cfg, pos, pos, use_rope=use_rope)
+    if k.dtype != cache_k.dtype or v.dtype != cache_v.dtype:
+        raise TypeError(
+            f"the KV cache is {cache_k.dtype} and the new key/value "
+            f"{k.dtype}: the cache must have the activations' type")
+    cache_k[:, index] = k[:, 0]
+    cache_v[:, index] = v[:, 0]
+    S_max = cache_k.shape[1]
+    valid = torch.arange(S_max, device=x.device) <= index
+    mask = valid[None, None, None, None, :]
+    out = _sdpa(q, cache_k, cache_v, mask, cfg)
+    out = out.reshape(B, 1, cfg.n_heads * hd)
+    y = torch.matmul(out, p["wo"])
+    return y, cache_k, cache_v
+
+
+# ---------------------------------------------------------------------------
+# Gated MLP
+# ---------------------------------------------------------------------------
+
+def mlp_defs(cfg: ModelConfig, d_ff: Optional[int] = None) -> Dict:
+    d, f = cfg.d_model, d_ff or cfg.d_ff
+    return {
+        "wi_gate": ParamDef((d, f), ("embed", "mlp")),
+        "wi_up": ParamDef((d, f), ("embed", "mlp")),
+        "wo": ParamDef((f, d), ("mlp", "embed"),
+                       scale=1.0 / max(1, (2 * cfg.n_layers)) ** 0.5),
+    }
+
+
+def mlp(p, x: torch.Tensor) -> torch.Tensor:
+    g = torch.matmul(x, p["wi_gate"])
+    u = torch.matmul(x, p["wi_up"])
+    h = F.silu(g.to(F32)).to(x.dtype) * u
+    return torch.matmul(h, p["wo"])
+
+
+# ---------------------------------------------------------------------------
+# Embedding / logits
+# ---------------------------------------------------------------------------
+
+def embed_defs(cfg: ModelConfig, v_pad: int) -> Dict:
+    d = cfg.d_model
+    defs = {"tok": ParamDef((v_pad, d), ("vocab", "embed"), init="embed")}
+    if not cfg.tie_embeddings:
+        defs["head"] = ParamDef((d, v_pad), ("embed", "vocab"))
+    return defs
+
+
+def embed(p, tokens: torch.Tensor) -> torch.Tensor:
+    return p["tok"][tokens]
+
+
+def logits(p, x: torch.Tensor) -> torch.Tensor:
+    w = p["head"] if "head" in p else p["tok"].T
+    return torch.matmul(x, w)

@@ -1,0 +1,137 @@
+"""Parameter definitions of the port.
+
+Models declare their parameters once as a nested dict of
+:class:`ParamDef` (shape + logical axis names + initializer), as the
+reference's ``repro.models.params`` does.  From that one source the port
+derives
+
+* :class:`ParamTree` — an ``nn.Module`` holding the materialized tensors
+  at the same nested names (``blocks[i].attn.wq`` is the reference's
+  ``params["blocks"]["attn"]["wq"][i]``), so layer code indexes it like
+  the reference's dict;
+* :func:`init_tree` — seeded initialization from an explicit
+  ``torch.Generator`` on the generator's device, with the reference's
+  initializers and scales (fan-in scaled normal, ``embed`` x0.02,
+  ``zeros``, ``ones``).  The numbers differ from ``jax.random``'s; tests
+  that compare with the reference load its parameters instead
+  (:mod:`repro_torch.models.convert`).
+
+The logical axes are kept for the distributed layer, which is not ported
+yet.  Parameters are created with ``requires_grad=False``: this slice is
+the serving path; the training step (ROADMAP.md) turns gradients on.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+
+@dataclass(frozen=True)
+class ParamDef:
+    shape: Tuple[int, ...]
+    axes: Tuple[Optional[str], ...]
+    init: str = "normal"          # normal | zeros | ones | embed
+    scale: float = 1.0            # multiplier on the default fan-in scale
+    dtype: Any = None             # None -> use the model's param dtype
+
+    def __post_init__(self):
+        assert len(self.shape) == len(self.axes), (self.shape, self.axes)
+
+
+def init_leaf(generator: torch.Generator, d: ParamDef,
+              dtype: torch.dtype) -> torch.Tensor:
+    """One leaf on ``generator.device``, drawn in float32 then cast."""
+    dt = d.dtype or dtype
+    dev = generator.device
+    if d.init == "zeros":
+        return torch.zeros(d.shape, dtype=dt, device=dev)
+    if d.init == "ones":
+        return torch.ones(d.shape, dtype=dt, device=dev)
+    x = torch.randn(d.shape, generator=generator, dtype=torch.float32,
+                    device=dev)
+    if d.init == "embed":
+        return (x * (0.02 * d.scale)).to(dt)
+    # fan-in scaled normal (truncation unnecessary at these scales)
+    fan_in = d.shape[-2] if len(d.shape) >= 2 else d.shape[-1]
+    return (x * float(d.scale / np.sqrt(max(fan_in, 1)))).to(dt)
+
+
+@dataclass(frozen=True)
+class Stacked:
+    """``n`` layers of the same defs: the reference stacks them on a
+    leading ``layers`` axis for ``lax.scan``; the port keeps one
+    :class:`ParamTree` per layer in an ``nn.ModuleList``."""
+    n: int
+    defs: Dict[str, Any]
+
+
+def stack_defs(defs: Dict[str, Any], layers: int) -> Stacked:
+    return Stacked(layers, defs)
+
+
+class ParamTree(nn.Module):
+    """Nested parameters under the reference's names.  ``tree["wq"]``
+    and ``"wq" in tree`` work as on the reference's dict; a stacked
+    entry (``tree["blocks"]``) is an ``nn.ModuleList`` of layers.
+    Leaves are empty ``meta`` tensors until :func:`init_tree` (or a
+    load from the reference) fills them."""
+
+    def __init__(self, defs: Dict[str, Any]):
+        super().__init__()
+        self.defs = defs
+        for name, d in sorted(defs.items()):
+            if isinstance(d, ParamDef):
+                self.register_parameter(name, nn.Parameter(
+                    torch.empty(d.shape, device="meta"),
+                    requires_grad=False))
+            elif isinstance(d, Stacked):
+                self.add_module(name, nn.ModuleList(
+                    ParamTree(d.defs) for _ in range(d.n)))
+            else:
+                self.add_module(name, ParamTree(d))
+
+    def __getitem__(self, name: str):
+        return getattr(self, name)
+
+    def __contains__(self, name: str) -> bool:
+        return name in self.defs
+
+    def keys(self):
+        return sorted(self.defs)
+
+
+def init_tree(tree: ParamTree, generator: torch.Generator,
+              dtype: torch.dtype) -> None:
+    """Materialize every leaf of ``tree`` in sorted-name order (the
+    order the reference flattens its dict in)."""
+    for name in tree.keys():
+        d = tree.defs[name]
+        if isinstance(d, ParamDef):
+            setattr(tree, name, nn.Parameter(init_leaf(generator, d, dtype),
+                                             requires_grad=False))
+        elif isinstance(d, Stacked):
+            for layer in tree[name]:
+                init_tree(layer, generator, dtype)
+        else:
+            init_tree(tree[name], generator, dtype)
+
+
+def param_count(defs) -> int:
+    if isinstance(defs, ParamDef):
+        return int(np.prod(defs.shape))
+    if isinstance(defs, Stacked):
+        return defs.n * param_count(defs.defs)
+    return sum(param_count(d) for d in defs.values())
+
+
+def round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def padded_vocab(vocab: int, multiple: int = 2048) -> int:
+    """Pad vocab so embedding/logits shard 16-way with 128-lane alignment."""
+    return round_up(vocab, multiple)

@@ -1,0 +1,214 @@
+"""Model assembly: the port's twin of ``repro.models.transformer`` for
+the families ported so far, dense (qwen3) and ssm (mamba2).
+
+The reference scans over stacked per-layer params (``lax.scan``); the
+port loops over the ``nn.ModuleList`` of layers.  Every other family
+(moe, vlm, encdec/audio, hybrid, encoder) raises ``NotImplementedError``
+until it is ported (ROADMAP.md).
+
+Caches are dicts of stacked tensors with the reference's shapes and
+types.  Two differences of form, neither of result:
+
+* dense ``decode_step`` writes the new key and value into the cache in
+  place and returns the same dict (the reference returns an updated
+  copy; its callers keep only the new cache);
+* ssm ``prefill`` returns forward's logits and the cache it was given,
+  untouched — the reference does exactly this (its recurrent-state
+  prefill lives in the serving loop, which prefills token by token).
+"""
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import layers as lyr
+from repro_torch.models import ssm as ssm_mod
+from repro_torch.models.params import ParamDef, padded_vocab, stack_defs
+
+F32 = torch.float32
+PORTED_FAMILIES = ("dense", "ssm")
+
+
+def check_family(cfg: ModelConfig) -> None:
+    if cfg.family not in PORTED_FAMILIES:
+        raise NotImplementedError(
+            f"family {cfg.family!r} ({cfg.name}) is not ported yet; see "
+            f"ROADMAP.md")
+
+
+# ---------------------------------------------------------------------------
+# Param defs
+# ---------------------------------------------------------------------------
+
+def _block_defs(cfg: ModelConfig, *, ssm: bool = False) -> Dict:
+    d = {"ln1": lyr.rmsnorm_def(cfg.d_model)}
+    if ssm:
+        d["ssm"] = ssm_mod.ssm_defs(cfg)
+        return d
+    d["attn"] = lyr.attention_defs(cfg)
+    d["ln2"] = lyr.rmsnorm_def(cfg.d_model)
+    d["mlp"] = lyr.mlp_defs(cfg)
+    return d
+
+
+def param_defs(cfg: ModelConfig) -> Dict:
+    check_family(cfg)
+    v_pad = padded_vocab(cfg.vocab_size)
+    return {
+        "final_norm": lyr.rmsnorm_def(cfg.d_model),
+        "embed": lyr.embed_defs(cfg, v_pad),
+        "blocks": stack_defs(_block_defs(cfg, ssm=cfg.family == "ssm"),
+                             cfg.n_layers),
+    }
+
+
+# ---------------------------------------------------------------------------
+# Stacks (full-sequence)
+# ---------------------------------------------------------------------------
+
+def _attn_block(lp, x: torch.Tensor, cfg: ModelConfig, positions, *,
+                causal: bool, return_kv: bool = False):
+    h = lyr.rmsnorm(x, lp["ln1"], cfg.norm_eps)
+    a = lyr.attention(lp["attn"], h, cfg, positions=positions, causal=causal,
+                      return_kv=return_kv)
+    if return_kv:
+        a, k, v = a
+    x = x + a
+    h = lyr.rmsnorm(x, lp["ln2"], cfg.norm_eps)
+    x = x + lyr.mlp(lp["mlp"], h)
+    aux = torch.zeros((), dtype=F32, device=x.device)
+    if return_kv:
+        return x, aux, k, v
+    return x, aux
+
+
+def _ssm_block(lp, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    h = lyr.rmsnorm(x, lp["ln1"], cfg.norm_eps)
+    return x + ssm_mod.ssm_block(lp["ssm"], h, cfg)
+
+
+def run_decoder(params, x: torch.Tensor, cfg: ModelConfig, positions, *,
+                causal: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Run the main block stack. Returns (x, aux_loss)."""
+    check_family(cfg)
+    aux = torch.zeros((), dtype=F32, device=x.device)
+    for lp in params["blocks"]:
+        if cfg.family == "ssm":
+            x = _ssm_block(lp, x, cfg)
+        else:
+            x, a = _attn_block(lp, x, cfg, positions, causal=causal)
+            aux = aux + a
+    return x, aux
+
+
+# ---------------------------------------------------------------------------
+# Forward passes (prefill)
+# ---------------------------------------------------------------------------
+
+def forward(params, cfg: ModelConfig,
+            batch: Dict) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence forward. batch: {"tokens": (B, S) int}.  Returns
+    (logits (B, S, V_pad), aux_loss)."""
+    check_family(cfg)
+    x = lyr.embed(params["embed"], batch["tokens"])
+    positions = torch.arange(x.shape[1], device=x.device)
+    x, aux = run_decoder(params, x, cfg, positions, causal=True)
+    x = lyr.rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    return lyr.logits(params["embed"], x), aux
+
+
+# ---------------------------------------------------------------------------
+# KV / state caches + decode
+# ---------------------------------------------------------------------------
+
+def cache_defs(cfg: ModelConfig, B: int, s_max: int) -> Dict:
+    """Decode-state ParamDefs (init=zeros), as in the reference."""
+    check_family(cfg)
+    L = cfg.n_layers
+    bf16, f32 = torch.bfloat16, torch.float32
+    if cfg.family == "dense":
+        hd, K = cfg.resolved_head_dim, cfg.n_kv_heads
+        kv_axes = ("layers", "batch", "kv_seq", "act_kv", None)
+        return {
+            "k": ParamDef((L, B, s_max, K, hd), kv_axes, "zeros", dtype=bf16),
+            "v": ParamDef((L, B, s_max, K, hd), kv_axes, "zeros", dtype=bf16),
+        }
+    s = cfg.ssm
+    d_in = s.expand * cfg.d_model
+    nh = d_in // s.head_dim
+    return {
+        "h": ParamDef((L, B, nh, s.head_dim, s.d_state),
+                      ("layers", "batch", "act_inner", None, None),
+                      "zeros", dtype=f32),
+        "conv": ParamDef((L, B, s.d_conv - 1, d_in + 2 * s.d_state),
+                         ("layers", "batch", None, None), "zeros",
+                         dtype=bf16),
+    }
+
+
+def decode_step(params, cfg: ModelConfig, cache: Dict, tokens: torch.Tensor,
+                index: int) -> Tuple[torch.Tensor, Dict]:
+    """One-token decode. tokens: (B, 1) int; index: the position.
+
+    Returns (logits (B, 1, V_pad), new cache).  The dense family updates
+    ``cache`` in place and returns it; the ssm family returns new state
+    tensors (whose conv buffer takes the promoted type, as in the
+    reference).
+    """
+    check_family(cfg)
+    index = int(index)
+    x = lyr.embed(params["embed"], tokens)
+    if cfg.family == "dense":
+        for l, lp in enumerate(params["blocks"]):
+            h = lyr.rmsnorm(x, lp["ln1"], cfg.norm_eps)
+            a, _, _ = lyr.attention_decode(lp["attn"], h, cfg,
+                                           cache_k=cache["k"][l],
+                                           cache_v=cache["v"][l], index=index)
+            x = x + a
+            h = lyr.rmsnorm(x, lp["ln2"], cfg.norm_eps)
+            x = x + lyr.mlp(lp["mlp"], h)
+        new_cache = cache
+    else:
+        hs, convs = [], []
+        for l, lp in enumerate(params["blocks"]):
+            hh = lyr.rmsnorm(x, lp["ln1"], cfg.norm_eps)
+            y, h, conv = ssm_mod.ssm_decode_step(lp["ssm"], hh, cfg,
+                                                 cache["h"][l],
+                                                 cache["conv"][l])
+            x = x + y
+            hs.append(h)
+            convs.append(conv)
+        new_cache = {"h": torch.stack(hs), "conv": torch.stack(convs)}
+    x = lyr.rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    return lyr.logits(params["embed"], x), new_cache
+
+
+def prefill(params, cfg: ModelConfig, batch: Dict,
+            cache: Dict) -> Tuple[torch.Tensor, Dict]:
+    """Prefill: one forward pass that also fills the decode cache (dense;
+    positions past S are zero, as the reference pads them)."""
+    check_family(cfg)
+    if cfg.family == "ssm":
+        logits, _ = forward(params, cfg, batch)
+        return logits, cache
+
+    x = lyr.embed(params["embed"], batch["tokens"])
+    S = x.shape[1]
+    positions = torch.arange(S, device=x.device)
+    ks, vs = [], []
+    for lp in params["blocks"]:
+        x, _, k, v = _attn_block(lp, x, cfg, positions, causal=True,
+                                 return_kv=True)
+        ks.append(k)
+        vs.append(v)
+    x = lyr.rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    logits = lyr.logits(params["embed"], x)
+
+    new_cache = dict(cache)
+    for name, kv in (("k", ks), ("v", vs)):
+        full = torch.zeros_like(cache[name])
+        full[:, :, :S] = torch.stack(kv).to(full.dtype)
+        new_cache[name] = full
+    return logits, new_cache

@@ -6,9 +6,12 @@ a machine with an NVIDIA GPU with::
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-The kernels are pinned *bitwise* to their plain PyTorch versions and to
-the host path (``SyntheticDataset.decode`` then ``augment_np``): every
-step is integer arithmetic or a correctly rounded IEEE float32 op.
+The loader kernels (K1-K3) are pinned *bitwise* to their plain PyTorch
+versions and to the host path (``SyntheticDataset.decode`` then
+``augment_np``): every step is integer arithmetic or a correctly rounded
+IEEE float32 op.  Flash attention (K4) and the SSD scan (K5) sum in
+another order than their plain versions and are held to the reference's
+tolerances (``tests/test_kernels.py``); unsupported shapes raise.
 """
 import numpy as np
 import pytest
@@ -37,6 +40,9 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is "
                     "false)")
+    # float32 plain versions run in full float32, not TF32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
 
 
@@ -184,3 +190,90 @@ def test_device_executor_on_card(cuda):
         assert t.untyped_storage().nbytes() == part.hbm._sizes[key]
     pipe.stop()
     server.close()
+
+
+# ------------------------------------------------- K4 flash attention, K5 SSD
+def _attn_inputs(B, S, H, K, hd, dtype, dev, seed):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+            .to(dtype).to(dev)
+            for shape in ((B, S, H, hd), (B, S, K, hd), (B, S, K, hd))]
+
+
+@pytest.mark.parametrize("S,H,K,hd", [(16, 4, 2, 16), (77, 4, 4, 32),
+                                      (200, 8, 2, 64), (256, 8, 2, 128),
+                                      (129, 32, 8, 128)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_kernel_matches_plain(cuda, S, H, K, hd, dtype,
+                                              causal):
+    """2e-5 in float32, the reference's (tests/test_kernels.py:52): the
+    same float32 arithmetic, summed in another order.  In bfloat16 both
+    round the same float32 result once, so they differ by at most one
+    bf16 ulp, 2**-7 of the value (atol covers outputs near 0)."""
+    from repro_torch.kernels.flash_attention import kernel as fa
+    q, k, v = _attn_inputs(2, S, H, K, hd, dtype, cuda, S * hd)
+    n0 = fa.flash_attention.launches
+    out = fa.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == n0 + 1
+    assert out.dtype == dtype and out.shape == q.shape
+    plain = fa.flash_attention_plain(q, k, v, causal)
+    atol, rtol = (2e-5, 2e-5) if dtype == torch.float32 else \
+        (1e-3, 2.0 ** -7)
+    torch.testing.assert_close(out.float(), plain.float(), atol=atol,
+                               rtol=rtol)
+
+
+@pytest.mark.parametrize("S,P,N,chunk", [(64, 16, 16, 64), (100, 16, 16, 32),
+                                         (256, 64, 128, 256),
+                                         (300, 64, 128, 256)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_scan_kernel_matches_plain(cuda, S, P, N, chunk, dtype):
+    """The reference's tolerances (tests/test_kernels.py:89): 5e-4 in
+    float32, 5e-2 in bfloat16; the kernel's 32-row sub-chunks and the
+    plain version's chunks round differently."""
+    from repro_torch.kernels.ssd_scan import kernel as ssd_k
+    rng = np.random.default_rng(S + P)
+    B, nh = 2, 3
+
+    def t(a, dt=dtype):
+        return torch.from_numpy(a.astype(np.float32)).to(dt).to(cuda)
+
+    x = t(rng.standard_normal((B, S, nh, P)) * 0.5)
+    dt = t(np.log1p(np.exp(rng.standard_normal((B, S, nh)))), torch.float32)
+    A = t(-np.exp(rng.standard_normal(nh) * 0.3), torch.float32)
+    Bm = t(rng.standard_normal((B, S, N)) * 0.5)
+    Cm = t(rng.standard_normal((B, S, N)) * 0.5)
+    n0 = ssd_k.ssd_scan.launches
+    y, h = ssd_k.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd_k.ssd_scan.launches == n0 + 1
+    y_p, h_p = ssd_k.ssd_scan_plain(x, dt, A, Bm, Cm, chunk)
+    tol = 5e-4 if dtype == torch.float32 else 5e-2
+    assert y.dtype == dtype and h.dtype == torch.float32
+    torch.testing.assert_close(y.float(), y_p.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(h, h_p, atol=tol, rtol=tol)
+
+
+def test_k4_k5_reject_unsupported_cuda_shapes(cuda):
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.ssd_scan import kernel as ssd_k
+    for hd in (12, 136):
+        q, k, v = _attn_inputs(1, 8, 2, 2, hd, torch.float32, cuda, 0)
+        with pytest.raises(ValueError, match="head_dim"):
+            fa.flash_attention(q, k, v)
+    q, k, v = _attn_inputs(1, 8, 3, 2, 16, torch.float32, cuda, 0)
+    with pytest.raises(ValueError, match="group"):
+        fa.flash_attention(q, k, v)
+    with pytest.raises(ValueError, match="contiguous"):
+        q, k, v = _attn_inputs(1, 8, 2, 2, 16, torch.float32, cuda, 0)
+        fa.flash_attention(q.transpose(1, 2), k, v)
+    x = torch.zeros((1, 8, 1, 256), device=cuda)
+    dt = torch.zeros((1, 8, 1), device=cuda)
+    A = torch.zeros(1, device=cuda)
+    Bm = torch.zeros((1, 8, 256), device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        ssd_k.ssd_scan(x, dt, A, Bm, Bm)
+    with pytest.raises(TypeError):
+        ssd_k.ssd_scan(x, dt.double(), A, Bm, Bm)

@@ -1,0 +1,96 @@
+"""K4 flash attention of the port against the JAX package.
+
+The same inputs, drawn with numpy from a seed, go through the
+reference's Pallas ``flash_attention`` / ``flash_mha`` (interpret mode on
+the CPU, as ``tests/test_kernels.py`` runs them) and through the port's
+CPU path, the kernel's plain PyTorch version.  The port takes the model
+layout (B, S, H, hd); the reference kernel (B, H, S, hd), so the tests
+transpose.  Tolerances are the reference's own
+(``tests/test_kernels.py:52,69``): 2e-5 in float32 (the same float32
+arithmetic summed in another order) and 2e-2 in bfloat16 (one rounding
+of the output).
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels.flash_attention.kernel import \
+    flash_attention as ref_flash  # noqa: E402
+from repro.kernels.flash_attention.ops import flash_mha as ref_mha  # noqa: E402
+from repro.kernels.flash_attention.ref import attention_ref  # noqa: E402
+
+from repro_torch.kernels.flash_attention import kernel as fa  # noqa: E402
+from repro_torch.kernels.flash_attention.ops import flash_mha  # noqa: E402
+
+DTYPES = {"float32": (jnp.float32, torch.float32),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+
+
+def _draw(seed, *shapes):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal(s).astype(np.float32) for s in shapes]
+
+
+def _both(a, dtype):
+    jdt, tdt = DTYPES[dtype]
+    return jnp.asarray(a).astype(jdt), torch.from_numpy(a).to(tdt)
+
+
+@pytest.mark.parametrize("S,hd,qb", [(128, 32, 64), (256, 64, 128),
+                                     (192, 128, 64)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_plain_matches_pallas_sweep(S, hd, qb, dtype, causal):
+    B, H = 2, 2
+    arrs = _draw(S + hd, *[(B, H, S, hd)] * 3)
+    (qj, qt), (kj, kt), (vj, vt) = [_both(a, dtype) for a in arrs]
+    ref = ref_flash(qj, kj, vj, causal=causal, q_block=qb, k_block=qb)
+    out = fa.flash_attention(qt.transpose(1, 2).contiguous(),
+                             kt.transpose(1, 2).contiguous(),
+                             vt.transpose(1, 2).contiguous(), causal=causal)
+    assert out.dtype == DTYPES[dtype][1]
+    assert fa.flash_attention.launches == 0        # CPU: plain version
+    tol = 2e-5 if dtype == "float32" else 2e-2
+    np.testing.assert_allclose(out.transpose(1, 2).float().numpy(),
+                               np.asarray(ref, np.float32), atol=tol,
+                               rtol=tol)
+
+
+def test_flash_mha_gqa_matches_reference():
+    B, S, H, K, hd = 2, 128, 8, 2, 32
+    q, k, v = _draw(0, (B, S, H, hd), (B, S, K, hd), (B, S, K, hd))
+    ref = ref_mha(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                  causal=True)
+    out = flash_mha(torch.from_numpy(q), torch.from_numpy(k),
+                    torch.from_numpy(v), causal=True)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=2e-5,
+                               rtol=2e-5)
+
+
+@pytest.mark.parametrize("S", [1, 77])
+def test_any_sequence_length_matches_oracle(S):
+    """The reference kernel asserts S % block == 0; the port takes any S.
+    Held to the reference's float32 oracle ``attention_ref``."""
+    B, H, K, hd = 1, 4, 2, 16
+    q, k, v = _draw(S, (B, S, H, hd), (B, S, K, hd), (B, S, K, hd))
+    kf, vf = np.repeat(k, H // K, 2), np.repeat(v, H // K, 2)
+    ref = attention_ref(*[jnp.asarray(np.swapaxes(a, 1, 2))
+                          for a in (q, kf, vf)], causal=True)
+    out = flash_mha(*[torch.from_numpy(a) for a in (q, k, v)])
+    np.testing.assert_allclose(out.numpy(), np.swapaxes(np.asarray(ref), 1, 2),
+                               atol=2e-5, rtol=2e-5)
+
+
+def test_wrapper_checks_shapes():
+    q = torch.zeros((1, 4, 2, 12))
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_attention(q, q, q)
+    q = torch.zeros((1, 4, 3, 16))
+    k = torch.zeros((1, 4, 2, 16))
+    with pytest.raises(ValueError, match="group"):
+        fa.flash_attention(q, k, k)
+    with pytest.raises(TypeError):
+        fa.flash_attention(q.double(), k.double(), k.double())

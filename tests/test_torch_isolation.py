@@ -3,7 +3,8 @@
 The test process already holds jax (the parity tests import both
 packages), so the import check runs in a subprocess under a meta-path
 finder that refuses those packages, imports ``repro_torch``, drives one
-CPU device-executor batch and exits 0.  A static scan of the port's
+CPU device-executor batch, imports the serving path (models, server,
+CLI), runs one reduced qwen3-8b prefill and decode step, and exits 0.  A static scan of the port's
 sources backs it up for modules the run does not import.
 """
 import ast
@@ -49,6 +50,20 @@ assert tuple(batch["images"].shape) == (8, *ds.crop_hw, 3)
 assert np.isfinite(batch["images"].numpy()).all()
 pipe.stop()
 server.close()
+
+import torch
+import repro_torch.launch.serve
+import repro_torch.models
+import repro_torch.serve
+from repro_torch.configs import registry
+from repro_torch.models.model import build
+
+model = build(registry.get_reduced("qwen3-8b")).init(seed=0, device="cpu")
+tokens = torch.randint(0, 512, (2, 8), generator=torch.Generator().manual_seed(0))
+logits, cache = model.prefill({{"tokens": tokens}}, model.init_cache(2, 12))
+step, _ = model.decode_step(cache, tokens[:, :1], 8)
+assert logits.shape[:2] == (2, 8) and step.shape[:2] == (2, 1)
+assert torch.isfinite(step.float()).all()
 held = sorted(m for m in sys.modules if m.split(".")[0] in {blocked!r})
 assert not held, held
 print("ok")
