@@ -6,9 +6,11 @@
 reference's Pallas ``_flash_kernel`` computes: scores in float32 scaled
 by ``1/sqrt(hd)``, softmax with a float32 normalizer, float32 ``P·V``,
 one division by ``max(l, 1e-20)`` and one cast to q's type at the end.
-The plain version keeps the probabilities in float32 as the kernel
-does; the reference's oracle ``attention_ref`` casts them to q's type
-first, so in bfloat16 the two differ at the reference's 2e-2 tolerance.
+The plain version keeps the probabilities in float32; the float32 kernel
+does too, and the bfloat16 kernel (tensor cores) carries them as two
+bfloat16 parts, hi + lo, to ~2**-17.  The reference's oracle
+``attention_ref`` casts them to q's type first, so in bfloat16 the two
+differ at the reference's 2e-2 tolerance.
 
 Unlike the reference kernel, both take the model's layout, q (B, S, H,
 hd) and k/v (B, S, K, hd) with query head ``h`` reading kv head
@@ -26,9 +28,12 @@ from repro_torch.kernels.device import (check_launch, check_tensor,
 
 _DTYPES = (torch.float32, torch.bfloat16)
 NEG_INF = -1e30
-#: the largest head width the kernel stages (tiles are padded to 16, 32,
-#: 64 or 128 columns)
+#: the largest head width the kernels stage (float32 tiles are padded to
+#: 16, 32, 64 or 128 columns, bfloat16 TMA boxes to 64 or 128)
 MAX_HEAD_DIM = 128
+#: the bfloat16 kernel's host-side failures (negative return codes)
+_TMA_ERRORS = {-1: "the driver gave no cuTensorMapEncodeTiled entry point",
+               -2: "a TMA tensor map was refused by cuTensorMapEncodeTiled"}
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -93,10 +98,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     fn.restype = ctypes.c_int
     with torch.cuda.device(q.device):
         flash_attention.launches += 1
-        check_launch("flash_attention", fn(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S,
-            H, k.shape[2], hd, int(causal), 1.0 / math.sqrt(hd),
-            int(q.dtype == torch.bfloat16), stream_ptr(q)))
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B,
+                 S, H, k.shape[2], hd, int(causal), 1.0 / math.sqrt(hd),
+                 int(q.dtype == torch.bfloat16), stream_ptr(q))
+    if err in _TMA_ERRORS:
+        raise RuntimeError(f"CUDA kernel flash_attention: {_TMA_ERRORS[err]}")
+    check_launch("flash_attention", err)
     return out
 
 

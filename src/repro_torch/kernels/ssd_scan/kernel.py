@@ -8,12 +8,15 @@ in x's type and the final state h (B, nh, P, N) in float32, computed in
 float32.
 
 :func:`ssd_scan_plain` is a torch copy of ``_ssd_core``: chunked and
-vectorised over batch, chunks and heads, with the same arithmetic.  The
-kernel walks the sequence in sub-chunks of its own length (32 rows) with
-the state carried between them; y and h do not depend on the chunk
-length beyond rounding, so ``chunk`` sets the plain version's chunks and
-the kernel ignores it.  Unlike the reference (which asserts
-``S % chunk == 0``) both take any S: the plain version pads the last
+vectorised over batch, chunks and heads, with the same arithmetic.  For
+bfloat16 inputs (the models' type) the kernel runs the chunked SSD
+decomposition on the tensor cores with the chunks in parallel; its
+chunk length is :func:`kernel_chunk` of ``chunk`` (a multiple of 64, at
+most 256), and it takes P <= 64 and N <= 128, multiples of 16.  For
+float32 inputs it walks the sequence in 32-row sub-chunks with the state
+carried between them.  y and h do not depend on the chunk length beyond
+rounding.  Unlike the reference (which asserts ``S % chunk == 0``) both
+take any S: the plain version pads the last
 chunk with ``x = B = C = 0`` and ``dt = 0``, which leaves the state
 unchanged and contributes nothing.
 """
@@ -31,6 +34,15 @@ _DTYPES = (torch.float32, torch.bfloat16)
 #: a block's shared memory on an H100 (bytes)
 MAX_SMEM = 232_448
 F32 = torch.float32
+#: the bfloat16 kernel's limits: P and N multiples of 16, P <= 64, N <= 128
+MAX_P_BF16, MAX_N_BF16 = 64, 128
+
+
+def kernel_chunk(chunk: int, S: int) -> int:
+    """Chunk length of the bfloat16 kernel: ``chunk`` rounded up to a
+    multiple of 64, at most 256 and at most S rounded up to 64."""
+    up = lambda n: -(-max(n, 1) // 64) * 64  # noqa: E731
+    return min(up(chunk), 256, up(S))
 
 
 def ssd_scan_plain(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -97,8 +109,9 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     type), dt (B, S, nh) and A (nh,) float32, all contiguous -> (y
     (B, S, nh, P) in x's type, h (B, nh, P, N) float32).  A CUDA tensor
     launches the kernel (or raises); a CPU tensor takes the plain
-    version.  ``chunk`` sets only the plain version's chunk length: the
-    kernel walks its own 32-row sub-chunks."""
+    version.  ``chunk`` sets the plain version's chunk length and, through
+    :func:`kernel_chunk`, the bfloat16 kernel's; the float32 kernel walks
+    its own 32-row sub-chunks."""
     check_tensor("x", x, x.dtype, 4)
     if x.dtype not in _DTYPES:
         raise TypeError(f"x must be one of {_DTYPES}, got {x.dtype}")
@@ -117,24 +130,44 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         return ssd_scan_plain(x, dt, A, Bm, Cm, chunk)
     if x.device.type != "cuda":
         raise ValueError(f"no ssd_scan kernel for device {x.device}")
+    bf16 = x.dtype == torch.bfloat16
     lib = library("ssd_scan")
-    lib.repro_torch_ssd_scan_smem.argtypes = [ctypes.c_int, ctypes.c_int]
-    lib.repro_torch_ssd_scan_smem.restype = ctypes.c_longlong
-    if lib.repro_torch_ssd_scan_smem(P, N) > MAX_SMEM or Bsz > 65_535:
-        raise ValueError(f"state width P={P}, N={N} (or batch {Bsz}) is "
-                         f"beyond the kernel's shared memory or grid")
+    if bf16:
+        if P % 16 or N % 16 or P > MAX_P_BF16 or N > MAX_N_BF16:
+            raise ValueError(
+                f"state width P={P}, N={N}: the bfloat16 kernel takes P and N "
+                f"multiples of 16 with P <= {MAX_P_BF16}, N <= {MAX_N_BF16}")
+    else:
+        lib.repro_torch_ssd_scan_smem.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.repro_torch_ssd_scan_smem.restype = ctypes.c_longlong
+        if lib.repro_torch_ssd_scan_smem(P, N) > MAX_SMEM:
+            raise ValueError(f"state width P={P}, N={N} is beyond the "
+                             f"kernel's shared memory")
+    if Bsz * (-(-S // 64) if bf16 else 1) > 65_535:
+        raise ValueError(f"batch {Bsz} (x {S} rows) is beyond the kernel's "
+                         f"grid")
     y = torch.empty_like(x)
     h = torch.empty((Bsz, nh, P, N), dtype=F32, device=x.device)
+    L, scratch = kernel_chunk(chunk, S), None
+    if bf16:
+        # C.B^T per (batch, chunk), the chunk states and the states
+        # entering each chunk, carved by the library from one buffer
+        lib.repro_torch_ssd_scan_scratch.argtypes = [ctypes.c_int] * 6
+        lib.repro_torch_ssd_scan_scratch.restype = ctypes.c_longlong
+        scratch = torch.empty(
+            lib.repro_torch_ssd_scan_scratch(Bsz, S, nh, P, N, L),
+            dtype=torch.uint8, device=x.device)
     fn = lib.repro_torch_ssd_scan
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 \
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(x.device):
         ssd_scan.launches += 1
         check_launch("ssd_scan", fn(
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
-            Cm.data_ptr(), y.data_ptr(), h.data_ptr(), Bsz, S, nh, P, N,
-            int(x.dtype == torch.bfloat16), stream_ptr(x)))
+            Cm.data_ptr(), y.data_ptr(), h.data_ptr(),
+            0 if scratch is None else scratch.data_ptr(), Bsz, S, nh, P, N,
+            L, int(bf16), stream_ptr(x)))
     return y, h
 
 

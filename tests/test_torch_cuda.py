@@ -231,8 +231,9 @@ def test_flash_attention_kernel_matches_plain(cuda, S, H, K, hd, dtype,
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_ssd_scan_kernel_matches_plain(cuda, S, P, N, chunk, dtype):
     """The reference's tolerances (tests/test_kernels.py:89): 5e-4 in
-    float32, 5e-2 in bfloat16; the kernel's 32-row sub-chunks and the
-    plain version's chunks round differently."""
+    float32, 5e-2 in bfloat16; the kernel's chunks (32-row sub-chunks in
+    float32, multiples of 64 rows on the tensor cores in bfloat16) and
+    the plain version's chunks round differently."""
     from repro_torch.kernels.ssd_scan import kernel as ssd_k
     rng = np.random.default_rng(S + P)
     B, nh = 2, 3
@@ -256,6 +257,75 @@ def test_ssd_scan_kernel_matches_plain(cuda, S, P, N, chunk, dtype):
     torch.testing.assert_close(h, h_p, atol=tol, rtol=tol)
 
 
+def _k4_within_one_bf16_ulp(out, plain):
+    """The bf16 card check of K4 (as in chip_smoke.py): per element within
+    1e-3 + 2**-7 |x| of the plain version, relative RMS <= 2**-8."""
+    torch.testing.assert_close(out.float(), plain.float(), atol=1e-3,
+                               rtol=2.0 ** -7)
+    rel = (out.float() - plain.float()).norm() / plain.float().norm()
+    assert float(rel) <= 2.0 ** -8
+
+
+@pytest.mark.parametrize("S,hd,causal", [
+    (1024, 128, True),                       # qwen3-8b's prefill
+    (1000, 64, True), (1000, 64, False), (1025, 64, True),
+    (1025, 64, False), (1000, 128, True), (1000, 128, False),
+    (1025, 128, True), (1025, 128, False)])
+def test_flash_attention_bf16_tensor_cores_at_model_widths(cuda, S, hd,
+                                                           causal):
+    """The bfloat16 kernel (wgmma, TMA) at qwen3-8b's prefill shape
+    (4, 1024, 32 | 8, 128) and at ragged S on both sides of a 128-row
+    query tile, against its plain version within one bf16 ulp."""
+    from repro_torch.kernels.flash_attention import kernel as fa
+    B, H, K = (4, 32, 8) if S == 1024 else (2, 8, 2)
+    q, k, v = _attn_inputs(B, S, H, K, hd, torch.bfloat16, cuda, S + hd)
+    n0 = fa.flash_attention.launches
+    out = fa.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == n0 + 1
+    _k4_within_one_bf16_ulp(out, fa.flash_attention_plain(q, k, v, causal))
+
+
+def test_flash_attention_bf16_is_deterministic(cuda):
+    """Prefill logits must equal forward's bitwise, so two calls on the
+    same inputs give the same bits (no key is split across CTAs)."""
+    from repro_torch.kernels.flash_attention import kernel as fa
+    q, k, v = _attn_inputs(2, 1000, 8, 2, 128, torch.bfloat16, cuda, 5)
+    n0 = fa.flash_attention.launches
+    a = fa.flash_attention(q, k, v, causal=True)
+    b = fa.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == n0 + 2
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("S,chunk", [(1024, 256), (1000, 256)])
+def test_ssd_scan_bf16_tensor_cores_at_model_width(cuda, S, chunk):
+    """The bfloat16 kernel (chunks in parallel on the tensor cores) at
+    mamba2-1.3b's width (64 heads, P 64, N 128, chunk 256), at S 1024 and
+    at a ragged S, against its plain version at the reference's
+    tolerances: 5e-2 on y, 5e-4 on the float32 state."""
+    from repro_torch.kernels.ssd_scan import kernel as ssd_k
+    rng = np.random.default_rng(S)
+    B, nh, P, N = 2, 64, 64, 128
+
+    def t(a, dt=torch.bfloat16):
+        return torch.from_numpy(a.astype(np.float32)).to(dt).to(cuda)
+
+    x = t(rng.standard_normal((B, S, nh, P)))
+    dt = t(np.log1p(np.exp(rng.standard_normal((B, S, nh)))), torch.float32)
+    A = t(-np.exp(rng.standard_normal(nh) * 0.3), torch.float32)
+    Bm = t(rng.standard_normal((B, S, N)))
+    Cm = t(rng.standard_normal((B, S, N)))
+    n0 = ssd_k.ssd_scan.launches
+    y, h = ssd_k.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd_k.ssd_scan.launches == n0 + 1
+    y_p, h_p = ssd_k.ssd_scan_plain(x, dt, A, Bm, Cm, chunk)
+    torch.testing.assert_close(y.float(), y_p.float(), atol=5e-2, rtol=5e-2)
+    torch.testing.assert_close(h, h_p, atol=5e-4, rtol=5e-4)
+
+
 def test_k4_k5_reject_unsupported_cuda_shapes(cuda):
     from repro_torch.kernels.flash_attention import kernel as fa
     from repro_torch.kernels.ssd_scan import kernel as ssd_k
@@ -277,3 +347,7 @@ def test_k4_k5_reject_unsupported_cuda_shapes(cuda):
         ssd_k.ssd_scan(x, dt, A, Bm, Bm)
     with pytest.raises(TypeError):
         ssd_k.ssd_scan(x, dt.double(), A, Bm, Bm)
+    with pytest.raises(ValueError, match="multiples of 16"):
+        xb = torch.zeros((1, 8, 1, 24), device=cuda, dtype=torch.bfloat16)
+        Bb = torch.zeros((1, 8, 16), device=cuda, dtype=torch.bfloat16)
+        ssd_k.ssd_scan(xb, dt, A, Bb, Bb)
