@@ -11,12 +11,16 @@ into ``build/repro_torch/``), then:
    256x256 images, 224x224 crops) each kernel — K3 decode, K1 fused
    decode+augment, K2 augment (float32 and bfloat16 out) — is held
    bitwise against its plain PyTorch version on the card, K1 against K3
-   followed by K2, and timed with CUDA events beside its bound;
+   followed by K2, and timed with CUDA events (the L2 flushed before
+   each launch) beside its bound: the larger of its bytes at the memory
+   rate and its hash's integer operations at the integer pipes' rates;
 3. main path, augmented: ``SenecaServer.for_dataset(imagenet_like(n))``
    at n = ``N_AUGMENTED`` with an HBM tier sized for every augmented
    sample, the device executor at batch 256 for two epochs: every id
    once per epoch, rows equal to a CPU recomputation, zero h2d bytes in
-   the all-HBM epoch, K1 launched;
+   the all-HBM epoch, K1 launched; the cold epoch runs under
+   ``torch.profiler`` (device activity only), which gives K1's device
+   time in it and the card's idle share;
 4. main path, decoded hits: at n = ``N_DECODED`` every decoded form
    pre-warmed into the HBM tier through K3, one epoch through K2 with
    no cache or h2d bytes;
@@ -69,6 +73,26 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
 BF16_FLOPS_PER_S = 989e12
+#: integer lanes of one SM: the ALU pipe's 64 (shifts and logic
+#: operations), and the 128 thread-instructions its four schedulers issue
+#: per clock, which also carry the FMA pipe's multiplies and adds
+ALU_LANES_PER_SM = 64
+DISPATCH_LANES_PER_SM = 128
+#: operations per hashed byte of the counter hash
+#: (``src/repro_torch/csrc/decode.cu``'s note), as (on the ALU pipe, in
+#: all): three shifts and three xors on the ALU pipe, and the counter
+#: word, two multiplies and the mix add beside them; K1 also masks the
+#: byte into its table index, while K3's byte store needs no mask
+K3_HASH_OPS = (6, 10)
+K1_HASH_OPS = (7, 11)
+#: bytes written between two timed launches of a loader kernel, so each
+#: finds the 50 MB L2 holding none of its data
+L2_FLUSH_BYTES = 2 * 50 * 2**20
+#: cycles the card spins after a flush (~0.5 ms at 1.98 GHz), so the
+#: stream is still busy when the host has enqueued the timed launch: the
+#: flush alone drains in ~0.04 ms, less than a wrapper's host time, and
+#: the events would then time the host's enqueue as well
+SPIN_CYCLES = 1_000_000
 BATCH = 256
 #: samples of the augmented and the decoded-hit main-path runs
 #: (multiples of BATCH)
@@ -101,9 +125,13 @@ def nvcc_version() -> str:
     return out.stdout.strip().splitlines()[-1]
 
 
-def time_ms(fn, iters: int, warmup: int = 3) -> float:
+def time_ms(fn, iters: int, warmup: int = 3, flush=None) -> float:
     """Median milliseconds of ``fn()`` over ``iters`` launches, each
-    between its own pair of CUDA events, after ``warmup`` calls."""
+    between its own pair of CUDA events, after ``warmup`` calls.  With
+    ``flush`` (a device buffer) the buffer is written before each launch,
+    outside its events, so the launch starts with a cold L2, and the card
+    then spins ``SPIN_CYCLES`` so the start event waits for no host
+    work."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -111,6 +139,9 @@ def time_ms(fn, iters: int, warmup: int = 3) -> float:
     for _ in range(iters):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if flush is not None:
+            flush.fill_(1)
+            torch.cuda._sleep(SPIN_CYCLES)
         start.record()
         fn()
         end.record()
@@ -125,6 +156,28 @@ def bound(nbytes: int, flops: int, peak: float = FP32_FLOPS_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def sm_clocks_per_s() -> float:
+    """SMs x the card's maximum SM clock, read with ``nvidia-smi`` in
+    this run: times lanes per SM, an integer rate."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60, check=True)
+    mhz = float(out.stdout.strip().splitlines()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return sms * mhz * 1e6
+
+
+def int_ops_ms(hashed: int, ops, sm_clocks: float) -> float:
+    """Least milliseconds for the hash of ``hashed`` bytes at ``ops`` =
+    (ALU-pipe operations, all integer operations) per byte: the larger of
+    the ALU pipe's share at ``ALU_LANES_PER_SM`` and the whole at
+    ``DISPATCH_LANES_PER_SM``."""
+    alu, total = ops
+    return max(hashed * alu / (sm_clocks * ALU_LANES_PER_SM),
+               hashed * total / (sm_clocks * DISPATCH_LANES_PER_SM)) * 1e3
 
 
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -143,6 +196,11 @@ def kernel_phase(dev, seed: int):
     from repro_torch.kernels.decode.ops import (decode_params,
                                                 params_to_device)
 
+    sm_clocks = sm_clocks_per_s()
+    print(f"integer rates (SMs x clocks.max.sm x lanes): ALU pipe "
+          f"{sm_clocks * ALU_LANES_PER_SM / 1e12:.2f} T/s, issue "
+          f"{sm_clocks * DISPATCH_LANES_PER_SM / 1e12:.2f} T/s", flush=True)
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=dev)
     ds = imagenet_like(n=BATCH * 4)
     (H, W), (ch, cw) = ds.image_hw, ds.crop_hw
     rng = np.random.default_rng(seed)
@@ -177,10 +235,12 @@ def kernel_phase(dev, seed: int):
     rows["decode"] = dict(
         name="decode", route="cuda", source="src/repro_torch/csrc/decode.cu",
         replaces="src/repro/kernels/decode/kernel.py:47",
-        max_abs_err=max_abs_err(imgs, plain3), ms=time_ms(run_k3, 30),
+        max_abs_err=max_abs_err(imgs, plain3),
+        ms=time_ms(run_k3, 30, flush=flush),
         plain_ms=time_ms(lambda: decode_k.decode_plain(b_t, m_t, H, W), 5,
                          warmup=1),
-        nbytes=BATCH * H * W * 3 + 12 * BATCH, flops=0)
+        nbytes=BATCH * H * W * 3 + 12 * BATCH,
+        int_ms=int_ops_ms(BATCH * H * W * 3, K3_HASH_OPS, sm_clocks))
     del plain3
     for dtype, tag in ((torch.float32, ""), (torch.bfloat16, "_bf16")):
         size = torch.finfo(dtype).bits // 8
@@ -198,26 +258,33 @@ def kernel_phase(dev, seed: int):
             source="src/repro_torch/csrc/decode.cu",
             replaces="src/repro/kernels/decode/kernel.py:103",
             max_abs_err=max_abs_err(k1, plain1),
-            ms=time_ms(lambda: run_k1(dtype), 30),
+            ms=time_ms(lambda: run_k1(dtype), 30, flush=flush),
             plain_ms=time_ms(lambda: decode_k.decode_augment_plain(
                 *scalars, W, ch, cw, dtype), 5, warmup=1),
-            nbytes=n_out * size + scalar_bytes, flops=3 * n_out)
+            nbytes=n_out * size + scalar_bytes,
+            int_ms=int_ops_ms(n_out, K1_HASH_OPS, sm_clocks))
         rows["augment" + tag] = dict(
             name="augment" + tag, route="cuda",
             source="src/repro_torch/csrc/augment.cu",
             replaces="src/repro/kernels/augment/kernel.py:61",
             max_abs_err=max_abs_err(k2, plain2),
-            ms=time_ms(lambda: run_k2(dtype), 30),
+            ms=time_ms(lambda: run_k2(dtype), 30, flush=flush),
             plain_ms=time_ms(lambda: augment_k.augment_plain(
                 imgs, t_t, l_t, f_t, ch, cw, dtype), 5, warmup=1),
-            # the crop windows are what the function must read
-            nbytes=n_out + n_out * size + 12 * BATCH, flops=3 * n_out)
+            # the crop windows are what the function must read; it hashes
+            # nothing
+            nbytes=n_out + n_out * size + 12 * BATCH, int_ms=0.0)
         del k1, k2, plain1, plain2
+    del flush
     for row in rows.values():
-        row["bound_ms"], row["bound_by"] = bound(row.pop("nbytes"),
-                                                 row.pop("flops"))
+        nbytes, int_ms = row.pop("nbytes"), row.pop("int_ms")
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        row["bound_ms"], row["bound_by"] = (bytes_ms, "bytes") \
+            if bytes_ms >= int_ms else (int_ms, "operations")
         row["library_ms"] = None       # no single PyTorch call computes it
-        print_row(row, "bitwise equal to plain")
+        print_row(row, "bitwise equal to plain, L2 flushed before each "
+                  f"launch; bytes {bytes_ms:.4f} ms, integer operations "
+                  f"{int_ms:.4f} ms")
     return rows
 
 
@@ -310,6 +377,28 @@ def run_epoch(pipe, sess, ds, dev, n_batches, rng, n_picks=4):
     return ids, secs, picks
 
 
+def traced(fn):
+    """``fn()`` under ``torch.profiler`` with device activity only;
+    returns its result and the (name, start us, end us) of every kernel
+    and copy the card ran meanwhile, in any thread."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+    return out, [(e.name, e.time_range.start, e.time_range.end)
+                 for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+def busy_us(spans) -> float:
+    """Microseconds in which the card ran at least one of ``spans``."""
+    total, reach = 0.0, float("-inf")
+    for _, lo, hi in sorted(spans, key=lambda s: s[1]):
+        if hi > reach:
+            total += hi - max(lo, reach)
+            reach = hi
+    return total
+
+
 def main_path_augmented(dev, n: int, seed: int, card: str):
     from repro_torch.api import SenecaServer
     from repro_torch.data.pipeline import DSIPipeline
@@ -331,15 +420,23 @@ def main_path_augmented(dev, n: int, seed: int, card: str):
         results = []
         for epoch in range(2):
             h2d_before = tel.channel_total_bytes("h2d")
-            ids, secs, picks = run_epoch(pipe, sess, ds, dev, n // BATCH, rng)
+            if epoch == 0:
+                (ids, secs, picks), spans = traced(lambda: run_epoch(
+                    pipe, sess, ds, dev, n // BATCH, rng))
+            else:
+                ids, secs, picks = run_epoch(pipe, sess, ds, dev,
+                                             n // BATCH, rng)
             check(sorted(ids) == list(range(n)),
                   f"epoch {epoch + 1} did not serve every id once")
             check_rows(ds, picks, epoch_seeds=True)
             h2d = tel.channel_total_bytes("h2d") - h2d_before
             results.append((n / secs, h2d))
-            print(f"main path augmented, epoch {epoch + 1}: {n} samples in "
+            print(f"main path augmented, epoch {epoch + 1}"
+                  f"{' (traced)' if epoch == 0 else ''}: {n} samples in "
                   f"{secs:.3f} s = {n / secs:.1f} samples/s, h2d bytes "
                   f"{h2d} ({card})", flush=True)
+            if epoch == 0:
+                epoch_device_time(spans, secs)
         counts = read_counts()
         check(results[1][1] == 0,
               f"the all-HBM epoch moved {results[1][1]} h2d bytes")
@@ -353,6 +450,22 @@ def main_path_augmented(dev, n: int, seed: int, card: str):
     finally:
         pipe.stop()
         server.close()
+
+
+def epoch_device_time(spans, secs: float) -> None:
+    """K1's launches and device time in a traced epoch of ``secs``
+    seconds, and the share of it in which the card ran nothing."""
+    if not spans:
+        print("augmented epoch 1 device time: not measured (the profiler "
+              "saw no device activity)", flush=True)
+        return
+    k1 = [hi - lo for name, lo, hi in spans if "decode_augment_kernel" in name]
+    busy = busy_us(spans)
+    print(f"augmented epoch 1 device time (torch.profiler): K1 {len(k1)} "
+          f"launches, {sum(k1) / 1e3:.3f} ms ({sum(k1) / max(len(k1), 1):.1f}"
+          f" us each); all {len(spans)} kernels and copies busy "
+          f"{busy / 1e3:.3f} ms of the {secs:.3f} s epoch, idle "
+          f"{100 * (1 - busy / (secs * 1e6)):.3f}%", flush=True)
 
 
 def main_path_decoded(dev, n: int, seed: int, card: str):

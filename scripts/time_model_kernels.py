@@ -1,6 +1,6 @@
-"""Time K4 (flash attention) and K5 (SSD scan) alone on one NVIDIA GPU.
+"""Time the port's kernels alone on one NVIDIA GPU, with one-edit variants.
 
-    python3 scripts/time_model_kernels.py [--variants] [--seed N]
+    python3 scripts/time_model_kernels.py [--loader] [--variants] [--seed N]
 
 Builds the port's kernels from ``src/repro_torch/csrc`` as the port does
 (at first use, into ``build/repro_torch/``), then runs
@@ -8,13 +8,19 @@ Builds the port's kernels from ``src/repro_torch/csrc`` as the port does
 at mamba2-1.3b's forward shapes, each held against its plain version and
 timed with CUDA events beside its bound (and, for K4,
 ``scaled_dot_product_attention``).  It also prints the device time of each
-of K5's four launches (``torch.profiler``).
+of K5's four launches (``torch.profiler``).  With ``--loader`` it runs
+``chip_smoke.kernel_phase`` instead: K1-K3 at the loader's main-path
+shapes (batch 256, 256x256 -> 224x224), the L2 flushed before each launch.
 
-``--variants`` also builds, into ``build/variants/``, copies of the two
-sources with one edit each (``VARIANTS`` below) and times every copy
-beside the committed source on the same inputs, in turns (committed,
-variant, variant, committed).  A variant shows what one design choice
-costs; it may compute something else, so it is timed and not checked.
+``--variants`` also builds, into ``build/variants/``, copies of the
+sources (with ``common.cuh`` inlined) with one edit each (``VARIANTS``
+below: the model kernels' by default, the loader kernels' with
+``--loader``) and times every copy beside the committed source on the
+same inputs, in turns (committed, variant, variant, committed); K1 and
+K2 are called through the port's wrappers with the variant's library in
+place of the committed one, K4 and K5 through their C entry points.  A
+variant shows what one design choice costs; it may compute something
+else, so it is timed and not checked.
 """
 from __future__ import annotations
 
@@ -46,12 +52,33 @@ VARIANTS = {
         ("  if (c > 0) {\n    for (int k0 = 0; k0 < N; k0 += 16) {",
          "  if (false) {\n    for (int k0 = 0; k0 < N; k0 += 16) {")]),
 }
+#: the loader kernels' variants (K1 in decode.cu, K2 in augment.cu)
+LOADER_VARIANTS = {
+    # the hash rounds dropped: what K1's integer operations cost
+    "k1_no_hash": ("decode", [("return (hash_rounds(x) + mix) & 0xFFu;",
+                               "return (x + mix) & 0xFFu;")]),
+    # the table lookup replaced by its index: what the shared-memory
+    # lookups cost
+    "k1_no_table": ("decode", [(
+        "vals[t] = s_table[coff + src.pixel(cur)];",
+        "vals[t] = coff + src.pixel(cur);")]),
+    "k2_no_table": ("augment", [(
+        "vals[t] = s_table[coff + src.pixel(cur)];",
+        "vals[t] = coff + src.pixel(cur);")]),
+    # K2 without its staging loads (reads buffers never written)
+    "k2_no_loads": ("augment", [("stage_row(buf, src, row_len, lane);", "")]),
+    # K2 held to 32 registers, so eight blocks (64 warps) fit on an SM
+    "k2_8_blocks_per_sm": ("augment", [(
+        "__launch_bounds__(kLoaderWarps * 32)\n    augment_kernel",
+        "__launch_bounds__(kLoaderWarps * 32, 8)\n    augment_kernel")]),
+}
 
 
 def build_variant(name: str) -> ctypes.CDLL:
     from repro_torch.kernels.device import CSRC, NVCC_FLAGS, _nvcc
-    stem, edits = VARIANTS[name]
-    text = (CSRC / f"{stem}.cu").read_text()
+    stem, edits = {**VARIANTS, **LOADER_VARIANTS}[name]
+    text = (CSRC / f"{stem}.cu").read_text().replace(
+        '#include "common.cuh"', (CSRC / "common.cuh").read_text())
     for old, new in edits:
         if old not in text:
             raise RuntimeError(f"variant {name}: its edit no longer applies")
@@ -84,6 +111,48 @@ def model_inputs(dev, seed: int):
     A = -torch.exp(t(rng.standard_normal(64) * 0.3, torch.float32))
     Bm, Cm = (t(rng.standard_normal((SSM_B, SSM_S, 128))) for _ in range(2))
     return (q, k, v), (x, dt, A, Bm, Cm)
+
+
+def loader_inputs(dev, seed: int):
+    """K1's five (256,) scalars at 256x256 -> 224x224, and K3's decoded
+    images of them for K2."""
+    from chip_smoke import BATCH
+    from repro_torch.kernels.decode import kernel as decode_k
+    rng = np.random.default_rng(seed)
+    scalars = [torch.from_numpy(a).to(dev) for a in (
+        rng.integers(0, 2**32, BATCH, dtype=np.int64),
+        rng.integers(0, 256, BATCH, dtype=np.int32),
+        rng.integers(0, 256 - 224 + 1, BATCH, dtype=np.int32),
+        rng.integers(0, 256 - 224 + 1, BATCH, dtype=np.int32),
+        rng.integers(0, 2, BATCH, dtype=np.int32))]
+    return scalars, decode_k.decode(*scalars[:2], h=256, w=256)
+
+
+def loader_launcher(lib: ctypes.CDLL, stem: str, scalars, imgs,
+                    out_dtype: torch.dtype):
+    """A no-argument call of the port's K1 (``decode``) or K2
+    (``augment``) wrapper that launches from ``lib`` instead of the
+    committed library."""
+    from repro_torch.kernels import device
+    from repro_torch.kernels.augment import kernel as augment_k
+    from repro_torch.kernels.decode import kernel as decode_k
+    crop = dict(crop_h=224, crop_w=224, out_dtype=out_dtype)
+    if stem == "decode":
+        def run():
+            return decode_k.decode_augment(*scalars, img_h=256, img_w=256,
+                                           **crop)
+    else:
+        def run():
+            return augment_k.augment(imgs, *scalars[2:], **crop)
+
+    def call():
+        committed = device.build_all()[stem]
+        device._libraries[stem] = lib
+        try:
+            run()
+        finally:
+            device._libraries[stem] = committed
+    return call
 
 
 def launcher(lib: ctypes.CDLL, stem: str, attn, ssm):
@@ -151,6 +220,8 @@ def k5_split(dev, ssm) -> None:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--loader", action="store_true",
+                    help="K1-K3 and their variants instead of K4/K5")
     ap.add_argument("--variants", action="store_true")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
@@ -162,19 +233,40 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     print(f"card: {chip_smoke.card_line()}", flush=True)
     libs = build_all()
-    chip_smoke.model_kernel_phase(dev, args.seed)
-    attn, ssm = model_inputs(dev, args.seed)
-    k5_split(dev, ssm)
+    if args.loader:
+        chip_smoke.kernel_phase(dev, args.seed)
+        scalars, imgs = loader_inputs(dev, args.seed)
+        flush = torch.empty(chip_smoke.L2_FLUSH_BYTES, dtype=torch.uint8,
+                            device=dev)
+
+        def make(lib, stem, dtype):
+            return loader_launcher(lib, stem, scalars, imgs, dtype)
+
+        variants, dtypes = LOADER_VARIANTS, (torch.float32, torch.bfloat16)
+    else:
+        chip_smoke.model_kernel_phase(dev, args.seed)
+        attn, ssm = model_inputs(dev, args.seed)
+        k5_split(dev, ssm)
+        flush = None
+
+        def make(lib, stem, dtype):
+            return launcher(lib, stem, attn, ssm)
+
+        variants, dtypes = VARIANTS, (None,)
     if args.variants:
-        for name, (stem, _) in VARIANTS.items():
-            base = launcher(libs[stem], stem, attn, ssm)
-            var = launcher(build_variant(name), stem, attn, ssm)
-            times = [chip_smoke.time_ms(fn, 20) for fn in (base, var, var,
-                                                           base)]
-            print(f"variant {name}: {(times[1] + times[2]) / 2:.4f} ms "
-                  f"against {(times[0] + times[3]) / 2:.4f} ms for the "
-                  f"committed {stem}.cu (turns: "
-                  + ", ".join(f"{t:.4f}" for t in times) + ")", flush=True)
+        for name, (stem, _) in variants.items():
+            lib = build_variant(name)
+            for dtype in dtypes:
+                base = make(libs[stem], stem, dtype)
+                var = make(lib, stem, dtype)
+                times = [chip_smoke.time_ms(fn, 20, flush=flush)
+                         for fn in (base, var, var, base)]
+                tag = "" if dtype is None else f" ({dtype})"
+                print(f"variant {name}{tag}: {(times[1] + times[2]) / 2:.4f} "
+                      f"ms against {(times[0] + times[3]) / 2:.4f} ms for the "
+                      f"committed {stem}.cu (turns: "
+                      + ", ".join(f"{t:.4f}" for t in times) + ")",
+                      flush=True)
     return 0
 
 

@@ -10,18 +10,32 @@
 //   (a flip mirrors the source column), then (u8 + mix) % 256, /255 and
 //   the per-channel normalize -> (B, ch, cw, 3) float32 or bfloat16.
 //
-// Bound on an H100 (3.35 TB/s): both kernels read nothing but five
-// scalars per sample, so they are store-bound. At the main path's
-// shapes (B=256, 256x256 -> 224x224) K3 writes 50.3 MB (~15 us) and K1
-// writes 154.1 MB of float32 (~46 us). The hash is ~10 integer
-// operations per byte, far below the integer rate.
+// Bound on an H100 SXM at its 700 W limit (data sheet: 3.35 TB/s; 132
+// SMs at the 1.98 GHz maximum SM clock): both kernels read nothing but
+// five scalars per sample.  Each hashed byte costs three shifts and three
+// xors on the ALU pipe (64 lanes per SM, 16.7 T operations/s), plus the
+// mask of the table index in K1 (K3's byte store needs none), and beside
+// them on the FMA pipe the counter word (one add when the counter steps),
+// two multiplies and the mix add: 10 integer operations in K3 and 11 in
+// K1, against an issue rate of 128 lanes per SM (33.5 T/s).  The ALU
+// pipe's share is the longer.  At the main path's shapes (B=256,
+// 256x256 -> 224x224):
+//   K3 writes 50.3 MB (15 us) and hashes 50.3 M bytes, 6 ALU operations
+//     each (18 us): bound by integer operations;
+//   K1 writes 154.1 MB of float32 (46 us) or 77.1 MB of bfloat16 (23 us)
+//     and hashes 38.5 M bytes, 7 ALU operations each (16 us): bound by
+//     bytes in both.
 //
-// Design: one thread per output element on a flat grid. For K3 the
-// element's offset inside its image IS the counter index, so neighbour
-// threads store neighbour bytes (coalesced). For K1 neighbour threads
-// write neighbour floats along cw*3. Nothing is staged in shared
-// memory: there is nothing to reuse. Making these faster (wider stores,
-// several elements per thread) is later work.
+// Design of K1: one warp per output row (common.cuh write_row), a grid of
+// (image, tile of 8 rows), so the five scalars and all 64-bit arithmetic
+// are per block and every index inside an image is 32-bit.  A lane writes
+// 16-byte vectors (4 floats or 8 bfloat16) with one division by 3 per
+// vector; per element it steps the counter word by one add, runs the hash
+// rounds and reads the normalize from a 768-entry table in shared memory
+// (no float division on the card; the table is built by the wrapper).
+// Unaligned row ends go element by element.  K3 is the first form: one
+// thread per output byte on a flat grid, the byte's offset in its image
+// being its counter index.
 #include <cuda_runtime.h>
 
 #include "common.cuh"
@@ -40,27 +54,49 @@ __global__ void decode_kernel(const int64_t* __restrict__ bases,
   out[e] = static_cast<uint8_t>(decode_byte(base, mixes[b], idx));
 }
 
-template <typename OutT>
-__global__ void decode_augment_kernel(
-    const int64_t* __restrict__ bases, const int32_t* __restrict__ mixes,
-    const int32_t* __restrict__ tops, const int32_t* __restrict__ lefts,
-    const int32_t* __restrict__ flips, OutT* __restrict__ out, int img_w,
-    int crop_h, int crop_w, int64_t total) {
-  const int64_t e = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (e >= total) return;
-  const int64_t per_image = static_cast<int64_t>(crop_h) * crop_w * 3;
-  const int64_t b = e / per_image;
-  const int rem = static_cast<int>(e - b * per_image);
-  const int i = rem / (crop_w * 3);
-  const int j = (rem / 3) % crop_w;
-  const int c = rem % 3;
-  const int src_j = flips[b] != 0 ? crop_w - 1 - j : j;
-  const uint32_t row = static_cast<uint32_t>(tops[b] + i);
-  const uint32_t col = static_cast<uint32_t>(lefts[b] + src_j);
-  const uint32_t idx = (row * static_cast<uint32_t>(img_w) + col) * 3u +
-                       static_cast<uint32_t>(c);
-  const uint32_t pix = decode_byte(static_cast<uint32_t>(bases[b]), mixes[b], idx);
-  out[e] = from_float<OutT>(normalize(pix, c));
+// K1's source: the counter hash of the crop row's source pixels; the
+// cursor is the counter word base + idx * kHashStep itself, so a step of
+// the offset is one add.
+struct HashRow {
+  uint32_t x_row;  // base + (first source index of the row) * kHashStep
+  uint32_t mix;
+  __device__ __forceinline__ uint32_t at(int off) const {
+    return x_row + static_cast<uint32_t>(off) * kHashStep;
+  }
+  __device__ __forceinline__ uint32_t step(int d) const {
+    return static_cast<uint32_t>(d) * kHashStep;
+  }
+  __device__ __forceinline__ uint32_t pixel(uint32_t x) const {
+    return (hash_rounds(x) + mix) & 0xFFu;
+  }
+};
+
+// Grid (batch, tiles of kLoaderWarps rows); warp w writes row
+// tile * kLoaderWarps + w of its image.
+template <typename Bits>
+__global__ void __launch_bounds__(kLoaderWarps * 32)
+    decode_augment_kernel(const int64_t* __restrict__ bases,
+                          const int32_t* __restrict__ mixes,
+                          const int32_t* __restrict__ tops,
+                          const int32_t* __restrict__ lefts,
+                          const int32_t* __restrict__ flips,
+                          const Bits* __restrict__ table, Bits* __restrict__ out,
+                          int img_w, int crop_h, int crop_w) {
+  __shared__ Bits s_table[kTableSize];
+  load_table(s_table, table);
+  const int b = blockIdx.x;
+  const uint32_t base = static_cast<uint32_t>(bases[b]);
+  const uint32_t mix = static_cast<uint32_t>(mixes[b]);
+  const int top = tops[b], left = lefts[b];
+  const bool flip = flips[b] != 0;
+  const int i = blockIdx.y * kLoaderWarps + (threadIdx.x >> 5);
+  if (i >= crop_h) return;
+  const int row_len = 3 * crop_w;
+  Bits* row = out + static_cast<int64_t>(b) * crop_h * row_len + i * row_len;
+  const uint32_t idx0 = (static_cast<uint32_t>(top + i) * static_cast<uint32_t>(img_w) +
+                         static_cast<uint32_t>(left)) * 3u;
+  write_row(row, crop_w, flip, s_table, HashRow{base + idx0 * kHashStep, mix},
+            threadIdx.x & 31);
 }
 
 }  // namespace repro_torch
@@ -80,22 +116,21 @@ extern "C" int repro_torch_decode(const int64_t* bases, const int32_t* mixes,
 
 extern "C" int repro_torch_decode_augment(const int64_t* bases, const int32_t* mixes,
                                           const int32_t* tops, const int32_t* lefts,
-                                          const int32_t* flips, void* out, int batch,
-                                          int img_w, int crop_h, int crop_w,
-                                          int out_bf16, void* stream) {
-  const int64_t total = static_cast<int64_t>(batch) * crop_h * crop_w * 3;
-  if (total > 0) {
+                                          const int32_t* flips, const void* table,
+                                          void* out, int batch, int img_w, int crop_h,
+                                          int crop_w, int out_bf16, void* stream) {
+  using namespace repro_torch;
+  if (batch > 0 && crop_h > 0 && crop_w > 0) {
     const auto s = static_cast<cudaStream_t>(stream);
-    const unsigned int grid = repro_torch::grid_for(total);
+    const dim3 grid(batch, (crop_h + kLoaderWarps - 1) / kLoaderWarps);
     if (out_bf16) {
-      repro_torch::decode_augment_kernel<__nv_bfloat16>
-          <<<grid, repro_torch::kThreads, 0, s>>>(
-              bases, mixes, tops, lefts, flips, static_cast<__nv_bfloat16*>(out),
-              img_w, crop_h, crop_w, total);
+      decode_augment_kernel<uint16_t><<<grid, kLoaderWarps * 32, 0, s>>>(
+          bases, mixes, tops, lefts, flips, static_cast<const uint16_t*>(table),
+          static_cast<uint16_t*>(out), img_w, crop_h, crop_w);
     } else {
-      repro_torch::decode_augment_kernel<float><<<grid, repro_torch::kThreads, 0, s>>>(
-          bases, mixes, tops, lefts, flips, static_cast<float*>(out), img_w, crop_h,
-          crop_w, total);
+      decode_augment_kernel<uint32_t><<<grid, kLoaderWarps * 32, 0, s>>>(
+          bases, mixes, tops, lefts, flips, static_cast<const uint32_t*>(table),
+          static_cast<uint32_t*>(out), img_w, crop_h, crop_w);
     }
   }
   return static_cast<int>(cudaGetLastError());

@@ -2,15 +2,20 @@
 
 :func:`augment` (K2) launches the hand-written kernel of
 ``csrc/augment.cu`` for CUDA tensors and takes :func:`augment_plain` for
-CPU tensors.  Both divide for real (``x / 255``, then
-``(x - mean) / std``), so they match ``augment_np`` bitwise in float32.
-The plain version divides by tensors, never by a Python scalar:
-PyTorch's CUDA division by a CPU scalar multiplies by its reciprocal,
-which is not the IEEE quotient.
+CPU tensors.  The plain version divides for real (``x / 255``, then
+``(x - mean) / std``), so it matches ``augment_np`` bitwise in float32;
+it divides by tensors, never by a Python scalar: PyTorch's CUDA division
+by a CPU scalar multiplies by its reciprocal, which is not the IEEE
+quotient.  The kernels K1 and K2 divide nothing: they read the
+normalize of each (channel, pixel value) from :func:`normalize_table`,
+which :func:`normalize_plain` builds on the CPU, so they match the plain
+versions bitwise by construction.
 """
 from __future__ import annotations
 
 import ctypes
+import threading
+from typing import Dict, Tuple
 
 import torch
 
@@ -19,6 +24,9 @@ from repro_torch.kernels.device import (check_launch, check_tensor,
                                         library, stream_ptr)
 
 _OUT_DTYPES = (torch.float32, torch.bfloat16)
+
+_tables: Dict[Tuple[torch.device, torch.dtype], torch.Tensor] = {}
+_tables_lock = threading.Lock()
 
 
 def normalize_plain(pix: torch.Tensor,
@@ -31,6 +39,22 @@ def normalize_plain(pix: torch.Tensor,
     std = torch.from_numpy(STD).to(dev)
     x = pix.to(torch.float32) / torch.tensor(255.0, device=dev)
     return ((x - mean) / std).to(out_dtype)
+
+
+def normalize_table(device, out_dtype: torch.dtype) -> torch.Tensor:
+    """The normalize as a (768,) ``out_dtype`` table on ``device``: entry
+    ``c * 256 + p`` is :func:`normalize_plain` of pixel value ``p`` in
+    channel ``c``.  Built on the CPU once per (device, dtype) and kept,
+    so the kernels read it from where they run."""
+    key = (torch.device(device), out_dtype)
+    with _tables_lock:
+        table = _tables.get(key)
+        if table is None:
+            pix = torch.arange(256, dtype=torch.int64)[:, None].expand(256, 3)
+            table = normalize_plain(pix, out_dtype).t().contiguous() \
+                .reshape(-1).to(key[0])
+            _tables[key] = table
+    return table
 
 
 def augment_plain(images: torch.Tensor, tops: torch.Tensor,
@@ -75,18 +99,23 @@ def augment(images: torch.Tensor, tops: torch.Tensor, lefts: torch.Tensor,
                              out_dtype)
     if images.device.type != "cuda":
         raise ValueError(f"no augment kernel for device {images.device}")
+    if H * W * 3 >= 2**31:
+        raise ValueError(f"images of {H}x{W} exceed the kernel's 32-bit "
+                         f"indices")
+    table = normalize_table(images.device, out_dtype)
     out = torch.empty((B, crop_h, crop_w, 3), dtype=out_dtype,
                       device=images.device)
     fn = library("augment").repro_torch_augment
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 \
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(images.device):
         augment.launches += 1
         check_launch("augment", fn(
             images.data_ptr(), tops.data_ptr(), lefts.data_ptr(),
-            flips.data_ptr(), out.data_ptr(), B, H, W, crop_h, crop_w,
-            int(out_dtype == torch.bfloat16), stream_ptr(images)))
+            flips.data_ptr(), table.data_ptr(), out.data_ptr(), B, H, W,
+            crop_h, crop_w, int(out_dtype == torch.bfloat16),
+            stream_ptr(images)))
     return out
 
 

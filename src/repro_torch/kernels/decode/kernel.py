@@ -19,7 +19,8 @@ import ctypes
 import torch
 
 from repro_torch.data.synthetic import _HASH_M1, _HASH_M2, _HASH_STEP
-from repro_torch.kernels.augment.kernel import normalize_plain
+from repro_torch.kernels.augment.kernel import (normalize_plain,
+                                                normalize_table)
 from repro_torch.kernels.device import (check_launch, check_tensor,
                                         library, stream_ptr)
 
@@ -133,18 +134,22 @@ def decode_augment(bases: torch.Tensor, mixes: torch.Tensor,
     if bases.device.type != "cuda":
         raise ValueError(f"no decode_augment kernel for device "
                          f"{bases.device}")
+    if crop_h * crop_w * 3 >= 2**31:
+        raise ValueError(f"crops of {crop_h}x{crop_w} exceed the kernel's "
+                         f"32-bit indices")
+    table = normalize_table(bases.device, out_dtype)
     out = torch.empty((bases.shape[0], crop_h, crop_w, 3), dtype=out_dtype,
                       device=bases.device)
     fn = library("decode").repro_torch_decode_augment
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 \
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(bases.device):
         decode_augment.launches += 1
         check_launch("decode_augment", fn(
             bases.data_ptr(), mixes.data_ptr(), tops.data_ptr(),
-            lefts.data_ptr(), flips.data_ptr(), out.data_ptr(),
-            bases.shape[0], img_w, crop_h, crop_w,
+            lefts.data_ptr(), flips.data_ptr(), table.data_ptr(),
+            out.data_ptr(), bases.shape[0], img_w, crop_h, crop_w,
             int(out_dtype == torch.bfloat16), stream_ptr(bases)))
     return out
 

@@ -6,13 +6,17 @@ the kernel) is *bitwise* the reference's host ``augment_batch_np``: both
 divide with IEEE float32.  Against the Pallas ``augment`` (interpret
 mode, XLA on the CPU) it is held to the reference's own 2e-6 in float32,
 the size of the one-ulp gap XLA's division leaves, and to one bfloat16
-ulp in bfloat16, where that gap can flip one rounding.
+ulp in bfloat16, where that gap can flip one rounding.  The kernels' own
+normalize, a 768-entry table, is held to the same contracts at every
+pixel value of every channel.
 """
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro.data.augment import MEAN as REF_MEAN  # noqa: E402
+from repro.data.augment import STD as REF_STD  # noqa: E402
 from repro.data.augment import augment_batch_np as ref_augment_np  # noqa: E402
 from repro.kernels.augment.ops import \
     augment_batch_seeded as ref_augment  # noqa: E402
@@ -64,6 +68,91 @@ def test_augment_against_pallas(out_dtype):
     else:
         ulp = np.spacing(np.abs(pallas)) * np.float32(2**16)
         assert np.all(np.abs(port - pallas) <= ulp)
+
+
+def _all_values_image() -> np.ndarray:
+    """(1, 16, 16, 3) uint8 holding every value 0..255 in each channel,
+    pixel p at row p // 16, column p % 16."""
+    return np.repeat(np.arange(256, dtype=np.uint8).reshape(16, 16, 1), 3,
+                     axis=2)[None]
+
+
+def _host_normalize() -> np.ndarray:
+    """(3, 256) float32: the reference's host float pipeline
+    (``augment_np``: ``(np.float32(p) / 255.0 - MEAN) / STD``) at every
+    pixel value of every channel."""
+    x = _all_values_image()[0].reshape(256, 3).astype(np.float32) / 255.0
+    return ((x - REF_MEAN) / REF_STD).T
+
+
+def _bf16_rne_bits(f32: np.ndarray) -> np.ndarray:
+    """float32 -> bfloat16 bit patterns, rounded to nearest even."""
+    bits = f32.view(np.uint32).astype(np.uint64)
+    return ((bits + 0x7FFF + ((bits >> 16) & 1)) >> 16).astype(np.uint16)
+
+
+@pytest.mark.parametrize("out_dtype", ["float32", "bfloat16"])
+def test_normalize_table_exact(out_dtype):
+    """The kernels' 768-entry table is the host pipeline exactly: bitwise
+    in float32, and that value rounded to nearest even in bfloat16; and it
+    is ``normalize_plain`` of the all-values image."""
+    dtype = getattr(torch, out_dtype)
+    table = augment_k.normalize_table("cpu", dtype)
+    assert table.shape == (768,) and table.dtype == dtype
+    host = _host_normalize()
+    if out_dtype == "float32":
+        np.testing.assert_array_equal(
+            table.numpy().reshape(3, 256).view(np.uint32),
+            host.view(np.uint32))
+    else:
+        np.testing.assert_array_equal(
+            table.view(torch.int16).numpy().reshape(3, 256).view(np.uint16),
+            _bf16_rne_bits(host))
+    plain = augment_k.normalize_plain(
+        torch.from_numpy(_all_values_image()[0].reshape(256, 3)), dtype)
+    assert torch.equal(table.reshape(3, 256), plain.t())
+
+
+@pytest.mark.parametrize("out_dtype", ["float32", "bfloat16"])
+def test_normalize_table_against_pallas(out_dtype):
+    """The table against the reference's Pallas ``augment`` (interpret
+    mode) on the all-values image, uncropped: within the reference's own
+    2e-6 in float32 and one bfloat16 ulp (its contract with its Pallas
+    kernel, which is not bitwise)."""
+    import jax.numpy as jnp
+    from repro.kernels.augment.kernel import augment as ref_pallas_augment
+    img = _all_values_image()
+    zero = jnp.zeros(1, jnp.int32)
+    pallas = np.asarray(ref_pallas_augment(
+        jnp.asarray(img), zero, zero, zero, crop_h=16, crop_w=16,
+        out_dtype=getattr(jnp, out_dtype)).astype(jnp.float32))
+    pallas = pallas[0].reshape(256, 3).T
+    table = augment_k.normalize_table("cpu", getattr(torch, out_dtype))
+    got = table.float().numpy().reshape(3, 256)
+    if out_dtype == "float32":
+        np.testing.assert_allclose(got, pallas, rtol=0, atol=2e-6)
+    else:
+        ulp = np.spacing(np.abs(pallas)) * np.float32(2**16)
+        assert np.all(np.abs(got - pallas) <= ulp)
+
+
+def test_normalize_table_built_once(monkeypatch):
+    """One build per (device, dtype); later calls return the same
+    tensor."""
+    calls = []
+    plain = augment_k.normalize_plain
+
+    def counting(pix, out_dtype=torch.float32):
+        calls.append(out_dtype)
+        return plain(pix, out_dtype)
+
+    monkeypatch.setattr(augment_k, "_tables", {})
+    monkeypatch.setattr(augment_k, "normalize_plain", counting)
+    f32 = [augment_k.normalize_table("cpu", torch.float32) for _ in range(3)]
+    bf16 = [augment_k.normalize_table(torch.device("cpu"), torch.bfloat16)
+            for _ in range(2)]
+    assert calls == [torch.float32, torch.bfloat16]
+    assert all(t is f32[0] for t in f32) and all(t is bf16[0] for t in bf16)
 
 
 def test_augment_tensor_input_stays_put_and_bucket_is_invisible():

@@ -107,6 +107,54 @@ def test_augment_kernel_bitwise_plain(cuda, out_dtype):
     assert torch.equal(out, on_card)
 
 
+#: (B, image hw, crop hw, edge): crop rows that are not a multiple of the
+#: 16-byte vector (23 * 3 elements), a crop equal to the image, a 1x1
+#: crop, and ``edge``: every left at the right edge (W - cw) with flip on
+LOADER_EDGE_CASES = [
+    (1, (48, 41), (31, 23), False), (17, (48, 41), (31, 23), False),
+    (17, (48, 41), (31, 23), True), (1, (37, 29), (37, 29), False),
+    (17, (37, 29), (37, 29), True), (1, (5, 7), (1, 1), False),
+    (17, (5, 7), (1, 1), True), (17, (256, 256), (224, 224), True)]
+
+
+@pytest.mark.parametrize("B,hw,crop,edge", LOADER_EDGE_CASES)
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_loader_kernels_edge_shapes_bitwise(cuda, B, hw, crop, edge,
+                                            out_dtype):
+    """K1 and K2 at shapes that reach their element-by-element row ends
+    and the crop window's edges: each bitwise equal to its plain version,
+    and K1 to K3 then K2.  K2 also reads an image batch that starts at a
+    byte offset that is not a multiple of 16 (a view past one image)."""
+    bases, mixes, tops, lefts, flips = _params(
+        np.random.default_rng(B * 1000 + crop[1]), B, hw, crop, cuda)
+    if edge:
+        lefts.fill_(hw[1] - crop[1])
+        flips.fill_(1)
+    args = (bases, mixes, tops, lefts, flips)
+    n1, n2 = decode_k.decode_augment.launches, augment_k.augment.launches
+    k1 = decode_k.decode_augment(*args, img_h=hw[0], img_w=hw[1],
+                                 crop_h=crop[0], crop_w=crop[1],
+                                 out_dtype=out_dtype)
+    imgs = decode_k.decode(bases, mixes, h=hw[0], w=hw[1])
+    shifted = torch.cat([imgs[:1], imgs])[1:]
+    assert shifted.is_contiguous() and torch.equal(shifted, imgs)
+    k2 = augment_k.augment(imgs, tops, lefts, flips, crop_h=crop[0],
+                           crop_w=crop[1], out_dtype=out_dtype)
+    k2_shifted = augment_k.augment(shifted, tops, lefts, flips,
+                                   crop_h=crop[0], crop_w=crop[1],
+                                   out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert decode_k.decode_augment.launches == n1 + 1
+    assert augment_k.augment.launches == n2 + 2
+    plain1 = decode_k.decode_augment_plain(*[a.cpu() for a in args], hw[1],
+                                           *crop, out_dtype)
+    plain2 = augment_k.augment_plain(imgs.cpu(), tops.cpu(), lefts.cpu(),
+                                     flips.cpu(), *crop, out_dtype)
+    assert torch.equal(k1.cpu(), plain1)
+    assert torch.equal(k2.cpu(), plain2)
+    assert torch.equal(k1, k2) and torch.equal(k2_shifted, k2)
+
+
 def test_ops_match_host_path_bitwise(cuda):
     ds = SyntheticDataset("t", 64, 2048, image_hw=HW, crop_hw=CROP,
                           seed=2**31 - 3)
