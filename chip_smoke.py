@@ -11,9 +11,10 @@ into ``build/repro_torch/``), then:
    256x256 images, 224x224 crops) each kernel — K3 decode, K1 fused
    decode+augment, K2 augment (float32 and bfloat16 out) — is held
    bitwise against its plain PyTorch version on the card, K1 against K3
-   followed by K2, and timed with CUDA events (the L2 flushed before
-   each launch) beside its bound: the larger of its bytes at the memory
-   rate and its hash's integer operations at the integer pipes' rates;
+   followed by K2, and timed with CUDA events beside its bound: the
+   larger of its bytes at the memory rate and its hash's integer
+   operations at the integer pipes' rates (every timing in the script
+   flushes the L2 before each launch, ``time_ms``);
 3. main path, augmented: ``SenecaServer.for_dataset(imagenet_like(n))``
    at n = ``N_AUGMENTED`` with an HBM tier sized for every augmented
    sample, the device executor at batch 256 for two epochs: every id
@@ -22,13 +23,13 @@ into ``build/repro_torch/``), then:
    ``torch.profiler`` (device activity only), which gives K1's device
    time in it and the card's idle share;
 4. main path, decoded hits: at n = ``N_DECODED`` every decoded form
-   pre-warmed into the HBM tier through K3, one epoch through K2 with
-   no cache or h2d bytes;
+   pre-warmed into the HBM tier through K3 (traced: K3's device time),
+   one epoch through K2 with no cache or h2d bytes;
 5. model kernel phase: K4 flash attention at qwen3-8b's prefill shapes
    and K5 SSD scan at mamba2-1.3b's forward shapes (both on the tensor
    cores in bf16), each against its plain version on the card, timed
-   beside its bound and (K4) beside ``scaled_dot_product_attention`` as
-   a yardstick the port never calls;
+   with the L2 flushed beside its bound and (K4) beside
+   ``scaled_dot_product_attention`` as a yardstick the port never calls;
 6. serving path, dense: qwen3-8b at full width (random weights from
    ``--seed``): ``Model.prefill`` of 4 x 1024 tokens (K4 launched once
    per layer; prefill logits equal forward's; decode at index S agrees
@@ -56,6 +57,7 @@ beside the script, exits 2 at once with a message.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
 import subprocess
@@ -85,8 +87,8 @@ DISPATCH_LANES_PER_SM = 128
 #: byte into its table index, while K3's byte store needs no mask
 K3_HASH_OPS = (6, 10)
 K1_HASH_OPS = (7, 11)
-#: bytes written between two timed launches of a loader kernel, so each
-#: finds the 50 MB L2 holding none of its data
+#: bytes written between two timed launches, so each finds the 50 MB L2
+#: holding none of its data
 L2_FLUSH_BYTES = 2 * 50 * 2**20
 #: cycles the card spins after a flush (~0.5 ms at 1.98 GHz), so the
 #: stream is still busy when the host has enqueued the timed launch: the
@@ -125,13 +127,19 @@ def nvcc_version() -> str:
     return out.stdout.strip().splitlines()[-1]
 
 
-def time_ms(fn, iters: int, warmup: int = 3, flush=None) -> float:
+@functools.lru_cache(maxsize=None)
+def _flush_buffer(device_index: int) -> torch.Tensor:
+    return torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8,
+                       device=torch.device("cuda", device_index))
+
+
+def time_ms(fn, iters: int, warmup: int = 3) -> float:
     """Median milliseconds of ``fn()`` over ``iters`` launches, each
-    between its own pair of CUDA events, after ``warmup`` calls.  With
-    ``flush`` (a device buffer) the buffer is written before each launch,
-    outside its events, so the launch starts with a cold L2, and the card
-    then spins ``SPIN_CYCLES`` so the start event waits for no host
-    work."""
+    between its own pair of CUDA events, after ``warmup`` calls.  Before
+    each launch, outside its events, ``L2_FLUSH_BYTES`` are written so
+    the launch starts with a cold L2, and the card then spins
+    ``SPIN_CYCLES`` so the start event waits for no host work."""
+    flush = _flush_buffer(torch.cuda.current_device())
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -139,9 +147,8 @@ def time_ms(fn, iters: int, warmup: int = 3, flush=None) -> float:
     for _ in range(iters):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
-        if flush is not None:
-            flush.fill_(1)
-            torch.cuda._sleep(SPIN_CYCLES)
+        flush.fill_(1)
+        torch.cuda._sleep(SPIN_CYCLES)
         start.record()
         fn()
         end.record()
@@ -200,7 +207,6 @@ def kernel_phase(dev, seed: int):
     print(f"integer rates (SMs x clocks.max.sm x lanes): ALU pipe "
           f"{sm_clocks * ALU_LANES_PER_SM / 1e12:.2f} T/s, issue "
           f"{sm_clocks * DISPATCH_LANES_PER_SM / 1e12:.2f} T/s", flush=True)
-    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=dev)
     ds = imagenet_like(n=BATCH * 4)
     (H, W), (ch, cw) = ds.image_hw, ds.crop_hw
     rng = np.random.default_rng(seed)
@@ -236,7 +242,7 @@ def kernel_phase(dev, seed: int):
         name="decode", route="cuda", source="src/repro_torch/csrc/decode.cu",
         replaces="src/repro/kernels/decode/kernel.py:47",
         max_abs_err=max_abs_err(imgs, plain3),
-        ms=time_ms(run_k3, 30, flush=flush),
+        ms=time_ms(run_k3, 30),
         plain_ms=time_ms(lambda: decode_k.decode_plain(b_t, m_t, H, W), 5,
                          warmup=1),
         nbytes=BATCH * H * W * 3 + 12 * BATCH,
@@ -258,7 +264,7 @@ def kernel_phase(dev, seed: int):
             source="src/repro_torch/csrc/decode.cu",
             replaces="src/repro/kernels/decode/kernel.py:103",
             max_abs_err=max_abs_err(k1, plain1),
-            ms=time_ms(lambda: run_k1(dtype), 30, flush=flush),
+            ms=time_ms(lambda: run_k1(dtype), 30),
             plain_ms=time_ms(lambda: decode_k.decode_augment_plain(
                 *scalars, W, ch, cw, dtype), 5, warmup=1),
             nbytes=n_out * size + scalar_bytes,
@@ -268,14 +274,13 @@ def kernel_phase(dev, seed: int):
             source="src/repro_torch/csrc/augment.cu",
             replaces="src/repro/kernels/augment/kernel.py:61",
             max_abs_err=max_abs_err(k2, plain2),
-            ms=time_ms(lambda: run_k2(dtype), 30, flush=flush),
+            ms=time_ms(lambda: run_k2(dtype), 30),
             plain_ms=time_ms(lambda: augment_k.augment_plain(
                 imgs, t_t, l_t, f_t, ch, cw, dtype), 5, warmup=1),
             # the crop windows are what the function must read; it hashes
             # nothing
             nbytes=n_out + n_out * size + 12 * BATCH, int_ms=0.0)
         del k1, k2, plain1, plain2
-    del flush
     for row in rows.values():
         nbytes, int_ms = row.pop("nbytes"), row.pop("int_ms")
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
@@ -380,13 +385,20 @@ def run_epoch(pipe, sess, ds, dev, n_batches, rng, n_picks=4):
 def traced(fn):
     """``fn()`` under ``torch.profiler`` with device activity only;
     returns its result and the (name, start us, end us) of every kernel
-    and copy the card ran meanwhile, in any thread."""
+    and copy the card ran meanwhile, in any thread.  Four spin kernels
+    run first under the profiler and are left out of the spans: one
+    traced pre-warm saw 7 of its 8 K3 launches and 2,069 of the 2,072
+    activities that other traces of it saw, the first ones missing."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(4):
+            torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
         out = fn()
     return out, [(e.name, e.time_range.start, e.time_range.end)
-                 for e in prof.events() if e.device_type == DeviceType.CUDA]
+                 for e in prof.events() if e.device_type == DeviceType.CUDA
+                 and "spin_kernel" not in e.name]
 
 
 def busy_us(spans) -> float:
@@ -436,7 +448,9 @@ def main_path_augmented(dev, n: int, seed: int, card: str):
                   f"{secs:.3f} s = {n / secs:.1f} samples/s, h2d bytes "
                   f"{h2d} ({card})", flush=True)
             if epoch == 0:
-                epoch_device_time(spans, secs)
+                device_time("augmented epoch 1", spans, secs, "K1",
+                            "decode_augment_kernel",
+                            read_counts()["decode_augment"])
         counts = read_counts()
         check(results[1][1] == 0,
               f"the all-HBM epoch moved {results[1][1]} h2d bytes")
@@ -452,20 +466,23 @@ def main_path_augmented(dev, n: int, seed: int, card: str):
         server.close()
 
 
-def epoch_device_time(spans, secs: float) -> None:
-    """K1's launches and device time in a traced epoch of ``secs``
-    seconds, and the share of it in which the card ran nothing."""
+def device_time(what: str, spans, secs: float, kernel: str, needle: str,
+                launched: int) -> None:
+    """``kernel``'s traced launches (names holding ``needle``) and their
+    device time in ``what``, a span of ``secs`` host seconds, beside the
+    ``launched`` count of its wrapper, and the share of the span in which
+    the card ran nothing."""
     if not spans:
-        print("augmented epoch 1 device time: not measured (the profiler "
-              "saw no device activity)", flush=True)
+        print(f"{what} device time: not measured (the profiler saw no "
+              f"device activity)", flush=True)
         return
-    k1 = [hi - lo for name, lo, hi in spans if "decode_augment_kernel" in name]
+    ks = [hi - lo for name, lo, hi in spans if needle in name]
     busy = busy_us(spans)
-    print(f"augmented epoch 1 device time (torch.profiler): K1 {len(k1)} "
-          f"launches, {sum(k1) / 1e3:.3f} ms ({sum(k1) / max(len(k1), 1):.1f}"
-          f" us each); all {len(spans)} kernels and copies busy "
-          f"{busy / 1e3:.3f} ms of the {secs:.3f} s epoch, idle "
-          f"{100 * (1 - busy / (secs * 1e6)):.3f}%", flush=True)
+    print(f"{what} device time (torch.profiler): {kernel} {len(ks)} of "
+          f"{launched} launches traced, {sum(ks) / 1e3:.4f} ms "
+          f"({sum(ks) / max(len(ks), 1):.1f} us each); all {len(spans)} "
+          f"kernels and copies busy {busy / 1e3:.3f} ms of the {secs:.3f} s,"
+          f" idle {100 * (1 - busy / (secs * 1e6)):.3f}%", flush=True)
 
 
 def main_path_decoded(dev, n: int, seed: int, card: str):
@@ -485,8 +502,8 @@ def main_path_decoded(dev, n: int, seed: int, card: str):
     pipe = DSIPipeline(sess, RemoteStorage(ds), executor="device",
                        seed=seed)
     tel = server.service.telemetry
-    try:
-        reset_counts()
+
+    def prewarm():
         for lo in range(0, n, BATCH):
             chunk = list(range(lo, min(lo + BATCH, n)))
             rows = decode_batch([ds.encoded(s) for s in chunk], chunk,
@@ -496,6 +513,14 @@ def main_path_decoded(dev, n: int, seed: int, card: str):
                        for i, s in enumerate(chunk)]
             check(bool(sess.admit_batch("decoded", entries).all()),
                   "a decoded row was not admitted into the HBM tier")
+        torch.cuda.synchronize()
+
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        _, spans = traced(prewarm)
+        device_time("decoded-hit pre-warm", spans, time.perf_counter() - t0,
+                    "K3", "decode_kernel", read_counts()["decode"])
         check(server.stats()["hbm"]["decoded"]["hbm_entries"] == n,
               "not every decoded form is HBM-resident")
         ids, secs, picks = run_epoch(pipe, sess, ds, dev, n // BATCH,

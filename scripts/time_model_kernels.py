@@ -10,14 +10,17 @@ timed with CUDA events beside its bound (and, for K4,
 ``scaled_dot_product_attention``).  It also prints the device time of each
 of K5's four launches (``torch.profiler``).  With ``--loader`` it runs
 ``chip_smoke.kernel_phase`` instead: K1-K3 at the loader's main-path
-shapes (batch 256, 256x256 -> 224x224), the L2 flushed before each launch.
+shapes (batch 256, 256x256 -> 224x224), and prints the SASS instruction
+mix per hashed byte of K3 and K1 (``cuobjdump -sass`` of the built
+library).  Every timing flushes the L2 before each launch
+(``chip_smoke.time_ms``).
 
 ``--variants`` also builds, into ``build/variants/``, copies of the
 sources (with ``common.cuh`` inlined) with one edit each (``VARIANTS``
 below: the model kernels' by default, the loader kernels' with
 ``--loader``) and times every copy beside the committed source on the
-same inputs, in turns (committed, variant, variant, committed); K1 and
-K2 are called through the port's wrappers with the variant's library in
+same inputs, in turns (committed, variant, variant, committed); K1-K3
+are called through the port's wrappers with the variant's library in
 place of the committed one, K4 and K5 through their C entry points.  A
 variant shows what one design choice costs; it may compute something
 else, so it is timed and not checked.
@@ -25,8 +28,11 @@ else, so it is timed and not checked.
 from __future__ import annotations
 
 import argparse
+import collections
 import ctypes
 import math
+import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -38,7 +44,8 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(0, str(ROOT))
 
-#: name -> (source stem, [(text, replacement), ...])
+#: name -> (kernel, [(text, replacement), ...]); a kernel is named by its
+#: wrapper, and ``SOURCE_OF`` gives the source that holds it
 VARIANTS = {
     # P as one bf16 part: drops the lo product of P V (misses the card check)
     "k4_single_bf16_p": ("flash_attention", [(
@@ -52,14 +59,36 @@ VARIANTS = {
         ("  if (c > 0) {\n    for (int k0 = 0; k0 < N; k0 += 16) {",
          "  if (false) {\n    for (int k0 = 0; k0 < N; k0 += 16) {")]),
 }
-#: the loader kernels' variants (K1 in decode.cu, K2 in augment.cu)
+#: the loader kernels' variants: K3 (``decode``) and K1
+#: (``decode_augment``) in decode.cu, K2 (``augment``) in augment.cu
 LOADER_VARIANTS = {
+    # K3's hash rounds dropped: the counter words, mix and packing alone
+    "k3_no_hash": ("decode", [("h[j] = hash_rounds(x) + mix;",
+                               "h[j] = x + mix;")]),
+    # a constant word stored: no hash and no packing, the stores alone
+    "k3_no_pack": ("decode", [(
+        "vecs[v] = make_uint4(words[0], words[1], words[2], words[3]);",
+        "vecs[v] = make_uint4(mix, mix, mix, mix);")]),
+    # the four low bytes packed by masks, shifts and ors, not byte permutes
+    "k3_shift_pack": ("decode", [(
+        "  return __byte_perm(__byte_perm(w0, w1, 0x0040), "
+        "__byte_perm(w2, w3, 0x0040),\n                     0x5410);",
+        "  return (w0 & 0xFFu) | ((w1 & 0xFFu) << 8) | ((w2 & 0xFFu) << 16) "
+        "| (w3 << 24);")]),
+    # 16-byte vectors per thread: 1, 2 and 8 against the committed 4
+    "k3_1_vec": ("decode", [("constexpr int kDecodeVecs = 4;",
+                             "constexpr int kDecodeVecs = 1;")]),
+    "k3_2_vecs": ("decode", [("constexpr int kDecodeVecs = 4;",
+                              "constexpr int kDecodeVecs = 2;")]),
+    "k3_8_vecs": ("decode", [("constexpr int kDecodeVecs = 4;",
+                              "constexpr int kDecodeVecs = 8;")]),
     # the hash rounds dropped: what K1's integer operations cost
-    "k1_no_hash": ("decode", [("return (hash_rounds(x) + mix) & 0xFFu;",
-                               "return (x + mix) & 0xFFu;")]),
+    "k1_no_hash": ("decode_augment", [(
+        "return (hash_rounds(x) + mix) & 0xFFu;",
+        "return (x + mix) & 0xFFu;")]),
     # the table lookup replaced by its index: what the shared-memory
     # lookups cost
-    "k1_no_table": ("decode", [(
+    "k1_no_table": ("decode_augment", [(
         "vals[t] = s_table[coff + src.pixel(cur)];",
         "vals[t] = coff + src.pixel(cur);")]),
     "k2_no_table": ("augment", [(
@@ -72,11 +101,24 @@ LOADER_VARIANTS = {
         "__launch_bounds__(kLoaderWarps * 32)\n    augment_kernel",
         "__launch_bounds__(kLoaderWarps * 32, 8)\n    augment_kernel")]),
 }
+#: kernel -> the source stem under ``src/repro_torch/csrc`` that holds it
+SOURCE_OF = {"decode": "decode", "decode_augment": "decode",
+             "augment": "augment", "flash_attention": "flash_attention",
+             "ssd_scan": "ssd_scan"}
+#: SASS opcodes by the pipe that executes them (Nsight Compute's pipe
+#: names): the integer and logic ALU pipe, and the FMA pipe, which also
+#: runs integer multiplies and the IMAD forms of adds, shifts and moves
+ALU_OPCODES = {"IADD3", "LOP3", "SHF", "PRMT", "ISETP", "SEL", "LEA",
+               "IMNMX", "IABS", "FLO", "POPC", "BMSK", "SGXT"}
+FMA_OPCODES = {"IMAD", "IMUL"}
+#: the first multiplier of the hash (``kHashM1``): one per hashed byte
+HASH_M1 = "0x7feb352d"
 
 
 def build_variant(name: str) -> ctypes.CDLL:
     from repro_torch.kernels.device import CSRC, NVCC_FLAGS, _nvcc
-    stem, edits = {**VARIANTS, **LOADER_VARIANTS}[name]
+    kernel, edits = {**VARIANTS, **LOADER_VARIANTS}[name]
+    stem = SOURCE_OF[kernel]
     text = (CSRC / f"{stem}.cu").read_text().replace(
         '#include "common.cuh"', (CSRC / "common.cuh").read_text())
     for old, new in edits:
@@ -128,16 +170,20 @@ def loader_inputs(dev, seed: int):
     return scalars, decode_k.decode(*scalars[:2], h=256, w=256)
 
 
-def loader_launcher(lib: ctypes.CDLL, stem: str, scalars, imgs,
+def loader_launcher(lib: ctypes.CDLL, kernel: str, scalars, imgs,
                     out_dtype: torch.dtype):
-    """A no-argument call of the port's K1 (``decode``) or K2
-    (``augment``) wrapper that launches from ``lib`` instead of the
-    committed library."""
+    """A no-argument call of the port's K3 (``decode``), K1
+    (``decode_augment``) or K2 (``augment``) wrapper that launches from
+    ``lib`` instead of the committed library."""
     from repro_torch.kernels import device
     from repro_torch.kernels.augment import kernel as augment_k
     from repro_torch.kernels.decode import kernel as decode_k
+    stem = SOURCE_OF[kernel]
     crop = dict(crop_h=224, crop_w=224, out_dtype=out_dtype)
-    if stem == "decode":
+    if kernel == "decode":
+        def run():
+            return decode_k.decode(*scalars[:2], h=256, w=256)
+    elif kernel == "decode_augment":
         def run():
             return decode_k.decode_augment(*scalars, img_h=256, img_w=256,
                                            **crop)
@@ -153,6 +199,53 @@ def loader_launcher(lib: ctypes.CDLL, stem: str, scalars, imgs,
         finally:
             device._libraries[stem] = committed
     return call
+
+
+def sass_mix(lib: ctypes.CDLL, only: str = "", tag: str = "") -> None:
+    """Per hashed byte, the SASS instructions of K3's and K1's functions
+    in ``lib`` (``cuobjdump -sass``), or of one of them (``only``: the
+    kernel's name), by opcode and by pipe, printed under ``tag``.  A static
+    count over each function's code, its set-up and scalar ends
+    included; the hashed bytes are counted by the hash's first
+    multiplier, an immediate of one instruction per hashed byte."""
+    from torch.utils.cpp_extension import CUDA_HOME
+    out = subprocess.run([os.path.join(CUDA_HOME, "bin", "cuobjdump"),
+                          "-sass", lib._name], capture_output=True,
+                         text=True, timeout=120, check=True).stdout
+    for func in re.split(r"\n\s*Function : ", out)[1:]:
+        name = func.split("\n", 1)[0].strip()
+        if "decode_kernel" in name and only in ("", "decode"):
+            label = "K3 decode_kernel"
+        elif "decode_augment_kernel" in name and only in ("",
+                                                          "decode_augment"):
+            # the template's Bits: unsigned short (t) for bf16
+            label = ("K1 decode_augment_kernel (bf16)" if "kernelItE" in name
+                     else "K1 decode_augment_kernel (fp32)")
+        else:
+            continue
+        # (opcode, operands) of each instruction; the encoding comment
+        # after the ';' is left out
+        insts = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]\s+)?"
+                           r"([A-Z][A-Z0-9_.]*)([^;]*);", func)
+        ops = collections.Counter(op for op, _ in insts
+                                  if op not in ("NOP", "BRA"))
+        hashed = sum(HASH_M1 in args for _, args in insts)
+        if not hashed:
+            print(f"SASS{tag} {label}: hashed bytes not counted (no "
+                  f"{HASH_M1})", flush=True)
+            continue
+        total = sum(ops.values())
+        alu = sum(n for op, n in ops.items() if op.split(".")[0] in
+                  ALU_OPCODES)
+        fma = sum(n for op, n in ops.items() if op.split(".")[0] in
+                  FMA_OPCODES)
+        top = ", ".join(f"{op} {n / hashed:.2f}"
+                        for op, n in ops.most_common(12))
+        print(f"SASS{tag} {label} (cuobjdump, static): {hashed} hashed "
+              f"bytes in the code; per hashed byte {total / hashed:.2f} "
+              f"instructions, ALU pipe {alu / hashed:.2f}, FMA pipe "
+              f"{fma / hashed:.2f}, other {(total - alu - fma) / hashed:.2f};"
+              f" {top}", flush=True)
 
 
 def launcher(lib: ctypes.CDLL, stem: str, attn, ssm):
@@ -235,36 +328,39 @@ def main(argv=None) -> int:
     libs = build_all()
     if args.loader:
         chip_smoke.kernel_phase(dev, args.seed)
+        sass_mix(libs["decode"])
         scalars, imgs = loader_inputs(dev, args.seed)
-        flush = torch.empty(chip_smoke.L2_FLUSH_BYTES, dtype=torch.uint8,
-                            device=dev)
 
-        def make(lib, stem, dtype):
-            return loader_launcher(lib, stem, scalars, imgs, dtype)
+        def make(lib, kernel, dtype):
+            return loader_launcher(lib, kernel, scalars, imgs, dtype)
 
-        variants, dtypes = LOADER_VARIANTS, (torch.float32, torch.bfloat16)
+        variants = LOADER_VARIANTS
     else:
         chip_smoke.model_kernel_phase(dev, args.seed)
         attn, ssm = model_inputs(dev, args.seed)
         k5_split(dev, ssm)
-        flush = None
 
-        def make(lib, stem, dtype):
-            return launcher(lib, stem, attn, ssm)
+        def make(lib, kernel, dtype):
+            return launcher(lib, kernel, attn, ssm)
 
-        variants, dtypes = VARIANTS, (None,)
+        variants = VARIANTS
     if args.variants:
-        for name, (stem, _) in variants.items():
+        for name, (kernel, _) in variants.items():
             lib = build_variant(name)
+            stem = SOURCE_OF[kernel]
+            if kernel in ("decode", "decode_augment"):
+                sass_mix(lib, kernel, f" of variant {name}")
+            dtypes = (torch.float32, torch.bfloat16) if kernel in (
+                "decode_augment", "augment") else (None,)
             for dtype in dtypes:
-                base = make(libs[stem], stem, dtype)
-                var = make(lib, stem, dtype)
-                times = [chip_smoke.time_ms(fn, 20, flush=flush)
+                base = make(libs[stem], kernel, dtype)
+                var = make(lib, kernel, dtype)
+                times = [chip_smoke.time_ms(fn, 20)
                          for fn in (base, var, var, base)]
                 tag = "" if dtype is None else f" ({dtype})"
                 print(f"variant {name}{tag}: {(times[1] + times[2]) / 2:.4f} "
                       f"ms against {(times[0] + times[3]) / 2:.4f} ms for the "
-                      f"committed {stem}.cu (turns: "
+                      f"committed {kernel} in {stem}.cu (turns: "
                       + ", ".join(f"{t:.4f}" for t in times) + ")",
                       flush=True)
     return 0

@@ -36,9 +36,9 @@ __device__ __forceinline__ uint32_t pixel_hash(uint32_t base, uint32_t idx) {
 }
 
 // (u8 + mix) % 256 of SyntheticDataset.decode; mix is in [0, 255]
-__device__ __forceinline__ uint32_t decode_byte(uint32_t base, int32_t mix,
+__device__ __forceinline__ uint32_t decode_byte(uint32_t base, uint32_t mix,
                                                 uint32_t idx) {
-  return (pixel_hash(base, idx) + static_cast<uint32_t>(mix)) & 0xFFu;
+  return (pixel_hash(base, idx) + mix) & 0xFFu;
 }
 
 template <typename T>
@@ -52,12 +52,6 @@ __device__ __forceinline__ float from_float<float>(float v) {
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
-}
-
-constexpr int kThreads = 256;
-
-inline unsigned int grid_for(int64_t n) {
-  return static_cast<unsigned int>((n + kThreads - 1) / kThreads);
 }
 
 // ---------------------------------------------------------------------------

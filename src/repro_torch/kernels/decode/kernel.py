@@ -70,6 +70,9 @@ def decode(bases: torch.Tensor, mixes: torch.Tensor, *, h: int,
         return decode_plain(bases, mixes, h, w)
     if bases.device.type != "cuda":
         raise ValueError(f"no decode kernel for device {bases.device}")
+    if h * w * 3 >= 2**31:
+        raise ValueError(f"images of {h}x{w} exceed the kernel's 32-bit "
+                         f"indices")
     out = torch.empty((bases.shape[0], h, w, 3), dtype=torch.uint8,
                       device=bases.device)
     fn = library("decode").repro_torch_decode

@@ -68,6 +68,40 @@ def test_decode_kernel_byte_equal_plain(cuda, B):
     assert torch.equal(out.cpu(), ref)
 
 
+@pytest.mark.parametrize("hw", [(37, 29), (5, 7), (1, 1), (3, 1),
+                                (256, 256)])
+@pytest.mark.parametrize("B", [1, 17])
+@pytest.mark.parametrize("near_top", [False, True])
+def test_decode_kernel_edge_shapes_byte_equal(cuda, hw, B, near_top):
+    """K3 at images whose byte count is not a multiple of 16 (at B 17 the
+    image starts fall on every offset mod 16; (1, 1) and (3, 1) are all
+    scalar bytes), at the main path's 256x256, and with bases near 2**32,
+    byte-equal to its plain version."""
+    rng = np.random.default_rng(hw[0] * B + near_top)
+    lo = 2**32 - 2**12 if near_top else 0
+    bases = torch.from_numpy(rng.integers(lo, 2**32, B, dtype=np.int64))
+    mixes = torch.from_numpy(rng.integers(0, 256, B, dtype=np.int32))
+    n0 = decode_k.decode.launches
+    out = decode_k.decode(bases.to(cuda), mixes.to(cuda), h=hw[0], w=hw[1])
+    torch.cuda.synchronize()
+    assert decode_k.decode.launches == n0 + 1
+    assert torch.equal(out.cpu(), decode_k.decode_plain(bases, mixes, *hw))
+
+
+def test_decode_kernel_rejects_64_bit_images_before_allocating(cuda):
+    bases = torch.zeros(1, dtype=torch.int64, device=cuda)
+    mixes = torch.zeros(1, dtype=torch.int32, device=cuda)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(cuda)
+    peak = torch.cuda.max_memory_allocated(cuda)
+    n0 = decode_k.decode.launches
+    for h, w in ((2**15, 2**15), (1, 715_827_883)):   # 3 h w >= 2**31
+        with pytest.raises(ValueError, match="32-bit"):
+            decode_k.decode(bases, mixes, h=h, w=w)
+    assert decode_k.decode.launches == n0
+    assert torch.cuda.max_memory_allocated(cuda) == peak
+
+
 @pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
 def test_decode_augment_kernel_bitwise_plain_and_composition(cuda,
                                                              out_dtype):

@@ -6,7 +6,10 @@ the Pallas kernels in interpret mode on the CPU) and through the port's
 CPU path (``repro_torch``: the kernels' plain PyTorch versions).
 
 Contracts, each with its reason:
-* decode is byte-identical everywhere (integer hash, uint8 out);
+* decode is byte-identical everywhere (integer hash, uint8 out), and so
+  is a replay in numpy of the CUDA kernel's work split (its grid, the
+  scalar bytes at unaligned image ends, the stepped counter and the
+  byte packing of its 16-byte stores), which the CPU cannot run;
 * the port's fused op is *bitwise* the host path (decode then
   ``augment_np``) — both divide with IEEE float32 — and bitwise the
   port's own decode followed by its augment;
@@ -15,6 +18,8 @@ Contracts, each with its reason:
   one float32 ulp; in bfloat16 that can flip one rounding, so the bound
   there is one bfloat16 ulp.
 """
+import re
+
 import numpy as np
 import pytest
 
@@ -37,6 +42,7 @@ from repro_torch.kernels.decode import kernel as decode_k  # noqa: E402
 from repro_torch.kernels.decode.ops import (decode_batch,  # noqa: E402
                                             decode_params,
                                             fused_decode_seed)
+from repro_torch.kernels.device import CSRC  # noqa: E402
 
 HW = (48, 40)
 CROP = (32, 24)
@@ -105,6 +111,109 @@ def test_decode_params_match_dataset_derivation():
     bases, mixes = decode_params(ds_seed, ids, payloads)
     assert list(bases) == [ds.decode_base_seed(s) for s in ids]
     assert list(mixes) == [ds.decode_head_mix(p) for p in payloads]
+
+
+_STEP, _M1, _M2 = (np.uint32(0x9E3779B9), np.uint32(0x7FEB352D),
+                   np.uint32(0x846CA68B))
+
+
+def _decode_cu_constant(name: str) -> int:
+    m = re.search(rf"constexpr int {name} = (\d+);",
+                  (CSRC / "decode.cu").read_text())
+    assert m, f"{name} is not a constant of decode.cu"
+    return int(m.group(1))
+
+
+def _hash_rounds(x: np.ndarray) -> np.ndarray:
+    """``hash_rounds`` of ``common.cuh`` on a uint32 array."""
+    x = x ^ (x >> np.uint32(16))
+    x = x * _M1
+    x = x ^ (x >> np.uint32(15))
+    x = x * _M2
+    return x ^ (x >> np.uint32(16))
+
+
+def _byte_perm(x: np.ndarray, y: np.ndarray, sel: int) -> np.ndarray:
+    """CUDA's ``__byte_perm``: byte n of the result is byte
+    ``(sel >> 4n) & 7`` of the 8-byte value whose low word is ``x``."""
+    pool = (y.astype(np.uint64) << np.uint64(32)) | x.astype(np.uint64)
+    out = np.zeros(x.shape, np.uint64)
+    for n in range(4):
+        src = np.uint64(8 * ((sel >> (4 * n)) & 7))
+        out |= ((pool >> src) & np.uint64(0xFF)) << np.uint64(8 * n)
+    return out.astype(np.uint32)
+
+
+def _replay_k3(bases, mixes, h: int, w: int):
+    """K3's work split (``csrc/decode.cu::decode_kernel``) in numpy, into
+    a 16-byte-aligned buffer as the wrapper allocates it.  Returns the
+    (B, h, w, 3) bytes, how often each byte was written, and the start of
+    each image mod 16."""
+    threads = _decode_cu_constant("kDecodeThreads")
+    per_thread = _decode_cu_constant("kDecodeVecs")
+    n = h * w * 3
+    mem = np.zeros(len(bases) * n, np.uint8)
+    writes = np.zeros(mem.shape, np.int64)
+    chunks = max(1, -(-(n // 16) // (per_thread * threads)))
+    c, i, t = np.meshgrid(np.arange(chunks), np.arange(per_thread),
+                          np.arange(threads), indexing="ij")
+    grid_v = (c * per_thread * threads + i * threads + t).ravel()
+    starts = []
+    for b, (base, mix) in enumerate(zip(bases, mixes)):
+        base, mix = np.uint32(base), np.uint32(mix)
+        start = b * n
+        starts.append(start % 16)
+        head = min((16 - start % 16) % 16, n)
+        n_vec = (n - head) // 16
+        v = grid_v[grid_v < n_vec]
+        # the counter word once per vector, then one add of the step per
+        # byte; mix added to the whole word, the low byte taken by the pack
+        x = base + (head + 16 * v).astype(np.uint32) * _STEP
+        words = []
+        for _q in range(4):
+            hs = []
+            for _j in range(4):
+                hs.append(_hash_rounds(x) + mix)
+                x = x + _STEP
+            words.append(_byte_perm(_byte_perm(hs[0], hs[1], 0x0040),
+                                    _byte_perm(hs[2], hs[3], 0x0040),
+                                    0x5410))
+        vec_bytes = np.stack(words, axis=1).astype("<u4").view(np.uint8)
+        addr = start + head + 16 * v[:, None] + np.arange(16)
+        assert np.all(addr[:, 0] % 16 == 0)
+        mem[addr] = vec_bytes
+        np.add.at(writes, addr, 1)
+        # the scalar bytes: thread k < head + (n - tail) of the first chunk
+        tail = head + 16 * n_vec
+        ks = np.asarray([k if k < head else tail + (k - head)
+                         for k in range(head + n - tail)], np.int64)
+        xs = base + ks.astype(np.uint32) * _STEP
+        mem[start + ks] = ((_hash_rounds(xs) + mix) & np.uint32(0xFF))
+        np.add.at(writes, start + ks, 1)
+    return mem.reshape(-1, h, w, 3), writes, set(starts)
+
+
+@pytest.mark.parametrize("hw", [(37, 29), (5, 7), (1, 1), (3, 1), (8, 8)])
+@pytest.mark.parametrize("near_top", [False, True])
+def test_decode_kernel_work_split_replayed(hw, near_top):
+    """The CUDA kernel's split of each image into scalar head, 16-byte
+    vectors and scalar tail, its stepped counter and its little-endian
+    packing, replayed on the CPU: every byte written once and equal to
+    ``decode_plain``.  With 17 images of an odd byte count the image
+    starts fall on every offset mod 16; bases near 2**32 wrap the
+    counter word."""
+    B = 17
+    rng = np.random.default_rng(hw[0] * 100 + hw[1])
+    lo = 2**32 - 2**12 if near_top else 0
+    bases = rng.integers(lo, 2**32, B, dtype=np.int64)
+    mixes = rng.integers(0, 256, B, dtype=np.int32)
+    got, writes, starts = _replay_k3(bases, mixes, *hw)
+    assert np.all(writes == 1)
+    if hw[0] * hw[1] * 3 % 2:
+        assert starts == set(range(16))
+    want = decode_k.decode_plain(torch.from_numpy(bases),
+                                 torch.from_numpy(mixes), *hw)
+    np.testing.assert_array_equal(got, want.numpy())
 
 
 @pytest.mark.parametrize("draw", range(3))
