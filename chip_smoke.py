@@ -25,6 +25,15 @@ into ``build/repro_torch/``), then:
 4. main path, decoded hits: at n = ``N_DECODED`` every decoded form
    pre-warmed into the HBM tier through K3 (traced: K3's device time),
    one epoch through K2 with no cache or h2d bytes;
+   then the ODS step on the card: ``TorchOdsBackend`` at ImageNet-1k's
+   1,281,167 samples, 3 jobs, batch 256, tiered and tiered + in-flight,
+   median ms per ``sample_batch`` beside the "numpy" backend, the share
+   of its host-device copies, the ODS invariants on every step; and the
+   multi-job workload: 3 jobs, one epoch each through the device
+   executor, on one shared cache with the ODS step on the card
+   (``server.run_workload`` on a real clock): every id once per job,
+   sampled rows equal to a CPU recomputation, K1 launched,
+   substitutions > 0, the makespan beside private per-job servers';
 5. model kernel phase: K4 flash attention at qwen3-8b's prefill shapes
    and K5 SSD scan at mamba2-1.3b's forward shapes (both on the tensor
    cores in bf16), each against its plain version on the card, timed
@@ -62,6 +71,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -100,6 +110,16 @@ BATCH = 256
 #: (multiples of BATCH)
 N_AUGMENTED = 16_384
 N_DECODED = 2_048
+#: the ODS step at ImageNet-1k's size: jobs, timed steps per variant
+N_ODS = 1_281_167
+ODS_JOBS = 3
+ODS_STEPS = 20
+#: the multi-job workload: samples, job arrivals (s), HBM tier as a
+#: share of the augmented set, DRAM cache as a share of it
+N_WORKLOAD = 16_384
+WORKLOAD_ARRIVALS = (0.0, 1.0, 2.0)
+WORKLOAD_HBM_FRAC = 0.5
+WORKLOAD_DRAM_FRAC = 0.1
 
 
 class SmokeFailure(RuntimeError):
@@ -546,6 +566,276 @@ def main_path_decoded(dev, n: int, seed: int, card: str):
 
 
 # ----------------------------------------------------------------------
+# The ODS step on the card, and concurrent jobs on one shared cache
+def ods_scores(status, seen, requested, residency, inflight):
+    """Each sample's candidate score as the reference's ODS step scores
+    it (0 = no candidate), and the direct-hit mask of ``requested``."""
+    cached = status != 0
+    direct = cached[requested] & ~seen[requested]
+    in_batch = np.zeros(len(status), bool)
+    in_batch[requested[direct]] = True
+    free = ~seen & ~in_batch
+    if residency is None:
+        score = np.where(free & cached, 2, 0)
+    else:
+        score = np.select([free & cached & (residency >= 3),
+                           free & cached & (residency == 2),
+                           free & cached & (residency < 2)], [4, 3, 2], 0)
+    score = np.where(free & ~cached, 1, score)
+    if inflight is not None:
+        score = np.where(inflight & (score > 0), 2 * score - 1, 2 * score)
+    return score, direct
+
+
+def check_ods_step(pre_status, pre_seen, served, requested, residency,
+                   inflight, batch) -> None:
+    """The ODS invariants of one step: unique unseen ids, direct hits in
+    their slots, every substitute from the best class with a free
+    candidate (the rollover clears ``seen`` first)."""
+    N, B = len(pre_status), len(requested)
+    if N - served < B:
+        pre_seen = np.zeros_like(pre_seen)
+    score, direct = ods_scores(pre_status, pre_seen, requested, residency,
+                               inflight)
+    check(len(np.unique(batch)) == B, "ODS batch holds a duplicate id")
+    check(not pre_seen[batch].any(), "ODS served an id seen this epoch")
+    check(np.array_equal(batch[direct], requested[direct]),
+          "ODS moved a direct hit out of its slot")
+    subs = batch[~direct]
+    if len(subs):
+        taken = np.zeros(N, bool)
+        taken[subs] = True
+        left = score[(score > 0) & ~taken]
+        check(bool((score[subs] > 0).all())
+              and (not len(left) or score[subs].min() >= left.max()),
+              "an ODS substitute is not from the best free class")
+
+
+def ods_phase(dev, seed: int, card: str) -> None:
+    """``TorchOdsBackend`` at ImageNet-1k's 1,281,167 samples with 3 jobs
+    and batch 256: half the ids cached across the three forms, a
+    residency vector (the tiered variant) and then a random in-flight
+    mask (tiered + in-flight).  Median ms per ``sample_batch`` on the
+    card beside the "numpy" backend on the host, the copies' share of
+    the card's step, and the invariants on every step."""
+    from repro_torch.api import NumpyOdsBackend, TorchOdsBackend
+    from repro_torch.core import ods_torch
+
+    N, B = N_ODS, BATCH
+    rng = np.random.default_rng(seed)
+    cached = rng.choice(N, N // 2, replace=False)
+    forms = rng.integers(1, 4, len(cached))
+    status = np.zeros(N, np.uint8)
+    status[cached] = forms
+    residency = np.zeros(N, np.uint8)
+    residency[cached] = rng.integers(1, 4, len(cached))
+    inflight = rng.random(N) < 0.05
+    backends = {"torch": TorchOdsBackend(N, seed=seed, device=dev),
+                "numpy": NumpyOdsBackend(N, seed=seed)}
+    for be in backends.values():
+        for job in range(ODS_JOBS):
+            be.register_job(job)
+        for form in (1, 2, 3):
+            be.mark_cached(cached[forms == form], form)
+        be.set_residency(residency)
+    core_devices = set()
+    core = ods_torch._substitute_core
+
+    def spy(state, *args, **kwargs):
+        core_devices.add(state.status.device.type)
+        return core(state, *args, **kwargs)
+
+    ods_torch._substitute_core = spy
+    ms = {}
+    # first use of each device op (allocator growth, sort set-up) stays
+    # out of the timed steps
+    for i in range(5):
+        backends["torch"].sample_batch(i % ODS_JOBS,
+                                       rng.choice(N, B, replace=False),
+                                       evict_threshold=ODS_JOBS)
+    try:
+        for variant, mask in (("tiered", None),
+                              ("tiered+inflight", inflight)):
+            for name, be in backends.items():
+                be.set_inflight(mask)
+                times = []
+                for i in range(ODS_STEPS + 2):
+                    job = i % ODS_JOBS
+                    req = rng.choice(N, B, replace=False)
+                    if name == "torch":
+                        pre = (be.status.copy(), be.seen[job].copy(),
+                               be.served[job])
+                    t0 = time.perf_counter()
+                    batch, _ = be.sample_batch(job, req,
+                                               evict_threshold=ODS_JOBS)
+                    dt = time.perf_counter() - t0
+                    if i >= 2:                     # two warm-up steps
+                        times.append(dt * 1e3)
+                    if name == "torch":
+                        check_ods_step(*pre, req, residency, mask, batch)
+                ms[(variant, name)] = float(np.median(times))
+    finally:
+        ods_torch._substitute_core = core
+    check(core_devices == {dev.type},
+          f"the ODS core ran on {core_devices}, not on {dev.type}")
+    be = backends["torch"]
+    check(be.generator.device.type == dev.type,
+          "the ODS generator is not on the card")
+    # the copies alone: the step's uploads (status, refcount, seen,
+    # residency, in-flight mask, request) and downloads (status,
+    # refcount, seen, evict mask, batch), on the backend's stream
+    req64 = rng.choice(N, B, replace=False).astype(np.int64)
+
+    def copies():
+        with torch.cuda.stream(be._stream):
+            up = [torch.from_numpy(a).to(dev)
+                  for a in (be.status, be.refcount, be.seen[0], residency,
+                            inflight, req64)]
+            for t in (up[0], up[1], up[2], up[4], up[5]):
+                t.cpu()
+
+    copy_times = []
+    for i in range(ODS_STEPS + 2):
+        t0 = time.perf_counter()
+        copies()
+        if i >= 2:
+            copy_times.append((time.perf_counter() - t0) * 1e3)
+    copy_ms = float(np.median(copy_times))
+    step_ms = ms[("tiered+inflight", "torch")]
+    moved = 2 * (N * (1 + 4 + 1) + N) + N + B * 16
+    for variant in ("tiered", "tiered+inflight"):
+        card_ms, host_ms = ms[(variant, "torch")], ms[(variant, "numpy")]
+        print(f"ods step {variant}, N {N:,}, {ODS_JOBS} jobs, batch {B}: "
+              f"card {card_ms:.3f} ms, host numpy {host_ms:.3f} ms per "
+              f"sample_batch (median of {ODS_STEPS}; host clock), "
+              f"invariants held on every step ({card})", flush=True)
+    print(f"ods step copies alone: {copy_ms:.3f} ms for {moved / 1e6:.2f} "
+          f"MB both ways, {100 * copy_ms / step_ms:.1f}% of the "
+          f"tiered+inflight step; substitutions {be.substitutions}, "
+          f"hit rate {be.hit_rate():.4f}; core tensors on "
+          f"{sorted(core_devices)}", flush=True)
+
+
+def picking_pacer(pacer_cls, picks, rng, p: float):
+    """A subclass of the workload runner's ingest pacer that keeps about
+    a share ``p`` of the batches it paces for ``check_rows``."""
+    lock = threading.Lock()
+
+    class PickingPacer(pacer_cls):
+        def __call__(self, batch):
+            with lock:
+                if rng.random() < p:
+                    slot = int(rng.integers(0, len(batch["ids"])))
+                    picks.append((batch["images"], slot,
+                                  int(batch["ids"][slot]), 0))
+            super().__call__(batch)
+
+    return PickingPacer
+
+
+def workload_setup(dev, seed: int, n: int):
+    """The multi-job configuration: the dataset, the trace, a factory of
+    the shared server (``backend`` selects its ODS engine) and one of
+    the private per-job servers."""
+    from repro_torch.api import JobSpec, SenecaServer
+    from repro_torch.data.synthetic import imagenet_like
+
+    ds = imagenet_like(n=n)
+    aug_set = n * ds.augmented_bytes()
+    dram = int(WORKLOAD_DRAM_FRAC * aug_set)
+    trace = [JobSpec(f"job{i}", arrival_s=a, epochs=1, batch_size=BATCH,
+                     executor="device")
+             for i, a in enumerate(WORKLOAD_ARRIVALS)]
+
+    def shared(backend: str = "torch"):
+        return SenecaServer.for_dataset(
+            ds, cache_bytes=dram, split=(0.0, 0.0, 1.0), backend=backend,
+            use_ods=True,
+            device_cache_bytes=int(WORKLOAD_HBM_FRAC * aug_set),
+            hbm_split=(0.0, 0.0, 1.0), seed=seed, device=dev)
+
+    def private(spec):
+        return SenecaServer.for_dataset(
+            ds, cache_bytes=dram // len(trace), seed=seed, use_ods=False,
+            split=(1.0, 0.0, 0.0), eviction="lru", device=dev)
+
+    return ds, trace, shared, private
+
+
+def workload_phase(dev, seed: int, card: str):
+    """Three training jobs on one shared cache: ``imagenet_like``,
+    batch 256, ``backend="torch"`` (the ODS step on the card), an HBM
+    tier of half the augmented set and a DRAM share for the augmented
+    form, each job one epoch through the device executor on a real
+    clock, arriving at 0, 1 and 2 s.  Then the same trace on a private
+    server per job (the reference benchmark's naive baseline: no ODS,
+    encoded-only LRU cache of a third of the DRAM budget each)."""
+    import repro_torch.workload.runner as runner_mod
+    from repro_torch.api import RealClock
+    from repro_torch.data.storage import RemoteStorage
+
+    n = N_WORKLOAD
+    ds, trace, shared, private = workload_setup(dev, seed, n)
+    server = shared()
+    storage = RemoteStorage(ds)
+    picks = []
+    pacer_cls = runner_mod._IngestPacer
+    runner_mod._IngestPacer = picking_pacer(
+        pacer_cls, picks, np.random.default_rng(seed), 4 / (n // BATCH))
+    try:
+        reset_counts()
+        res = server.run_workload(trace, storage, clock=RealClock(),
+                                  seed=seed, timeout=900,
+                                  raise_on_error=False)
+        counts = read_counts()
+    finally:
+        runner_mod._IngestPacer = pacer_cls
+    stats = res.stats
+    h2d = server.service.telemetry.channel_total_bytes("h2d")
+    server.close()
+    for j in res.jobs:
+        check(j.error is None and not j.cancelled,
+              f"{j.spec.name} failed: {j.error}")
+        check(sorted(j.sample_ids) == list(range(n)),
+              f"{j.spec.name} did not serve every id exactly once")
+        print(f"  {j.spec.name}: arrived {j.spec.arrival_s:.1f} s, "
+              f"{j.duration_s:.3f} s, {j.samples / j.duration_s:.1f} "
+              f"samples/s", flush=True)
+    check(len(picks) > 0, "no batch was picked for the row check")
+    check_rows(ds, picks, epoch_seeds=False)
+    check(counts["decode_augment"] > 0,
+          "K1 was not launched on the multi-job path")
+    check(stats["substitutions"] > 0, "ODS substituted nothing")
+    check(stats["backend"] == "torch", f"backend {stats['backend']}")
+    print(f"multi-job shared cache ({len(trace)} jobs, {n} samples, "
+          f"batch {BATCH}): makespan {res.makespan:.3f} s, wall "
+          f"{res.wall_s:.3f} s, ods_hit_rate {stats['ods_hit_rate']:.4f}, "
+          f"substitutions {stats['substitutions']}, h2d bytes {h2d}, hbm "
+          f"bytes {stats.get('hbm_bytes_used')}, launches K1 "
+          f"{counts['decode_augment']} K2 {counts['augment']}, "
+          f"{len(picks)} rows equal a CPU recomputation ({card})",
+          flush=True)
+    # every storage fetch beyond the foreground's misses is a background
+    # refill, which decodes and augments on the host
+    print(f"multi-job shared cache: storage fetches {storage.fetches} "
+          f"({stats['misses']} foreground misses, so about "
+          f"{storage.fetches - stats['misses']} background refills), "
+          f"refill errors {stats['refill_errors']}", flush=True)
+
+    storage = RemoteStorage(ds)
+    runner = runner_mod.WorkloadRunner(
+        server_factory=private, storage=storage, clock=RealClock(),
+        seed=seed, record_ids=False)
+    priv = runner.run(trace, timeout=900)
+    print(f"multi-job private caches (naive, one server per job): "
+          f"makespan {priv.makespan:.3f} s (shared {res.makespan:.3f} s), "
+          f"storage fetches {storage.fetches}, "
+          + ", ".join(f"{j.spec.name} {j.duration_s:.3f} s"
+                      for j in priv.jobs) + f" ({card})", flush=True)
+    return counts
+
+
+# ----------------------------------------------------------------------
 # The serving path: qwen3-8b (dense, K4) and mamba2-1.3b (ssm, K5)
 #: qwen3-8b prefill: B prompts of S tokens into a cache of S_MAX
 ATTN_B, ATTN_S, ATTN_S_MAX = 4, 1024, 1088
@@ -979,6 +1269,9 @@ def main(argv=None) -> int:
                    N_DECODED, args.seed, card)
     rows["decode"]["launches"] = counts["decode"]
     rows["augment"]["launches"] = counts["augment"]
+    phase("ods step, ImageNet-1k scale", ods_phase, dev, args.seed, card)
+    phase("multi-job workload, shared cache", workload_phase, dev,
+          args.seed, card)
     rows.update(phase("model kernels", model_kernel_phase, dev, args.seed))
     rows["flash_attention"]["launches"] = phase(
         "serving, qwen3-8b", dense_phase, dev, args.seed, card)

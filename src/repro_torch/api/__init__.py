@@ -8,17 +8,34 @@ Live service (sessions over one shared cache + sampler)::
     with server.open_session(batch_size=32) as sess:
         ids, forms = sess.next_batch_ids()
 
-``device=None`` (the default) places the HBM tier and the device
-executor on CUDA and raises where CUDA is missing; ``device="cpu"`` runs
-the same code with the kernels' plain PyTorch versions.  Policies,
-telemetry, adaptive repartitioning and the closed-form performance model
-behave as in the reference package.  What is not ported yet (the
-simulator, the sharded data plane, fault injection, workloads, the JAX
-ODS engine) is not exported here; see ROADMAP.md.
+``device=None`` (the default) places the HBM tier, the device executor
+and the "torch" ODS engine on CUDA and raises where CUDA is missing;
+``device="cpu"`` runs the same code with the kernels' plain PyTorch
+versions.  ``backend="torch"`` runs the ODS batch substitution on that
+device (:class:`TorchOdsBackend`); "numpy" keeps it on the host.
+
+Multi-job workloads and open-loop serving (re-exported from
+:mod:`repro_torch.workload`)::
+
+    from repro_torch.api import JobSpec, VirtualClock
+
+    res = server.run_workload(
+        [JobSpec("a", epochs=1, batch_size=16),
+         JobSpec("b", arrival_s=0.05, epochs=1, batch_size=16)],
+        RemoteStorage(ds), clock=VirtualClock())   # deterministic
+
+On a ``RealClock`` (the default), ``JobSpec(executor="device")`` runs
+each job's pipeline through the fused decode+augment kernel.  Fault
+injection (:class:`FaultSpec`, :class:`FaultInjector`) replays on the
+same clock.  Policies, telemetry, adaptive repartitioning and the
+closed-form performance model behave as in the reference package.  What
+is not ported yet (the simulator, the sharded data plane) is not
+exported here; see ROADMAP.md.
 """
 from repro_torch.api.backends import (AugmentBackend, CudaAugmentBackend,
                                       NumpyAugmentBackend, NumpyOdsBackend,
-                                      OdsBackend, augment_backend_names,
+                                      OdsBackend, TorchOdsBackend,
+                                      augment_backend_names,
                                       backend_names,
                                       register_augment_backend,
                                       register_backend,
@@ -45,6 +62,31 @@ from repro_torch.core.perf_model import (AWS_P3, AZURE_NC96, DATASETS,
                                          DatasetProfile, HardwareProfile,
                                          JobProfile, dsi_throughput,
                                          dsi_throughput_tiered)
+# fault injection + failover
+from repro_torch.faults import (FAULT_KINDS, FaultInjector, FaultSpec,
+                                LivenessRegistry)
+
+# live multi-job workload runner + pluggable clocks; VirtualClock makes
+# concurrency deterministic.  These are re-exported lazily (PEP 562):
+# repro_torch.workload.runner imports the pipeline, which imports
+# repro_torch.api.server, which initializes this package — an eager
+# import here would close that cycle on a partially initialized module.
+_WORKLOAD_EXPORTS = ("Clock", "JobResult", "JobSpec", "RealClock",
+                     "VirtualClock", "WorkloadResult", "WorkloadRunner",
+                     "deterministic_runner",
+                     # open-loop serving
+                     "OpenLoopGenerator", "RequestResult", "ServeResult",
+                     "ARRIVAL_PROCESSES", "poisson_arrivals",
+                     "bursty_arrivals", "diurnal_arrivals",
+                     "make_arrivals")
+
+
+def __getattr__(name: str):
+    if name in _WORKLOAD_EXPORTS:
+        import repro_torch.workload as _workload
+        return getattr(_workload, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
 
 __all__ = [
     # server / session facade
@@ -60,7 +102,7 @@ __all__ = [
     "CapacityAdmission", "RefcountEviction", "LruEviction",
     "register_policy", "resolve_policy", "policy_names",
     # backends
-    "OdsBackend", "NumpyOdsBackend",
+    "OdsBackend", "NumpyOdsBackend", "TorchOdsBackend",
     "register_backend", "resolve_backend", "backend_names",
     "AugmentBackend", "NumpyAugmentBackend", "CudaAugmentBackend",
     "register_augment_backend", "resolve_augment_backend",
@@ -71,4 +113,13 @@ __all__ = [
     "AZURE_NC96", "AWS_P3", "IN_HOUSE", "VALIDATION_PROFILES",
     "EVAL_PROFILES", "DATASETS", "IMAGENET_1K", "IMAGENET_22K",
     "OPENIMAGES", "GB", "MB", "KB", "Gbit",
+    # live multi-job workloads
+    "WorkloadRunner", "JobSpec", "JobResult", "WorkloadResult",
+    "Clock", "RealClock", "VirtualClock", "deterministic_runner",
+    # open-loop serving
+    "OpenLoopGenerator", "RequestResult", "ServeResult",
+    "ARRIVAL_PROCESSES", "poisson_arrivals", "bursty_arrivals",
+    "diurnal_arrivals", "make_arrivals",
+    # fault injection + failover
+    "FaultSpec", "FaultInjector", "LivenessRegistry", "FAULT_KINDS",
 ]

@@ -17,16 +17,17 @@ both — so the paper's headline many-jobs-one-cache scenario is just N
 ``open_session`` calls against one server.
 
 Construction knobs (``SenecaConfig`` fields or ``SenecaServer`` kwargs):
-``backend`` selects the ODS metadata engine (this package has "numpy"),
-and ``sampler`` / ``admission`` / ``eviction`` select policies by
-registered name (see :mod:`repro_torch.api.policies`).  ``device``
-(``SenecaServer``/``SenecaService`` kwarg) is where the HBM tier and the
-device executor run: ``None`` means CUDA, and ``"cpu"`` is how tests opt
-out of the card.
+``backend`` selects the ODS metadata engine ("numpy" on the host, or
+"torch": the batch substitution of :mod:`repro_torch.core.ods_torch`
+on the service's device), and ``sampler`` / ``admission`` /
+``eviction`` select policies by registered name (see
+:mod:`repro_torch.api.policies`).  ``device`` (``SenecaServer``/
+``SenecaService`` kwarg) is where the HBM tier, the device executor and
+the "torch" ODS engine run: ``None`` means CUDA, and ``"cpu"`` is how
+tests opt out of the card.
 
-Not ported yet (each raises ``NotImplementedError``): the sharded data
-plane (``shards > 1`` or a non-"sim" transport), named request samplers
-(``open_session(sampler=...)``) and ``SenecaServer.run_workload``.
+Not ported yet (raises ``NotImplementedError``): the sharded data plane
+(``shards > 1`` or a non-"sim" transport).
 :func:`state_from_reference` converts a job snapshot taken from the
 reference package's service into this package's format.
 
@@ -73,10 +74,9 @@ _NOT_PORTED = "not ported yet; see ROADMAP.md"
 class SLO:
     """Tail-latency service-level objective for open-loop serving.
 
-    The reference's open-loop admission controller
-    (``repro.workload.openloop.OpenLoopGenerator``, not ported yet)
-    estimates each
-    arriving request's queue wait as ``backlog x service-time EWMA /
+    The open-loop admission controller
+    (:class:`~repro_torch.workload.openloop.OpenLoopGenerator`) estimates
+    each arriving request's queue wait as ``backlog x service-time EWMA /
     workers`` and compares it against ``p99_target_s``:
 
     * estimated wait > ``degrade_frac`` x target — skip augmentation
@@ -505,7 +505,8 @@ class SenecaService:
         try:
             self.backend = resolve_backend(backend or cfg.backend,
                                            cfg.dataset.n_total,
-                                           seed=cfg.seed)
+                                           seed=cfg.seed,
+                                           device=self.device)
             self.augment = resolve_augment_backend(
                 augment_backend or cfg.augment_backend)
             self.rng = np.random.default_rng(cfg.seed + 1)
@@ -540,14 +541,20 @@ class SenecaService:
     # ------------------------------------------------------------------
     def register_job(self, job_id: int, batch_size: int,
                      sampler=None) -> None:
-        """Register a job on the uniform :class:`EpochSampler`.  The
-        reference's named request samplers ("zipfian", "phase-shift",
-        callables) are not ported yet: any ``sampler`` raises."""
-        if sampler is not None:
-            raise NotImplementedError(
-                f"request sampler {sampler!r}: {_NOT_PORTED}")
+        """Register a job.  ``sampler`` selects the request stream: None
+        keeps the historical uniform :class:`EpochSampler`; a name from
+        :data:`repro_torch.workload.samplers.REQUEST_SAMPLERS` ("zipfian",
+        "phase-shift") or a ``(n, bs, seed) -> sampler`` callable swaps
+        in skewed/shifting traffic for this job only."""
         seed = self.cfg.seed + 97 * (job_id + 1)
-        smp = EpochSampler(self.cfg.dataset.n_total, batch_size, seed)
+        if sampler is None:
+            smp = EpochSampler(self.cfg.dataset.n_total, batch_size, seed)
+        else:
+            # lazy import: repro_torch.api must stay importable without
+            # repro_torch.workload (which imports the pipeline layer)
+            from repro_torch.workload.samplers import make_request_sampler
+            smp = make_request_sampler(sampler, self.cfg.dataset.n_total,
+                                       batch_size, seed)
         with self._lock:
             self.backend.register_job(job_id)
             self._samplers[job_id] = smp
@@ -824,7 +831,8 @@ class SenecaService:
 
     def set_clock(self, clock) -> None:
         """Install a pluggable time source (anything with ``.now()``;
-        ``None`` restores wall time).  Under a virtual clock this makes the
+        ``None`` restores wall time).  Under a
+        :class:`~repro_torch.workload.clock.VirtualClock` this makes the
         adaptive repartition cooldown count *trace* seconds, so the
         repartition cadence is deterministic instead of tracking host
         CPU speed."""
@@ -922,6 +930,19 @@ class SenecaService:
         prod = self.production.stats()
         if prod["led"] or prod["duplicates"]:
             out["production"] = prod
+        errors = self.telemetry.as_dict().get("errors", {})
+        fault_counts = {k: v for k, v in errors.items()
+                        if k.startswith(("fault.", "recovery."))}
+        if fault_counts or getattr(self.cache, "failovers", 0):
+            out["faults"] = {
+                "counts": fault_counts,
+                "injected": sum(v for k, v in fault_counts.items()
+                                if k.startswith("fault.")),
+                "recovered": sum(v for k, v in fault_counts.items()
+                                 if k.startswith("recovery.")),
+                "shard_failovers": int(getattr(self.cache,
+                                               "failovers", 0)),
+            }
         return out
 
     def _spill_stats(self) -> Dict[str, object]:
@@ -1095,8 +1116,9 @@ class SenecaServer:
 
     # ------------------------------------------------------------------
     def open_session(self, batch_size: int, sampler=None) -> Session:
-        """Open a job session on the uniform epoch sampler; ``sampler``
-        must stay None (see :meth:`SenecaService.register_job`)."""
+        """Open a job session.  ``sampler`` (None | "zipfian" |
+        "phase-shift" | callable) picks this job's request stream — see
+        :meth:`SenecaService.register_job`."""
         with self._lock:
             job_id = next(self._ids)
             self.service.register_job(job_id, batch_size,
@@ -1124,9 +1146,27 @@ class SenecaServer:
         the alternative to the ``repartition_period`` background thread."""
         return self.service.maybe_repartition()
 
-    def run_workload(self, trace, storage, **kwargs):
-        """The reference's multi-job workload runner is not ported yet."""
-        raise NotImplementedError(f"run_workload: {_NOT_PORTED}")
+    def run_workload(self, trace, storage, *, clock=None,
+                     timeout: Optional[float] = None,
+                     raise_on_error: bool = True, **runner_kwargs):
+        """Run a multi-job trace against this server's shared cache and
+        return the :class:`~repro_torch.workload.runner.WorkloadResult`.
+
+        Convenience over
+        :class:`~repro_torch.workload.runner.WorkloadRunner` (which see
+        for ``clock=``/``record_ids=``/``seed=`` knobs and the
+        deterministic VirtualClock contract); ``timeout`` /
+        ``raise_on_error`` are forwarded to
+        :meth:`~repro_torch.workload.runner.WorkloadRunner.run`.  Each
+        job in ``trace`` opens its own session, so arrivals/departures
+        drive the :class:`RepartitionController` exactly like
+        hand-opened ones.
+        """
+        from repro_torch.workload.runner import WorkloadRunner
+        runner = WorkloadRunner(self, storage, clock=clock,
+                                **runner_kwargs)
+        return runner.run(trace, timeout=timeout,
+                          raise_on_error=raise_on_error)
 
     def stats(self) -> Dict[str, float]:
         out = self.service.stats()

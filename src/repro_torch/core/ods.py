@@ -4,8 +4,8 @@ Vectorized reimplementation of the paper's per-sample loop (DESIGN.md §2):
 the metadata is exactly the paper's — a per-job *seen* bit-vector, a
 per-dataset *status* byte and a *reference count* — but substitution is a
 masked argsort over the batch instead of pointer chasing, so a batch costs
-O(B log B + candidates) numpy time and has a direct jittable twin
-(:mod:`repro_torch.core.ods_jax`).
+O(B log B + candidates) numpy time and has a direct device twin
+(:mod:`repro_torch.core.ods_torch`).
 
 Guarantees (§5.2, tested in tests/test_ods.py):
   1. a job sees every dataset sample exactly once per epoch;

@@ -7,13 +7,23 @@ The port's twin of ``repro.launch.serve``, with the same flags.  As in
 the reference, ``--reduced`` defaults to on and cannot be turned off, so
 the CLI always serves the reduced config; a full-width model is served
 through :func:`serve_requests` (``chip_smoke.py`` does).  The device is
-CUDA unless ``--device`` names another.  ``--open-loop`` needs the
-workload layer, which is not ported yet, and raises
-``NotImplementedError``.
+CUDA unless ``--device`` names another.
+
+``--open-loop RATE`` feeds the resident model from the open-loop
+preprocessing generator instead of a pre-built request list: requests
+arrive on a Poisson schedule at RATE req/s, each is preprocessed through
+a live Seneca cache (with SLO admission control) on the same device, and
+every completed sample becomes a prompt for the decode loop.  Prints the
+preprocessing latency percentiles (p50/p99/p999 + per-phase breakdown)
+alongside the decode throughput::
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --open-loop 350 \
+        --device cpu
 """
 from __future__ import annotations
 
 import argparse
+import threading
 import time
 from typing import List, Tuple
 
@@ -59,6 +69,50 @@ def serve_requests(server: Server, pending: List[Request],
     return done, time.monotonic() - t0
 
 
+def _open_loop_requests(args, vocab_size: int, device) -> List[Request]:
+    """Run the open-loop preprocessing stage and map every completed
+    sample to a decode Request (prompt tokens derived from the
+    preprocessed pixels, so the prompt depends on the served form)."""
+    from repro_torch.api import SLO, SenecaServer
+    from repro_torch.data import synthetic
+    from repro_torch.data.storage import RemoteStorage
+    from repro_torch.workload import OpenLoopGenerator, poisson_arrivals
+
+    ds = synthetic.tiny(n=256)
+    seneca = SenecaServer.for_dataset(ds, cache_frac=0.3, device=device)
+    storage = RemoteStorage(ds, bandwidth=8e6)
+    lock = threading.Lock()
+    pending: List[Request] = []
+
+    def consumer(res, value) -> None:
+        arr = np.asarray(value, np.float32).ravel()
+        tok = (np.abs(arr[:args.prompt_len]) * 1e4).astype(np.int64) \
+            % vocab_size
+        with lock:
+            pending.append(Request(res.req_id, tok.astype(np.int32),
+                                   max_new=args.max_new,
+                                   arrival_s=res.arrival_s))
+
+    gen = OpenLoopGenerator(
+        seneca, storage, consumer=consumer,
+        slo=SLO(p99_target_s=args.slo_p99, max_queue=64),
+        n_workers=2, seed=0)
+    result = gen.run(poisson_arrivals(args.open_loop, n=args.requests,
+                                      seed=0))
+    seneca.close()
+    print(f"open-loop preprocessing @ {args.open_loop:.0f} req/s: "
+          f"{result.counts}")
+    lat = result.percentiles()
+    if lat:
+        print(f"  latency p50={lat['p50'] * 1e3:.2f}ms "
+              f"p99={lat['p99'] * 1e3:.2f}ms "
+              f"p999={lat['p999'] * 1e3:.2f}ms")
+        for phase, pcts in sorted(result.phase_percentiles().items()):
+            print(f"  {phase:>8}: p50={pcts['p50'] * 1e3:.2f}ms "
+                  f"p99={pcts['p99'] * 1e3:.2f}ms")
+    return pending
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen3-8b",
@@ -71,25 +125,29 @@ def main(argv=None) -> None:
     ap.add_argument("--s-max", type=int, default=128)
     ap.add_argument("--open-loop", type=float, default=None, metavar="RATE",
                     help="feed requests from the open-loop preprocessing "
-                         "generator (not ported yet)")
+                         "generator at RATE req/s (Poisson arrivals, SLO "
+                         "admission control) instead of a pre-built list")
     ap.add_argument("--slo-p99", type=float, default=0.2,
                     help="open-loop p99 latency target in seconds")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda)")
     args = ap.parse_args(argv)
 
-    if args.open_loop is not None:
-        raise NotImplementedError(
-            "--open-loop needs the workload layer, which is not ported "
-            "yet; see ROADMAP.md")
     cfg = registry.get_reduced(args.arch) if args.reduced \
         else registry.get(args.arch)
     if not cfg.has_decoder:
         raise SystemExit(f"{cfg.name} is encoder-only; no decode path")
-    model = build(cfg).init(seed=0, device=resolve_device(args.device))
+    device = resolve_device(args.device)
+    model = build(cfg).init(seed=0, device=device)
     server = Server(model, n_slots=args.slots, s_max=args.s_max)
-    pending = make_requests(args.requests, args.prompt_len, cfg.vocab_size,
-                            max_new=args.max_new)
+    if args.open_loop is not None:
+        pending = _open_loop_requests(args, cfg.vocab_size, device)
+        if not pending:
+            raise SystemExit("open-loop stage shed every request; lower "
+                             "the rate or raise --slo-p99")
+    else:
+        pending = make_requests(args.requests, args.prompt_len,
+                                cfg.vocab_size, max_new=args.max_new)
     n_requests = len(pending)
     done, dt = serve_requests(server, pending)
     total_tok = sum(len(r.generated)

@@ -433,3 +433,171 @@ def test_k4_k5_reject_unsupported_cuda_shapes(cuda):
         xb = torch.zeros((1, 8, 1, 24), device=cuda, dtype=torch.bfloat16)
         Bb = torch.zeros((1, 8, 16), device=cuda, dtype=torch.bfloat16)
         ssd_k.ssd_scan(xb, dt, A, Bb, Bb)
+
+
+# ----------------------------------------------------------------------
+# the ODS step on the card ("torch" backend)
+ODS_VARIANTS = ("plain", "tiered", "inflight", "tiered_inflight")
+
+
+def _ods_tables(rng, N, variant):
+    status = np.where(rng.random(N) < 0.5, rng.integers(1, 4, N), 0) \
+        .astype(np.uint8)
+    residency = np.where(status != 0, rng.integers(1, 4, N), 0) \
+        .astype(np.uint8) if "tiered" in variant else None
+    inflight = rng.random(N) < 0.3 if "inflight" in variant else None
+    return status, residency, inflight
+
+
+def _ods_scores(status, seen, requested, residency, inflight):
+    """Candidate scores as the reference scores them (0 = none)."""
+    cached = status != 0
+    direct = cached[requested] & ~seen[requested]
+    in_batch = np.zeros(len(status), bool)
+    in_batch[requested[direct]] = True
+    free = ~seen & ~in_batch
+    if residency is None:
+        score = np.where(free & cached, 2, 0)
+    else:
+        score = np.select([free & cached & (residency >= 3),
+                           free & cached & (residency == 2),
+                           free & cached & (residency < 2)], [4, 3, 2], 0)
+    score = np.where(free & ~cached, 1, score)
+    if inflight is not None:
+        score = np.where(inflight & (score > 0), 2 * score - 1, 2 * score)
+    return score, direct
+
+
+@pytest.mark.parametrize("variant", ODS_VARIANTS)
+def test_torch_ods_backend_invariants_on_card(cuda, variant):
+    """Over two epochs on the card, every step of every variant serves
+    unique unseen ids, keeps direct hits in their slots and fills from
+    the best class with a free candidate; the step's tensors live on the
+    card."""
+    from repro_torch.api import TorchOdsBackend
+    from repro_torch.core import ods_torch
+    N, B = 2048, 64
+    rng = np.random.default_rng(3)
+    be = TorchOdsBackend(N, seed=1)
+    assert be.device.type == "cuda"
+    be.register_job(0)
+    status, residency, inflight = _ods_tables(rng, N, variant)
+    for form in (1, 2, 3):
+        be.mark_cached(np.flatnonzero(status == form), form)
+    be.set_residency(residency)
+    be.set_inflight(inflight)
+    seen_devices = set()
+    core = ods_torch._substitute_core
+
+    def spy(state, *a, **kw):
+        seen_devices.add(state.status.device.type)
+        return core(state, *a, **kw)
+
+    ods_torch._substitute_core = spy
+    try:
+        for step in range(2 * N // B):
+            pre_status, pre_seen = be.status.copy(), be.seen[0].copy()
+            if N - be.served[0] < B:
+                pre_seen[:] = False
+            req = rng.choice(N, B, replace=False)
+            batch, _ = be.sample_batch(0, req, evict_threshold=2)
+            score, direct = _ods_scores(pre_status, pre_seen, req,
+                                        residency, inflight)
+            assert len(set(batch.tolist())) == B
+            assert not pre_seen[batch].any()
+            np.testing.assert_array_equal(batch[direct], req[direct])
+            subs = batch[~direct]
+            taken = np.zeros(N, bool)
+            taken[subs] = True
+            left = score[(score > 0) & ~taken]
+            if len(subs) and len(left):
+                assert score[subs].min() >= left.max()
+    finally:
+        ods_torch._substitute_core = core
+    assert seen_devices == {"cuda"}
+    assert be.epoch_of(0) >= 1
+
+
+@pytest.mark.parametrize("variant", ODS_VARIANTS)
+def test_torch_ods_forced_choice_equals_cpu_exactly(cuda, variant):
+    """Where the choice is forced (the best class holds exactly as many
+    free candidates as slots) the card's step equals the CPU's: the
+    batch's set, status, refcount, seen and served."""
+    from repro_torch.api import TorchOdsBackend
+    N, B = 512, 16
+    rng = np.random.default_rng(5)
+    best = rng.choice(400, B, replace=False)
+    others = np.setdiff1d(np.arange(400), best)[:100]
+    out = []
+    for dev in ("cuda", "cpu"):
+        be = TorchOdsBackend(N, seed=9, device=dev)
+        be.register_job(0)
+        be.register_job(1)
+        be.mark_cached(best, 3)
+        residency = inflight = None
+        if "tiered" in variant:
+            be.mark_cached(others, 2)
+            residency = np.zeros(N, np.uint8)
+            residency[best] = 3
+            residency[others] = 2
+        if "inflight" in variant:
+            if residency is None:
+                be.mark_cached(others, 3)
+            inflight = np.zeros(N, bool)
+            inflight[others] = True
+        be.set_residency(residency)
+        be.set_inflight(inflight)
+        batch, evicted = be.sample_batch(0, np.arange(450, 450 + B))
+        out.append((sorted(batch.tolist()), evicted.tolist(),
+                    be.status.copy(), be.refcount.copy(), be.seen[0].copy(),
+                    be.served[0], be.hits, be.substitutions))
+    card, host = out
+    assert card[0] == host[0] == sorted(best.tolist())
+    for a, b in zip(card[1:], host[1:]):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_torch_ods_checkpoint_restore_on_card(cuda):
+    from repro_torch.api import TorchOdsBackend
+    be = TorchOdsBackend(256, seed=2)
+    be.register_job(0)
+    be.mark_cached(np.arange(0, 256, 2), 3)
+    for i in range(5):
+        be.sample_batch(0, np.arange(i * 32, i * 32 + 32))
+    snap = be.checkpoint_job(0)
+    assert snap["rng_state"] == be.generator.get_state().tolist()
+    other = TorchOdsBackend(256, seed=3)
+    other.register_job(4)
+    other.restore_job(4, snap)
+    np.testing.assert_array_equal(other.seen[4], be.seen[0])
+    assert (other.served[4], other.epoch[4]) == (be.served[0], be.epoch[0])
+    # the resumed job finishes the epoch without a repeat
+    served = set(np.flatnonzero(other.seen[4]).tolist())
+    while other.served[4] + 32 <= 256:
+        batch, _ = other.sample_batch(4, np.arange(32))
+        assert not served & set(batch.tolist())
+        served |= set(batch.tolist())
+    assert served == set(range(256))
+
+
+def test_two_job_device_workload_on_card(cuda):
+    """Two jobs share one cache on the card under a real clock: each
+    runs the device executor (K1 for cold samples) with the ODS step on
+    the card, and each serves every id exactly once."""
+    from repro_torch.api import JobSpec
+    ds = tiny(n=128)
+    server = SenecaServer.for_dataset(
+        ds, backend="torch", cache_frac=0.25, split=(0.0, 0.0, 1.0),
+        device_cache_bytes=int(0.5 * 128 * ds.augmented_bytes()),
+        hbm_split=(0.0, 0.0, 1.0), seed=0)
+    n0 = decode_k.decode_augment.launches
+    res = server.run_workload(
+        [JobSpec("a", epochs=1, batch_size=16, executor="device"),
+         JobSpec("b", arrival_s=0.05, epochs=1, batch_size=16,
+                 executor="device")], RemoteStorage(ds), timeout=300)
+    server.close()
+    assert res.ok and res.stats["backend"] == "torch"
+    for j in res.jobs:
+        assert sorted(j.sample_ids) == list(range(128)), j.spec.name
+    assert decode_k.decode_augment.launches > n0
+    assert res.stats["substitutions"] > 0

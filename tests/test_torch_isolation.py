@@ -3,9 +3,11 @@
 The test process already holds jax (the parity tests import both
 packages), so the import check runs in a subprocess under a meta-path
 finder that refuses those packages, imports ``repro_torch``, drives one
-CPU device-executor batch, imports the serving path (models, server,
-CLI), runs one reduced qwen3-8b prefill and decode step, and exits 0.  A static scan of the port's
-sources backs it up for modules the run does not import.
+CPU device-executor batch, imports the fault and workload layers and
+runs a 2-job VirtualClock trace with a worker crash on the "torch" ODS
+engine, imports the serving path (models, server, CLI), runs one reduced
+qwen3-8b prefill and decode step, and exits 0.  A static scan of the
+port's sources backs it up for modules the run does not import.
 """
 import ast
 import os
@@ -49,6 +51,23 @@ batch = pipe.next_batch()
 assert tuple(batch["images"].shape) == (8, *ds.crop_hw, 3)
 assert np.isfinite(batch["images"].numpy()).all()
 pipe.stop()
+server.close()
+
+import repro_torch.faults
+import repro_torch.workload
+from repro_torch.api import FaultSpec, JobSpec, VirtualClock
+
+ds = tiny(n=32)
+server = SenecaServer.for_dataset(ds, backend="torch", cache_frac=0.4,
+                                  device="cpu")
+res = server.run_workload(
+    [JobSpec("a", epochs=1, batch_size=8, gpu_rate=1000),
+     JobSpec("b", arrival_s=0.01, epochs=1, batch_size=8, gpu_rate=500)],
+    RemoteStorage(ds), clock=VirtualClock(),
+    faults=[FaultSpec("worker-crash", at_s=0.005, job="a")])
+assert res.ok and res.stats["backend"] == "torch"
+assert all(sorted(j.sample_ids) == list(range(32)) for j in res.jobs)
+assert res.stats["faults"]["counts"]["fault.worker-crash"] == 1
 server.close()
 
 import torch

@@ -227,10 +227,14 @@ def test_unported_branches_raise():
     with pytest.raises(NotImplementedError, match="not ported"):
         SenecaServer.for_dataset(ds, shard_transport="process",
                                  device="cpu")
+    # the named request samplers and the workload runner are ported:
+    # they run, and refuse what the reference refuses
     server = SenecaServer.for_dataset(ds, device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        server.open_session(batch_size=4, sampler="zipfian")
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with server.open_session(batch_size=4, sampler="zipfian") as sess:
+        assert len(sess.next_batch_ids()[0]) == 4
+    with pytest.raises(ValueError, match="unknown request sampler"):
+        server.open_session(batch_size=4, sampler="bogus")
+    with pytest.raises(ValueError, match="empty workload"):
         server.run_workload([], RemoteStorage(ds))
     assert server.n_sessions == 0
     server.close()

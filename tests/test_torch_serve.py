@@ -111,8 +111,14 @@ def test_cli_serves_on_cpu(capsys):
                     "--device", "cpu"])
     out = capsys.readouterr().out
     assert "3 requests, 21 tokens" in out
-    with pytest.raises(NotImplementedError):
-        serve_cli.main(["--open-loop", "10", "--device", "cpu"])
+    # --open-loop feeds the decode loop from the open-loop generator
+    serve_cli.main(["--arch", "mamba2-1.3b", "--open-loop", "200",
+                    "--requests", "6", "--slots", "2", "--prompt-len", "4",
+                    "--max-new", "2", "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "open-loop preprocessing @ 200 req/s" in out
+    assert "latency p50=" in out
+    assert "6 requests, 36 tokens" in out
 
 
 def test_cli_requests_match_reference_prompts():
