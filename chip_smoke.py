@@ -34,6 +34,24 @@ into ``build/repro_torch/``), then:
    (``server.run_workload`` on a real clock): every id once per job,
    sampled rows equal to a CPU recomputation, K1 launched,
    substitutions > 0, the makespan beside private per-job servers';
+   then the sharded data plane: (a) the augmented main path over 4 sim
+   shards (HBM tier sized from the router's fullest shard): every id
+   once per epoch, sampled rows equal to a CPU recomputation, K1 once
+   per batch of the cold epoch (traced, as the unsharded one), the
+   all-HBM epoch served as CUDA tensors from the shards' tiers with 0
+   h2d bytes, samples/s beside the unsharded run's; (b) 2 process
+   shards, each with its HBM tier in a CUDA context of its own: a client
+   with the dataset ingests every id through the shards' host produce
+   path (rows equal a CPU recomputation), then the server's own process
+   shards (``for_dataset(..., shard_transport="process")``) under the
+   device executor: a cold epoch whose K1 rows are shipped into the
+   shards' HBM tiers, every decoded form admitted through the session,
+   and an epoch whose host copies are uploaded (h2d bytes equal the
+   shipped rows' bytes) and whose decoded hits run through K2; (c) two
+   jobs on 2 sim shards with the ODS step on
+   the card, shard 1 killed and restarted mid-run: every id once per
+   job, the dead shard's ids IN_STORAGE in the ODS tables, one kill and
+   one restart counted, failovers > 0;
 5. model kernel phase: K4 flash attention at qwen3-8b's prefill shapes
    and K5 SSD scan at mamba2-1.3b's forward shapes (both on the tensor
    cores in bf16), each against its plain version on the card, timed
@@ -120,6 +138,14 @@ N_WORKLOAD = 16_384
 WORKLOAD_ARRIVALS = (0.0, 1.0, 2.0)
 WORKLOAD_HBM_FRAC = 0.5
 WORKLOAD_DRAM_FRAC = 0.1
+#: the sharded data plane: (a) sim shards over the augmented main path,
+#: (b) process shards: an ingest through their host produce path, then
+#: the server's own under the device executor, (c) a shard kill
+#: under two jobs paced at KILL_RATE samples/s each (so the run lasts at
+#: least N_KILL / KILL_RATE seconds and the restart lands inside it)
+N_SHARDED_SIM, SIM_SHARDS = 16_384, 4
+N_SHARDED_PROCESS, PROCESS_SHARDS = 2_048, 2
+N_KILL, KILL_SHARDS, KILL_RATE = 4_096, 2, 1024.0
 
 
 class SmokeFailure(RuntimeError):
@@ -480,7 +506,7 @@ def main_path_augmented(dev, n: int, seed: int, card: str):
         print(f"main path augmented: launches {counts}, residency "
               f"{stats['residency_counts']}, hbm bytes "
               f"{stats['hbm_bytes_used']}", flush=True)
-        return counts
+        return counts, [rate for rate, _ in results]
     finally:
         pipe.stop()
         server.close()
@@ -833,6 +859,349 @@ def workload_phase(dev, seed: int, card: str):
           + ", ".join(f"{j.spec.name} {j.duration_s:.3f} s"
                       for j in priv.jobs) + f" ({card})", flush=True)
     return counts
+
+
+# ----------------------------------------------------------------------
+# The sharded data plane: sim shards, process shards, a shard kill
+def recording_lookups(sess, seen):
+    """Wrap ``sess.lookup_tiered`` to append each answer's (form, tier,
+    value's device or type) to ``seen``."""
+    lookup = sess.lookup_tiered
+
+    def record(sid):
+        form, value, tier = lookup(sid)
+        seen.append((form, tier, value.device.type
+                     if isinstance(value, torch.Tensor)
+                     else type(value).__name__))
+        return form, value, tier
+
+    sess.lookup_tiered = record
+
+
+def sharded_sim_part(dev, seed: int, card: str, unsharded):
+    """(a) The augmented main path over ``SIM_SHARDS`` sim shards: the
+    HBM tier, split evenly per shard, sized for the router's fullest
+    shard; a cold epoch through K1, traced as the unsharded cold epoch
+    is, and an all-HBM epoch whose rows are the shards' CUDA tensors."""
+    from repro_torch.api import SenecaServer, ShardRouter
+    from repro_torch.data.pipeline import DSIPipeline
+    from repro_torch.data.storage import RemoteStorage
+    from repro_torch.data.synthetic import imagenet_like
+
+    n = N_SHARDED_SIM
+    ds = imagenet_like(n=n)
+    load = ShardRouter(SIM_SHARDS, 64, seed).load(np.arange(n))
+    server = SenecaServer.for_dataset(
+        ds, use_ods=False, admission="capacity", eviction="lru",
+        device_cache_bytes=int(1.2 * n * ds.augmented_bytes()
+                               * load.max() / load.mean()),
+        hbm_split=(0.0, 0.0, 1.0), shards=SIM_SHARDS, seed=seed,
+        device=dev)
+    sess = server.open_session(batch_size=BATCH)
+    pipe = DSIPipeline(sess, RemoteStorage(ds), executor="device",
+                       seed=seed)
+    tel = server.service.telemetry
+    rng = np.random.default_rng(seed + 2)
+    rates, launches = [], {}
+    try:
+        for epoch in range(2):
+            reset_counts()
+            seen = []
+            if epoch == 1:
+                recording_lookups(sess, seen)
+            h2d_before = tel.channel_total_bytes("h2d")
+            if epoch == 0:
+                # traced as the unsharded cold epoch is, so the two
+                # compare under the same instrumentation
+                (ids, secs, picks), spans = traced(lambda: run_epoch(
+                    pipe, sess, ds, dev, n // BATCH, rng))
+            else:
+                ids, secs, picks = run_epoch(pipe, sess, ds, dev,
+                                             n // BATCH, rng)
+            counts = read_counts()
+            for k, v in counts.items():
+                launches[k] = launches.get(k, 0) + v
+            check(sorted(ids) == list(range(n)),
+                  f"sharded epoch {epoch + 1} did not serve every id once")
+            check_rows(ds, picks, epoch_seeds=True)
+            h2d = tel.channel_total_bytes("h2d") - h2d_before
+            rates.append(n / secs)
+            print(f"sharded sim x{SIM_SHARDS}, epoch {epoch + 1}"
+                  f"{' (traced)' if epoch == 0 else ''}: {n} samples in "
+                  f"{secs:.3f} s = {n / secs:.1f} samples/s (unsharded "
+                  f"{unsharded[epoch]:.1f}{', traced' if epoch == 0 else ''}"
+                  f"), h2d bytes {h2d}, K1 launches "
+                  f"{counts['decode_augment']} ({card})", flush=True)
+            if epoch == 0:
+                device_time("sharded sim epoch 1", spans, secs, "K1",
+                            "decode_augment_kernel",
+                            counts["decode_augment"])
+                check(counts["decode_augment"] == n // BATCH,
+                      f"K1 launched {counts['decode_augment']} times in "
+                      f"the cold sharded epoch, not {n // BATCH}")
+            else:
+                check(h2d == 0, f"the sharded all-HBM epoch moved {h2d} "
+                                f"h2d bytes")
+                bad = [s for s in seen
+                       if s != ("augmented", "hbm", dev.type)]
+                check(len(seen) == n and not bad,
+                      f"{len(bad)} of {len(seen)} epoch-2 rows were not "
+                      f"{dev.type} tensors from a shard's HBM tier: "
+                      f"{bad[:3]}")
+        shards = server.stats()["shards"]
+        used = [s["hbm_bytes_used"] for s in shards]
+        check(all(u > 0 for u in used)
+              and sum(used) == n * ds.augmented_bytes(),
+              f"per-shard hbm bytes {used} do not hold the {n} rows")
+        check(all(s["hbm_device"].startswith(dev.type) for s in shards),
+              f"shard HBM tiers on {[s['hbm_device'] for s in shards]}")
+        print(f"sharded sim: router load {load.tolist()} (max/mean "
+              f"{load.max() / load.mean():.4f}), hbm bytes per shard "
+              f"{used}, lookups per shard "
+              f"{[s['hits'] + s['misses'] for s in shards]}", flush=True)
+        return launches, rates
+    finally:
+        pipe.stop()
+        server.close()
+
+
+def process_ingest(dev, seed: int, card: str, ds, sizes):
+    """(b), first half: the shards' host produce path.  A client built
+    with the dataset starts ``PROCESS_SHARDS`` process shards (HBM tiers
+    on ``dev`` in their own CUDA contexts) and ingests every id; sampled
+    payloads equal a CPU recomputation of the ``produce_seed``-seeded
+    host decode + augment."""
+    from repro_torch.api import ShardedCache
+    from repro_torch.service.shard import produce_seed
+
+    n = ds.n_samples
+    t0 = time.perf_counter()
+    cache = ShardedCache(
+        sizes["cache_bytes"], sizes["split"],
+        hbm_bytes=sizes["device_cache_bytes"], hbm_split=sizes["hbm_split"],
+        shards=PROCESS_SHARDS, transport="process", seed=seed, dataset=ds,
+        device=dev)
+    start_s = time.perf_counter() - t0
+    try:
+        t0 = time.perf_counter()
+        check(cache.ingest(np.arange(n), epoch_tag=0) == n,
+              "ingest did not produce every id")
+        ingest_s = time.perf_counter() - t0
+        shards = cache.shard_stats()
+        check(all(s["hbm_device"].startswith(dev.type)
+                  and s["hbm_bytes_used"] > 0 for s in shards),
+              f"ingesting shards report hbm "
+              f"{[(s['hbm_device'], s['hbm_bytes_used']) for s in shards]}")
+        for sid in np.random.default_rng(seed + 3).choice(n, 4,
+                                                          replace=False):
+            got = np.asarray(cache.produce(int(sid), epoch_tag=0))
+            check(np.array_equal(got, expected_row(
+                      ds, int(sid), produce_seed(0, int(sid)))),
+                  f"ingested row of sample {sid} equals no CPU "
+                  f"recomputation")
+    finally:
+        cache.close()
+    print(f"sharded process x{PROCESS_SHARDS}, ingest: start {start_s:.3f} "
+          f"s, {n} samples in {ingest_s:.3f} s = {n / ingest_s:.1f} "
+          f"samples/s, hbm on {sorted({s['hbm_device'] for s in shards})} "
+          f"({card})", flush=True)
+
+
+def sharded_process_part(dev, seed: int, card: str):
+    """(b) ``PROCESS_SHARDS`` process shards.  After the ingest
+    (``process_ingest``), the server's own process shards
+    (``SenecaServer.for_dataset(..., shard_transport="process")``) under
+    the device executor: a cold epoch through K1 whose admitted CUDA rows
+    are brought down, shipped and uploaded into the shards' HBM tiers;
+    the decoded form of every id admitted through the session; then an
+    epoch whose hits arrive as host copies, are uploaded and metered on
+    "h2d", and whose decoded hits run through K2."""
+    from repro_torch.api import SenecaServer
+    from repro_torch.data.pipeline import DSIPipeline
+    from repro_torch.data.storage import RemoteStorage
+    from repro_torch.data.synthetic import imagenet_like
+
+    n = N_SHARDED_PROCESS
+    ds = imagenet_like(n=n)
+    aug, dec = ds.augmented_bytes(), ds.decoded_bytes()
+    # both forms get a DRAM and an HBM share (a form with no DRAM share
+    # never admits into its empty HBM tier); about half the augmented
+    # rows fit, every decoded one does
+    sizes = dict(cache_bytes=int(0.25 * n * aug + 1.2 * n * dec),
+                 split=(0.0, 0.6, 0.4),
+                 device_cache_bytes=int(0.25 * n * aug + 0.6 * n * dec),
+                 hbm_split=(0.0, 0.5, 0.5))
+    process_ingest(dev, seed, card, ds, sizes)
+    t0 = time.perf_counter()
+    server = SenecaServer.for_dataset(
+        ds, use_ods=False, admission="capacity", eviction="lru",
+        shards=PROCESS_SHARDS, shard_transport="process", seed=seed,
+        device=dev, **sizes)
+    start_s = time.perf_counter() - t0
+    pipe = None
+    try:
+        sess = server.open_session(batch_size=BATCH)
+        pipe = DSIPipeline(sess, RemoteStorage(ds), executor="device",
+                           seed=seed)
+        tel = server.service.telemetry
+        rng = np.random.default_rng(seed + 4)
+        reset_counts()
+        ids, cold_s, picks = run_epoch(pipe, sess, ds, dev, n // BATCH, rng)
+        cold = read_counts()
+        check(sorted(ids) == list(range(n)),
+              "the cold process-shard epoch did not serve every id once")
+        check(cold["decode_augment"] == n // BATCH,
+              f"K1 launched {cold['decode_augment']} times in the cold "
+              f"process-shard epoch, not {n // BATCH}")
+        check_rows(ds, picks, epoch_seeds=True)
+        shards = server.stats()["shards"]
+        check(all(s["hbm_device"].startswith(dev.type)
+                  and s["hbm_bytes_used"] > 0 for s in shards),
+              f"the server's process shards report hbm "
+              f"{[(s['hbm_device'], s['hbm_bytes_used']) for s in shards]}"
+              f" after the cold epoch")
+        cold_hbm = [s["hbm_bytes_used"] for s in shards]
+        t0 = time.perf_counter()
+        for lo in range(0, n, BATCH):
+            entries = [(s, ds.decode(ds.encoded(s), s), dec)
+                       for s in range(lo, min(lo + BATCH, n))]
+            check(bool(sess.admit_batch("decoded", entries).all()),
+                  "a decoded form was not admitted by the process shards")
+        admit_s = time.perf_counter() - t0
+        before = dict(tel.snapshot().serve_counts)
+        h2d_before = tel.channel_total_bytes("h2d")
+        seen = []
+        recording_lookups(sess, seen)
+        reset_counts()
+        ids, secs, picks = run_epoch(pipe, sess, ds, dev, n // BATCH, rng)
+        counts = read_counts()
+        check(sorted(ids) == list(range(n)),
+              "the process-shard epoch did not serve every id once")
+        check_rows(ds, picks, epoch_seeds=True)
+        served = {k: v - before.get(k, 0)
+                  for k, v in tel.snapshot().serve_counts.items()}
+        shipped = served["augmented"] * aug + served["decoded"] * dec
+        h2d = tel.channel_total_bytes("h2d") - h2d_before
+        check(counts["augment"] > 0 and served["decoded"] > 0,
+              f"decoded hits {served['decoded']}, K2 launches "
+              f"{counts['augment']}")
+        check(h2d == shipped > 0,
+              f"h2d bytes {h2d}, shipped rows' bytes {shipped}")
+        check(all(v != "cuda" for _f, _t, v in seen),
+              "a process shard's value arrived as a CUDA tensor")
+        hbm_hits = sum(1 for _f, t, _v in seen if t == "hbm")
+        print(f"sharded process x{PROCESS_SHARDS}, server: start "
+              f"{start_s:.3f} s; cold epoch {n} samples in {cold_s:.3f} s = "
+              f"{n / cold_s:.1f} samples/s, K1 {cold['decode_augment']} "
+              f"launches, hbm bytes per shard {cold_hbm} on "
+              f"{sorted({s['hbm_device'] for s in shards})}; decoded forms "
+              f"admitted in {admit_s:.3f} s; epoch {n} samples in "
+              f"{secs:.3f} s = {n / secs:.1f} samples/s, served augmented "
+              f"{served['augmented']} decoded {served['decoded']} storage "
+              f"{served.get('storage', 0)} ({hbm_hits} from shard HBM "
+              f"tiers, as host copies), h2d bytes {h2d}, launches K1 "
+              f"{counts['decode_augment']} K2 {counts['augment']} ({card})",
+              flush=True)
+        return {k: cold[k] + counts[k] for k in counts}
+    finally:
+        if pipe is not None:
+            pipe.stop()
+        server.close()
+
+
+def shard_kill_part(dev, seed: int, card: str):
+    """(c) Two jobs on two sim shards with the ODS step on the card, on a
+    real clock; shard 1 is killed a third of the way into the paced run
+    and restarted a third later."""
+    import repro_torch.workload.runner as runner_mod
+    from repro_torch.api import (FaultSpec, JobSpec, RealClock,
+                                 SenecaServer)
+    from repro_torch.core.ods import IN_STORAGE
+    from repro_torch.data.storage import RemoteStorage
+    from repro_torch.data.synthetic import imagenet_like
+
+    n = N_KILL
+    ds = imagenet_like(n=n)
+    aug_set = n * ds.augmented_bytes()
+    server = SenecaServer.for_dataset(
+        ds, cache_bytes=int(WORKLOAD_DRAM_FRAC * aug_set),
+        split=(0.0, 0.0, 1.0), backend="torch", use_ods=True,
+        device_cache_bytes=int(WORKLOAD_HBM_FRAC * aug_set),
+        hbm_split=(0.0, 0.0, 1.0), shards=KILL_SHARDS, seed=seed,
+        device=dev)
+    svc = server.service
+    owned = np.flatnonzero(
+        svc.cache.router.shard_of_many(np.arange(n)) == 1)
+    dead_status = []
+    fail_shard = svc.fail_shard
+
+    def checked_fail_shard(shard):
+        fail_shard(shard)
+        dead_status.append(svc.backend.status_of(owned))
+
+    svc.fail_shard = checked_fail_shard
+    run_s = n / KILL_RATE
+    trace = [JobSpec(f"job{i}", arrival_s=0.25 * i, epochs=1,
+                     batch_size=BATCH, gpu_rate=KILL_RATE,
+                     executor="device") for i in range(2)]
+    faults = [FaultSpec("shard-kill", at_s=run_s / 3, shard=1,
+                        duration_s=run_s / 3)]
+    picks = []
+    pacer_cls = runner_mod._IngestPacer
+    runner_mod._IngestPacer = picking_pacer(
+        pacer_cls, picks, np.random.default_rng(seed + 5), 4 / (n // BATCH))
+    try:
+        reset_counts()
+        res = server.run_workload(trace, RemoteStorage(ds),
+                                  clock=RealClock(), seed=seed, timeout=600,
+                                  faults=faults, raise_on_error=False)
+        counts = read_counts()
+    finally:
+        runner_mod._IngestPacer = pacer_cls
+        server.close()
+    stats = res.stats
+    for j in res.jobs:
+        check(j.error is None and not j.cancelled,
+              f"{j.spec.name} failed: {j.error}")
+        check(sorted(j.sample_ids) == list(range(n)),
+              f"{j.spec.name} did not serve every id exactly once")
+    check(len(picks) > 0, "no batch was picked for the row check")
+    check_rows(ds, picks, epoch_seeds=False)
+    faults_out = stats.get("faults", {})
+    fc = faults_out.get("counts", {})
+    check(fc.get("fault.shard-kill") == 1
+          and fc.get("recovery.shard-restart") == 1,
+          f"fault counts {fc}")
+    check(faults_out.get("shard_failovers", 0) > 0, "no shard failover")
+    check(len(dead_status) == 1 and len(owned) > 0
+          and bool((dead_status[0] == IN_STORAGE).all()),
+          "the dead shard's ids do not read IN_STORAGE in the ODS tables")
+    check(stats["backend"] == "torch", f"backend {stats['backend']}")
+    print(f"shard kill ({len(trace)} jobs x {n} samples on {KILL_SHARDS} "
+          f"sim shards, paced at {KILL_RATE:.0f} samples/s, shard 1 "
+          f"killed at {run_s / 3:.3f} s for {run_s / 3:.3f} s): makespan "
+          f"{res.makespan:.3f} s, "
+          + ", ".join(f"{j.spec.name} {j.duration_s:.3f} s"
+                      for j in res.jobs)
+          + f"; {len(owned)} ids failed over read IN_STORAGE, shard "
+          f"failovers {faults_out['shard_failovers']}, counts {fc}, "
+          f"ods_hit_rate {stats['ods_hit_rate']:.4f}, launches K1 "
+          f"{counts['decode_augment']}, {len(picks)} rows equal a CPU "
+          f"recomputation ({card})", flush=True)
+    return counts
+
+
+def sharded_phase(dev, seed: int, card: str, unsharded):
+    """The sharded data plane: (a) sim shards, (b) process shards, (c) a
+    shard kill.  Returns the K1-K5 launches of its three runs."""
+    launches, rates = sharded_sim_part(dev, seed, card, unsharded)
+    torch.cuda.empty_cache()
+    for counts in (sharded_process_part(dev, seed, card),
+                   shard_kill_part(dev, seed, card)):
+        for k, v in counts.items():
+            launches[k] += v
+    torch.cuda.empty_cache()
+    return launches
 
 
 # ----------------------------------------------------------------------
@@ -1262,8 +1631,9 @@ def main(argv=None) -> int:
 
     phase("build (every csrc/*.cu, in parallel)", build_all)
     rows = phase("loader kernels", kernel_phase, dev, args.seed)
-    counts = phase("loader main path, augmented", main_path_augmented, dev,
-                   N_AUGMENTED, args.seed, card)
+    counts, unsharded = phase("loader main path, augmented",
+                              main_path_augmented, dev, N_AUGMENTED,
+                              args.seed, card)
     rows["decode_augment"]["launches"] = counts["decode_augment"]
     counts = phase("loader main path, decoded hits", main_path_decoded, dev,
                    N_DECODED, args.seed, card)
@@ -1272,6 +1642,10 @@ def main(argv=None) -> int:
     phase("ods step, ImageNet-1k scale", ods_phase, dev, args.seed, card)
     phase("multi-job workload, shared cache", workload_phase, dev,
           args.seed, card)
+    counts = phase("sharded data plane", sharded_phase, dev, args.seed,
+                   card, unsharded)
+    rows["decode_augment"]["launches"] += counts["decode_augment"]
+    rows["augment"]["launches"] += counts["augment"]
     rows.update(phase("model kernels", model_kernel_phase, dev, args.seed))
     rows["flash_attention"]["launches"] = phase(
         "serving, qwen3-8b", dense_phase, dev, args.seed, card)

@@ -27,10 +27,12 @@ Multi-job workloads and open-loop serving (re-exported from
 On a ``RealClock`` (the default), ``JobSpec(executor="device")`` runs
 each job's pipeline through the fused decode+augment kernel.  Fault
 injection (:class:`FaultSpec`, :class:`FaultInjector`) replays on the
-same clock.  Policies, telemetry, adaptive repartitioning and the
-closed-form performance model behave as in the reference package.  What
-is not ported yet (the simulator, the sharded data plane) is not
-exported here; see ROADMAP.md.
+same clock.  The sharded data plane (``shards=N``,
+``shard_transport="sim" | "process"``; :class:`ShardedCache` and its
+router and shards) keeps each shard's HBM tier on the service's device.
+Policies, telemetry, adaptive repartitioning and the closed-form
+performance model behave as in the reference package.  What is not
+ported yet (the simulator) is not exported here; see ROADMAP.md.
 """
 from repro_torch.api.backends import (AugmentBackend, CudaAugmentBackend,
                                       NumpyAugmentBackend, NumpyOdsBackend,
@@ -62,6 +64,11 @@ from repro_torch.core.perf_model import (AWS_P3, AZURE_NC96, DATASETS,
                                          DatasetProfile, HardwareProfile,
                                          JobProfile, dsi_throughput,
                                          dsi_throughput_tiered)
+# sharded data plane: consistent-hash router + per-shard caches behind
+# sim/process transports, selected via SenecaConfig(shards=N,
+# shard_transport=...)
+from repro_torch.service import (CacheShard, ShardConfig, ShardedCache,
+                                 ShardRouter)
 # fault injection + failover
 from repro_torch.faults import (FAULT_KINDS, FaultInjector, FaultSpec,
                                 LivenessRegistry)
@@ -120,6 +127,8 @@ __all__ = [
     "OpenLoopGenerator", "RequestResult", "ServeResult",
     "ARRIVAL_PROCESSES", "poisson_arrivals", "bursty_arrivals",
     "diurnal_arrivals", "make_arrivals",
+    # sharded data plane
+    "ShardRouter", "ShardedCache", "CacheShard", "ShardConfig",
     # fault injection + failover
     "FaultSpec", "FaultInjector", "LivenessRegistry", "FAULT_KINDS",
 ]

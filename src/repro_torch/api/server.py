@@ -24,10 +24,9 @@ on the service's device), and ``sampler`` / ``admission`` /
 :mod:`repro_torch.api.policies`).  ``device`` (``SenecaServer``/
 ``SenecaService`` kwarg) is where the HBM tier, the device executor and
 the "torch" ODS engine run: ``None`` means CUDA, and ``"cpu"`` is how
-tests opt out of the card.
-
-Not ported yet (raises ``NotImplementedError``): the sharded data plane
-(``shards > 1`` or a non-"sim" transport).
+tests opt out of the card.  ``shards`` / ``shard_transport`` split the
+cache over the sharded data plane (:mod:`repro_torch.service`), whose
+shards keep their HBM tiers on the same device.
 :func:`state_from_reference` converts a job snapshot taken from the
 reference package's service into this package's format.
 
@@ -66,8 +65,6 @@ from repro_torch.kernels.device import resolve_device
 __all__ = ["SenecaConfig", "SenecaService", "SenecaServer", "Session",
            "SessionClosed", "RepartitionController", "SLO", "FORM_CODE",
            "CODE_FORM", "state_from_reference"]
-
-_NOT_PORTED = "not ported yet; see ROADMAP.md"
 
 
 @dataclass(frozen=True)
@@ -172,8 +169,12 @@ class SenecaConfig:
     repartition_cooldown: float = 1.0  # min seconds between adaptive ticks
     repartition_period: float = 0.0    # >0: background tick thread period
     telemetry_min_samples: int = 32    # per-signal floor for calibrate()
-    # sharded data plane: not ported yet, so anything but shards=1 +
-    # "sim" (the classic single TieredCache) raises NotImplementedError
+    # sharded data plane (src/repro_torch/service/): >1 splits the cache
+    # across N shards behind a consistent-hash router.  "sim" keeps the
+    # shards in-process (deterministic, VirtualClock-safe); "process"
+    # gives each shard its own OS process (payloads move zero-copy via
+    # codec files + np.memmap; its HBM tier in a CUDA context of its
+    # own).  shards=1 + "sim" keeps the classic single TieredCache.
     shards: int = 1
     shard_transport: str = "sim"
     # tail-latency SLO for open-loop serving (docs/API.md "Open-loop
@@ -421,10 +422,6 @@ class SenecaService:
                              f"{REPARTITION_MODES}")
         if cfg.shards < 1:
             raise ValueError(f"shards must be >= 1, got {cfg.shards}")
-        if cfg.shards > 1 or cfg.shard_transport != "sim":
-            raise NotImplementedError(
-                f"sharded data plane (shards={cfg.shards}, transport="
-                f"{cfg.shard_transport!r}): {_NOT_PORTED}")
         # base profile with the *configured* cache size: the static solve,
         # and later every calibrated re-solve, all run against this
         self.hardware = cfg.hardware
@@ -493,15 +490,38 @@ class SenecaService:
         hbm_t = ((self.hbm_partition.x_e, self.hbm_partition.x_d,
                   self.hbm_partition.x_a)
                  if self.hbm_partition else None)
-        self.cache = TieredCache(
-            cfg.cache_bytes, split_t,
-            evict_policies=self.eviction.partition_policies(),
-            spill_bytes=cfg.spill_bytes if self.has_spill else 0,
-            spill_dir=cfg.spill_dir if self.has_spill else None,
-            spill_split=spill_t,
-            hbm_bytes=cfg.device_cache_bytes if self.has_hbm else 0,
-            hbm_split=hbm_t,
-            n_stripes=cfg.lock_stripes, device=self.device)
+        if cfg.shards > 1 or cfg.shard_transport != "sim":
+            # lazy import: repro_torch.service must stay importable
+            # without repro_torch.api (its shard module imports telemetry
+            # lazily for the same reason) — a top-level import here
+            # would cycle
+            from repro_torch.service.client import ShardedCache
+            self.cache = ShardedCache(
+                cfg.cache_bytes, split_t,
+                evict_policies=self.eviction.partition_policies(),
+                spill_bytes=cfg.spill_bytes if self.has_spill else 0,
+                spill_dir=cfg.spill_dir if self.has_spill else None,
+                spill_split=spill_t,
+                hbm_bytes=cfg.device_cache_bytes if self.has_hbm else 0,
+                hbm_split=hbm_t,
+                shards=cfg.shards, transport=cfg.shard_transport,
+                seed=cfg.seed, admission=self.admission,
+                hardware=self.hardware, dataset_profile=cfg.dataset,
+                job=cfg.job, partition_step=cfg.partition_step,
+                # a pinned split stays pinned on every shard; an MDP
+                # split re-solves per shard over the 1/N view
+                solve_per_shard=cfg.split is None,
+                device=self.device)
+        else:
+            self.cache = TieredCache(
+                cfg.cache_bytes, split_t,
+                evict_policies=self.eviction.partition_policies(),
+                spill_bytes=cfg.spill_bytes if self.has_spill else 0,
+                spill_dir=cfg.spill_dir if self.has_spill else None,
+                spill_split=spill_t,
+                hbm_bytes=cfg.device_cache_bytes if self.has_hbm else 0,
+                hbm_split=hbm_t,
+                n_stripes=cfg.lock_stripes, device=self.device)
         try:
             self.backend = resolve_backend(backend or cfg.backend,
                                            cfg.dataset.n_total,
@@ -895,6 +915,41 @@ class SenecaService:
             self.backend.restore_job(job_id, snap["backend"])
 
     # ------------------------------------------------------------------
+    def fail_shard(self, shard: int) -> None:
+        """A cache shard died: fail its key range over to storage.
+
+        The shard transport is killed (subsequent per-shard ops degrade
+        to misses/drops in the client), and every sample the ring maps
+        to the dead shard is re-marked IN_STORAGE so the sampler stops
+        treating it as cached; the residency push is invalidated so the
+        next batch sees the shrunk ring."""
+        kill = getattr(self.cache, "kill_shard", None)
+        if kill is None:
+            raise ValueError("fail_shard needs a sharded data plane "
+                             "(SenecaConfig(shards=N))")
+        kill(shard)
+        with self._lock:
+            n = self.cfg.dataset.n_total
+            owned = np.flatnonzero(
+                self.cache.router.shard_of_many(np.arange(n)) == shard)
+            if len(owned):
+                self.backend.mark_evicted(owned)
+            self._residency_version = -1
+        self.telemetry.record_error("fault.shard-kill")
+
+    def restore_shard(self, shard: int) -> None:
+        """Bring a killed shard back (cold: its cache is empty); the
+        ring re-expands and admissions repopulate it organically."""
+        restart = getattr(self.cache, "restart_shard", None)
+        if restart is None:
+            raise ValueError("restore_shard needs a sharded data plane "
+                             "(SenecaConfig(shards=N))")
+        restart(shard)
+        with self._lock:
+            self._residency_version = -1
+        self.telemetry.record_error("recovery.shard-restart")
+
+    # ------------------------------------------------------------------
     def close(self) -> None:
         """Tear down the engine's storage: drops every spill-tier file
         (idempotent; serving after close() re-creates nothing)."""
@@ -925,6 +980,14 @@ class SenecaService:
             "repartitions": self.controller.summary(),
             "telemetry": self.telemetry.as_dict(),
         })
+        shard_stats = getattr(self.cache, "shard_stats", None)
+        if shard_stats is not None:
+            out["shards"] = shard_stats()
+            prod_stats = getattr(self.cache, "production_stats", None)
+            if prod_stats is not None:
+                sp = prod_stats()
+                if sp["led"] or sp["duplicates"]:
+                    out["shard_production"] = sp
         # additive: the single-flight table's counters appear only once
         # it has seen traffic, so idle payloads keep their shape
         prod = self.production.stats()

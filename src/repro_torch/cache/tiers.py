@@ -36,6 +36,7 @@ from dataclasses import dataclass
 from typing import (Any, Dict, List, Optional, Protocol, Tuple,
                     runtime_checkable)
 
+import numpy as np
 import torch
 
 from repro_torch.cache.codecs import codec_for
@@ -536,7 +537,10 @@ class HbmTier(DramTier):
 
     def to_device(self, value: Any) -> torch.Tensor:
         """Host payload -> tensor on the tier's device (no-op for a
-        tensor already there)."""
+        tensor already there).  A read-only array (a memmap of a spill
+        or exchange file) is copied on the way, never aliased."""
+        if isinstance(value, np.ndarray) and not value.flags.writeable:
+            return torch.tensor(value, device=self.device)
         return torch.as_tensor(value).to(self.device)
 
     def put(self, key: int, value: Any, nbytes: int) -> Evicted:

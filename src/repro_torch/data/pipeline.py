@@ -75,6 +75,7 @@ from repro_torch.data.synthetic import SyntheticDataset
 from repro_torch.kernels.augment.ops import (augment_batch_seeded,
                                              decode_augment_batch_seeded)
 from repro_torch.kernels.decode.ops import fused_decode_seed
+from repro_torch.kernels.device import concrete_device
 
 log = logging.getLogger(__name__)
 
@@ -85,6 +86,14 @@ def _aug_seed(epoch_tag: int, sid: int) -> int:
     """The per-sample augmentation seed — shared by every executor and
     both augment backends, so batch composition never changes content."""
     return (epoch_tag * 1_000_003 + sid) & 0x7FFFFFFF
+
+
+def _on_device(value, dev: torch.device) -> bool:
+    """``value`` is a tensor on ``dev`` (an index-less ``cuda`` means
+    the current CUDA device)."""
+    return (isinstance(value, torch.Tensor)
+            and value.device.type == dev.type
+            and value.device == concrete_device(dev))
 
 
 @dataclass
@@ -853,7 +862,11 @@ class DSIPipeline:
                 continue
             self.times.fetch += t0 - t_look
             tel.record_stage("fetch_cache", t0 - t_look)
-            if form == "augmented" and tier == "hbm":
+            # an "hbm" hit is device-resident only as a tensor on this
+            # device: a process shard ships its HBM values down as host
+            # copies, which take the host branch like a DRAM hit
+            resident = tier == "hbm" and _on_device(value, dev)
+            if form == "augmented" and resident:
                 # zero-copy device serve: no h2d traffic at all
                 rows[slot] = value
                 continue
@@ -862,11 +875,13 @@ class DSIPipeline:
                 host = np.asarray(value)
                 tel.record_bytes(channel, host.nbytes, t0 - t_look)
                 t1 = self._now()
-                rows[slot] = torch.from_numpy(host).to(dev)
+                # torch.tensor copies: a read-only memmap (a spill or
+                # exchange file) is never aliased
+                rows[slot] = torch.tensor(host, device=dev)
                 self._sync(dev)
                 tel.record_bytes("h2d", host.nbytes, self._now() - t1)
             elif form == "decoded":
-                if tier == "hbm":
+                if resident:
                     # device-resident decoded hit: augment on device —
                     # no host round-trip, so no byte-channel record (a
                     # d2h download metered as "cache" would skew b_cache)

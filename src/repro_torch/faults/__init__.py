@@ -1,7 +1,7 @@
 """Clock-driven fault injection and failover primitives.
 
 Import-light by design, as in the reference: the sharded data plane's
-cache client (the reference's ``repro.service``, not ported yet) wires a
+cache client (:mod:`repro_torch.service`) wires a
 :class:`LivenessRegistry` without dragging in ``repro_torch.workload`` —
 see the module docstrings.
 """

@@ -46,6 +46,15 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def concrete_device(device) -> torch.device:
+    """``device`` with an index-less ``cuda`` resolved to the current
+    CUDA device, so two devices compare by where their memory lies."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
 def _nvcc() -> str:
     from torch.utils.cpp_extension import CUDA_HOME
     if CUDA_HOME is None:

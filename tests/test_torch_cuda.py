@@ -601,3 +601,76 @@ def test_two_job_device_workload_on_card(cuda):
         assert sorted(j.sample_ids) == list(range(128)), j.spec.name
     assert decode_k.decode_augment.launches > n0
     assert res.stats["substitutions"] > 0
+
+
+# ----------------------------------------------------------------------
+# The sharded data plane on the card
+def test_sim_shard_hbm_hit_is_the_admitted_cuda_tensor(cuda):
+    from repro_torch.api import ShardedCache
+    c = ShardedCache(1 << 20, (0.0, 0.0, 1.0), hbm_bytes=1 << 20,
+                     hbm_split=(0.0, 0.0, 1.0), shards=2, seed=0,
+                     device=cuda)
+    rows = {k: torch.full((8, 8, 3), float(k), device=cuda)
+            for k in range(6)}
+    assert all(c.insert_batch_gated(
+        "augmented", [(k, r, r.numel() * 4) for k, r in rows.items()]))
+    for k, r in rows.items():
+        form, value, tier = c.lookup_tiered(k)
+        assert (form, tier) == ("augmented", "hbm") and value is r
+    assert all(s["hbm_device"].startswith("cuda") for s in c.shard_stats())
+    c.close()
+
+
+def test_process_shard_builds_its_hbm_tier_on_cuda(cuda):
+    from repro_torch.api import ShardedCache
+    ds = tiny(n=16)
+    c = ShardedCache(16 * ds.augmented_bytes(), (0.1, 0.3, 0.6),
+                     hbm_bytes=16 * ds.augmented_bytes(),
+                     hbm_split=(0.0, 0.3, 0.7), shards=2,
+                     transport="process", seed=0, dataset=ds,
+                     device="cuda")
+    try:
+        assert c.ingest(range(16)) == 16
+        stats = c.shard_stats()
+        assert all(s["hbm_device"].startswith("cuda") for s in stats)
+        assert sum(s["hbm_bytes_used"] for s in stats) > 0
+        answers = [c.lookup_tiered(sid) for sid in range(16)]
+        assert all(isinstance(v, np.ndarray) for _f, v, _t in answers)
+        assert "hbm" in {t for _f, _v, t in answers}
+    finally:
+        c.close()
+
+
+def test_device_executor_over_process_shards_on_card(cuda):
+    """The server's own process shards (``SenecaServer.for_dataset``) on
+    the card: the cold epoch's K1 rows are brought down, shipped and
+    uploaded into the shards' HBM tiers in their own CUDA contexts; in
+    the second epoch the executor uploads their host copies (metered on
+    "h2d"), sends the decoded ones through K2, and collates rows bitwise
+    equal to the host path."""
+    from test_torch_service_process import second_epoch, shipped_server
+    n, bs = 48, 8
+    ds = tiny(n=n)
+    k1 = decode_k.decode_augment.launches
+    server, sess, pipe = shipped_server(ds, n, bs, None)
+    try:
+        assert decode_k.decode_augment.launches - k1 == n // bs
+        stats = server.stats()["shards"]
+        assert all(s["hbm_device"].startswith("cuda")
+                   and s["hbm_bytes_used"] > 0 for s in stats)
+        tel = server.service.telemetry
+        before = dict(tel.snapshot().serve_counts)
+        h2d0 = tel.channel_total_bytes("h2d")
+        k2 = augment_k.augment.launches
+        devices, seen, tiers = second_epoch(ds, n, bs, sess, pipe)
+        assert devices == {"cuda"}
+        assert sorted(seen) == list(range(n))
+        assert all(t is not torch.Tensor for _f, _t, t in tiers)
+        served = {k: v - before.get(k, 0)
+                  for k, v in tel.snapshot().serve_counts.items()}
+        assert served["decoded"] > 0 and augment_k.augment.launches > k2
+        assert tel.channel_total_bytes("h2d") - h2d0 == \
+            served["augmented"] * ds.augmented_bytes() \
+            + served["decoded"] * ds.decoded_bytes() > 0
+    finally:
+        server.close()

@@ -3,16 +3,16 @@
 Mirrors ``tests/test_faults.py``: the FaultSpec and LivenessRegistry
 contracts, session checkpoint/restore over the "numpy" and "torch" ODS
 engines, storage bandwidth collapse, spill-file corruption, worker-crash
-recovery, and an acceptance trace — a VirtualClock workload surviving
-spill corruption, a bandwidth collapse and a job preemption with
-exactly-once-per-epoch coverage.  The reference's acceptance trace also
-kills a cache shard; the sharded data plane is not ported, so the port
-keeps the reference's refusal of shard faults on an unsharded server and
-the trace here runs unsharded.
+recovery, shard failover and ring re-expansion on the sharded data
+plane, and two acceptance traces — a VirtualClock workload surviving
+spill corruption, a bandwidth collapse and a job preemption (unsharded),
+and the reference's own trace on two sim shards: a shard kill, spill
+corruption and a preemption — with exactly-once-per-epoch coverage.  An
+unsharded server refuses shard faults, as the reference's does.
 
 Tolerance: exact.  The same trace through the reference and the port
 gives equal per-job sample ids, epoch ends and makespans, and equal
-fault counters.
+fault counters; the shard-kill test's answers equal the reference's.
 """
 import numpy as np
 import pytest
@@ -140,6 +140,73 @@ def test_liveness_registry_expiry_and_overrides():
     assert reg.failed() == []
     reg.mark_dead("ghost")                 # marked but never beat
     assert reg.failed() == ["ghost"]
+
+
+# ----------------------------------------------------------------------
+# Shard failover + ring re-expansion
+def _shard_kill_trace(pkg):
+    """The reference's shard-kill test as a record of every answer."""
+    ds = pkg["tiny"](n=96)
+    server = pkg["server"].for_dataset(ds, cache_frac=0.4, seed=0,
+                                       shards=2, **pkg["kw"])
+    out = {}
+    try:
+        svc = server.service
+        cache = svc.cache
+        n = ds.n_samples
+        owners = cache.router.shard_of_many(np.arange(n))
+        owned = np.flatnonzero(owners == 1)
+        other = np.flatnonzero(owners == 0)
+        assert len(owned) > 0
+        data = np.zeros(64, np.uint8)
+        cache.insert(int(owned[0]), "decoded", data, data.nbytes)
+        out["before"] = cache.lookup_tiered(int(owned[0]))[0]
+
+        svc.fail_shard(1)
+        # dead shard degrades: lookups miss, inserts are dropped, the
+        # failover counter moves, and stats carry the dead marker
+        out["dead_lookup"] = cache.lookup_tiered(int(owned[0]))[0]
+        out["dead_insert"] = cache.insert(int(owned[1]), "decoded", data,
+                                          data.nbytes)
+        out["failovers"] = cache.failovers
+        out["dead"] = [s["shard"] for s in cache.shard_stats()
+                       if s.get("dead")]
+        out["ods_owned"] = svc.backend.status_of(owned).tolist()
+        # surviving shard still serves its own keys
+        out["alive_insert"] = cache.insert(int(other[0]), "decoded", data,
+                                           data.nbytes)
+        out["alive_lookup"] = cache.lookup_tiered(int(other[0]))[0]
+        out["residency_owned"] = cache.residency_array(n)[owned].tolist()
+
+        v_dead = cache.version
+        svc.restore_shard(1)
+        out["version_moved"] = cache.version != v_dead
+        out["dead_after"] = [s.get("dead", False)
+                             for s in cache.shard_stats()]
+        out["restored_insert"] = cache.insert(int(owned[2]), "decoded",
+                                              data, data.nbytes)
+        out["restored_lookup"] = cache.lookup_tiered(int(owned[2]))[0]
+        out["faults"] = svc.stats()["faults"]
+    finally:
+        server.close()
+    return out
+
+
+def test_shard_kill_failover_and_restart():
+    got = _shard_kill_trace(PORT)
+    assert got["before"] == "decoded"
+    assert got["dead_lookup"] is None and got["dead_insert"] is False
+    assert got["failovers"] > 0 and got["dead"] == [1]
+    assert set(got["ods_owned"]) == {0}           # IN_STORAGE
+    assert got["alive_insert"] and got["alive_lookup"] == "decoded"
+    assert not any(got["residency_owned"])
+    assert got["version_moved"] and not any(got["dead_after"])
+    assert got["restored_insert"] and got["restored_lookup"] == "decoded"
+    counts = got["faults"]["counts"]
+    assert counts["fault.shard-kill"] == 1
+    assert counts["recovery.shard-restart"] == 1
+    assert got["faults"]["shard_failovers"] > 0
+    assert got == _shard_kill_trace(REF)
 
 
 # ----------------------------------------------------------------------
@@ -315,6 +382,61 @@ def test_naive_restart_replays_but_still_covers(tmp_path):
     assert a_naive.duration_s > a_rec.duration_s
 
 
+# ----------------------------------------------------------------------
+# The reference's acceptance trace: shard kill + spill corruption +
+# preempt on two sim shards
+def _sharded_acceptance_run(pkg, policy, tmp_path, tag, seed=0):
+    ds = pkg["tiny"](n=128)
+    spill = tmp_path / f"spill-{tag}"
+    spill.mkdir()
+    server = pkg["server"].for_dataset(
+        ds, shards=2, cache_frac=0.3, seed=0, spill_dir=str(spill),
+        spill_bytes=int(0.2 * 128 * ds.augmented_bytes()), **pkg["kw"])
+    F = pkg["fault"]
+    faults = [F("shard-kill", at_s=0.05, shard=1, duration_s=0.1),
+              F("spill-corrupt", at_s=0.08, n_files=2),
+              F("preempt", at_s=0.10, job="a", duration_s=0.06)]
+    runner = pkg["runner"](server, pkg["storage"](ds), clock=pkg["clock"](),
+                           seed=seed, faults=faults, fault_policy=policy)
+    J = pkg["job"]
+    res = runner.run([J("a", arrival_s=0.0, epochs=2, batch_size=16,
+                        gpu_rate=1000),
+                      J("b", arrival_s=0.02, epochs=2, batch_size=16,
+                        gpu_rate=700)], timeout=300)
+    stats = res.stats
+    server.close()
+    return res, stats
+
+
+@pytest.mark.parametrize("policy", ["checkpoint", "restart"])
+def test_sharded_acceptance_trace_equals_reference(tmp_path, policy):
+    """The reference's faulted trace on ``shards=2`` (sim): coverage
+    holds in the port, and its per-job ids, epoch ends, ends, makespan
+    and fault counters equal the reference's."""
+    ref, ref_stats = _sharded_acceptance_run(REF, policy, tmp_path, "ref")
+    port, stats = _sharded_acceptance_run(PORT, policy, tmp_path, "port")
+    for job in port.jobs:
+        assert _coverage_exact(job.sample_ids, 128), job.spec.name
+    assert sum(j.preemptions for j in port.jobs) == 1
+    counts = stats["faults"]["counts"]
+    assert counts["fault.shard-kill"] == 1
+    assert counts["fault.spill-corrupt"] == 1
+    assert counts["fault.preempt"] == 1
+    assert counts["recovery.shard-restart"] == 1
+    assert counts["recovery.preempt-readmit"] == 1
+    assert stats["faults"]["shard_failovers"] > 0
+    assert len(stats["shards"]) == 2
+    assert port.makespan == ref.makespan
+    for a, b in zip(ref.jobs, port.jobs):
+        assert a.sample_ids == b.sample_ids, a.spec.name
+        assert a.epoch_ends == b.epoch_ends, a.spec.name
+        assert a.end_s == b.end_s
+        assert (a.preemptions, a.worker_restarts) == \
+            (b.preemptions, b.worker_restarts)
+    assert stats["faults"] == ref_stats["faults"]
+    assert stats["ods_hit_rate"] == ref_stats["ods_hit_rate"]
+
+
 def _crash_run(pkg):
     ds = pkg["tiny"](n=64)
     server = pkg["server"].for_dataset(ds, cache_frac=0.4, seed=0,
@@ -353,8 +475,8 @@ def test_unknown_fault_job_rejected():
 
 @pytest.mark.parametrize("kind", ["shard-kill", "shard-restart"])
 def test_shard_fault_needs_sharded_server(kind):
-    """The port has no sharded data plane: shard faults are refused up
-    front, as the reference refuses them on an unsharded server."""
+    """Shard faults on an unsharded server are refused up front, as the
+    reference refuses them."""
     ds = tiny(n=32)
     server = _server(ds)
     runner = WorkloadRunner(

@@ -3,7 +3,8 @@
 The test process already holds jax (the parity tests import both
 packages), so the import check runs in a subprocess under a meta-path
 finder that refuses those packages, imports ``repro_torch``, drives one
-CPU device-executor batch, imports the fault and workload layers and
+CPU device-executor batch, again over two sim shards of the sharded data
+plane, imports the fault and workload layers and
 runs a 2-job VirtualClock trace with a worker crash on the "torch" ODS
 engine, imports the serving path (models, server, CLI), runs one reduced
 qwen3-8b prefill and decode step, and exits 0.  A static scan of the
@@ -50,6 +51,20 @@ pipe = DSIPipeline(server.open_session(batch_size=8), RemoteStorage(ds),
 batch = pipe.next_batch()
 assert tuple(batch["images"].shape) == (8, *ds.crop_hw, 3)
 assert np.isfinite(batch["images"].numpy()).all()
+pipe.stop()
+server.close()
+
+import repro_torch.service
+server = SenecaServer.for_dataset(
+    ds, use_ods=False, split=(0.5, 0.0, 0.5), shards=2,
+    device_cache_bytes=16 * ds.augmented_bytes(),
+    hbm_split=(0.0, 0.0, 1.0), device="cpu")
+pipe = DSIPipeline(server.open_session(batch_size=8), RemoteStorage(ds),
+                   executor="device", sync_refills=True)
+batch = pipe.next_batch()
+assert tuple(batch["images"].shape) == (8, *ds.crop_hw, 3)
+assert np.isfinite(batch["images"].numpy()).all()
+assert [s["shard"] for s in server.stats()["shards"]] == [0, 1]
 pipe.stop()
 server.close()
 

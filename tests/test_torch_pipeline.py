@@ -187,6 +187,60 @@ def test_decoded_hbm_hit_stays_on_device():
     server.close()
 
 
+@pytest.mark.parametrize("form", ["augmented", "decoded"])
+def test_hbm_hit_as_host_array_takes_the_host_branch(form):
+    """An "hbm" hit that is not a tensor on the service's device is
+    uploaded and metered on "h2d" and "cache" as a DRAM hit is; a
+    decoded one goes through the augment kernel (its plain version on
+    the CPU).  Rows stay bitwise the host path."""
+    n, bs = 16, 8
+    ds = tiny(n=n)
+    split = (0.0, 0.0, 1.0) if form == "augmented" else (0.0, 1.0, 0.0)
+    nbytes = (ds.augmented_bytes() if form == "augmented"
+              else ds.decoded_bytes())
+    server = _port_server(ds, use_ods=False, split=split,
+                          device_cache_bytes=int(1.2 * n * nbytes),
+                          hbm_split=split)
+    sess = server.open_session(batch_size=bs)
+    ids = list(range(n))
+    if form == "augmented":
+        rows = torch.from_numpy(_host_rows(ds, ids, 0))
+    else:
+        rows = decode_batch([ds.encoded(s) for s in ids], ids, seed=ds.seed,
+                            image_hw=ds.image_hw, device="cpu",
+                            as_device=True)
+    assert sess.admit_batch(form, [(s, rows[s].clone(), nbytes)
+                                   for s in ids]).all()
+    assert server.stats()["hbm"][form]["hbm_entries"] == n
+    lookup = sess.lookup_tiered
+
+    def shipped(sid):
+        # a fake cache: its "hbm" answers are host ndarrays, as a
+        # process shard ships them
+        got, value, tier = lookup(sid)
+        if tier == "hbm":
+            value = value.numpy().copy()
+        return got, value, tier
+
+    sess.lookup_tiered = shipped
+    pipe = DSIPipeline(sess, RemoteStorage(ds), executor="device",
+                       sync_refills=True)
+    tel = server.service.telemetry
+    seen = []
+    for _ in range(n // bs):
+        b = pipe.next_batch()
+        np.testing.assert_array_equal(
+            b["images"].numpy(), _host_rows(ds, b["ids"].tolist(), 0))
+        seen.extend(b["ids"].tolist())
+    assert sorted(seen) == ids
+    assert tel.channel_total_bytes("h2d") == n * nbytes
+    assert tel.channel_total_bytes("cache") == n * nbytes
+    augmented = tel.snapshot().stage_n.get("augment", 0)
+    assert (augmented > 0) == (form == "decoded")
+    pipe.stop()
+    server.close()
+
+
 @pytest.mark.parametrize("k", [3, 7])
 def test_checkpoint_from_reference_continues_in_port(k):
     """A job's sampler snapshot taken from the JAX service after k
@@ -222,11 +276,18 @@ def test_state_from_reference_rejects_foreign_snapshots():
 
 def test_unported_branches_raise():
     ds = tiny(n=16)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        SenecaServer.for_dataset(ds, shards=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        SenecaServer.for_dataset(ds, shard_transport="process",
-                                 device="cpu")
+    # the sharded data plane is ported: two sim shards and one process
+    # shard each build and serve a device-executor batch on the CPU
+    for kw in (dict(shards=2), dict(shard_transport="process")):
+        server = SenecaServer.for_dataset(ds, device="cpu", **kw)
+        pipe = DSIPipeline(server.open_session(batch_size=4),
+                           RemoteStorage(ds), executor="device",
+                           sync_refills=True)
+        batch = pipe.next_batch()
+        assert tuple(batch["images"].shape) == (4, *ds.crop_hw, 3)
+        assert len(server.stats()["shards"]) == kw.get("shards", 1)
+        pipe.stop()
+        server.close()
     # the named request samplers and the workload runner are ported:
     # they run, and refuse what the reference refuses
     server = SenecaServer.for_dataset(ds, device="cpu")
