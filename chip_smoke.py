@@ -57,6 +57,9 @@ into ``build/repro_torch/``), then:
    cores in bf16), each against its plain version on the card, timed
    with the L2 flushed beside its bound and (K4) beside
    ``scaled_dot_product_attention`` as a yardstick the port never calls;
+   K4's backward likewise (float32 at a ragged S, checked; bf16 at K4's
+   shape, checked, bitwise repeatable and timed beside
+   ``scaled_dot_product_attention``'s backward);
 6. serving path, dense: qwen3-8b at full width (random weights from
    ``--seed``): ``Model.prefill`` of 4 x 1024 tokens (K4 launched once
    per layer; prefill logits equal forward's; decode at index S agrees
@@ -70,7 +73,14 @@ into ``build/repro_torch/``), then:
    from zero state against forward on a 64-token prefix (bf16 reported;
    float32 checked), and the ``Server`` as for qwen3-8b (each serving
    run with the device split of one decode step);
-8. the kernel JSON line, the card line, and the result line
+8. training path: qwen3-8b at its published widths and full depth
+   (random bf16 weights from ``--seed``), ``TRAIN_STEPS`` steps of 2 x
+   1024 tokens on one fixed batch through ``launch.train.train_steps``
+   with block remat and int8 AdamW moments: the loss finite and falling,
+   every layer's attention weights with finite non-zero gradients at
+   every step, K4 launched 2 x 36 times and its backward 36 times per
+   step; step time, tokens/s and peak memory printed;
+9. the kernel JSON line, the card line, and the result line
    ``{"ok": true, "device": {...}}`` last.
 
 Float32 products on the card run in full float32: the script sets
@@ -357,6 +367,7 @@ def _wrappers():
             "decode_augment": decode_k.decode_augment,
             "augment": augment_k.augment,
             "flash_attention": fa.flash_attention,
+            "flash_attention_bwd": fa.flash_attention_backward,
             "ssd_scan": ssd_k.ssd_scan}
 
 
@@ -1208,6 +1219,11 @@ def sharded_phase(dev, seed: int, card: str, unsharded):
 # The serving path: qwen3-8b (dense, K4) and mamba2-1.3b (ssm, K5)
 #: qwen3-8b prefill: B prompts of S tokens into a cache of S_MAX
 ATTN_B, ATTN_S, ATTN_S_MAX = 4, 1024, 1088
+#: K4's backward in float32: a short S that is not a multiple of 64
+BWD_S_F32 = 200
+#: the training phase: qwen3-8b at its published widths, TRAIN_B x
+#: TRAIN_S tokens, TRAIN_STEPS steps on one fixed batch
+TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_LR = 2, 1024, 4, 3e-4
 #: mamba2-1.3b forward, and the prefix its decode trajectory checks
 SSM_B, SSM_S, SSM_PREFIX = 4, 1024, 64
 #: the serving CLI's defaults (``repro_torch.launch.serve``)
@@ -1308,6 +1324,7 @@ def model_kernel_phase(dev, seed: int):
     print_row(rows["flash_attention"], f"within 1e-3 + 2**-7 |x| of plain, "
               f"relative RMS {rel:.2e} <= 2**-8")
     del q, k, v, qt, kt, vt, out, plain
+    rows["flash_attention_bwd"] = flash_attention_bwd_rows(dev, rng)
 
     # ---- K5 at mamba2-1.3b's forward: x (4, 1024, 64, 64) bf16, N 128
     cfg = registry.get("mamba2-1.3b")
@@ -1351,6 +1368,88 @@ def model_kernel_phase(dev, seed: int):
           f"(before the tensor-core form) {bound(nbytes, flops)[0]:.4f} ms",
           flush=True)
     return rows
+
+
+def flash_attention_bwd_rows(dev, rng):
+    """K4's backward against its plain version: in float32 at a short
+    ragged S (checked only), then in bf16 at K4's table shape (checked
+    and timed, with ``scaled_dot_product_attention``'s backward as the
+    yardstick).  Two runs give the same bits (no atomics)."""
+    import torch.nn.functional as F
+    from repro_torch.configs import registry
+    from repro_torch.kernels.flash_attention import kernel as fa
+
+    cfg = registry.get("qwen3-8b")
+    H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+
+    def inputs(B, S, dtype):
+        q, k, v, dout = (
+            torch.from_numpy(rng.standard_normal(shape, np.float32))
+            .to(dev, dtype) for shape in ((B, S, H, hd), (B, S, K, hd),
+                                          (B, S, K, hd), (B, S, H, hd)))
+        return q, k, v, fa.flash_attention(q, k, v, causal=True), dout
+
+    args = inputs(2, BWD_S_F32, torch.float32)
+    got = fa.flash_attention_backward(*args, causal=True)
+    want = fa.flash_attention_backward_plain(*args, True)
+    torch.cuda.synchronize()
+    # both sum in float32, in other orders: 1e-4 leaves ~50x the
+    # differences seen (~2e-6 at gradients of magnitude ~10)
+    err32 = max(max_abs_err(a, b) for a, b in zip(got, want))
+    check(all(torch.allclose(a, b, atol=1e-4, rtol=1e-4)
+              for a, b in zip(got, want)),
+          f"K4 backward (float32, S={BWD_S_F32}) differs from its plain "
+          f"version by {err32}")
+    print(f"kernel flash_attention_bwd float32 (2, {BWD_S_F32}, {H} | {K}, "
+          f"{hd}): within 1e-4 of plain (max_abs_err {err32})", flush=True)
+    del args, got, want
+
+    B, S = ATTN_B, ATTN_S
+    args = inputs(B, S, torch.bfloat16)
+    q, k, v, out, dout = args
+    got = fa.flash_attention_backward(*args, causal=True)
+    again = fa.flash_attention_backward(*args, causal=True)
+    want = fa.flash_attention_backward_plain(*args, True)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          "K4 backward gave other bits on a second run")
+    # as K4: both round once from float32 to bf16, so they differ by one
+    # bf16 ulp where their float32 sums round apart
+    err = max(max_abs_err(a, b) for a, b in zip(got, want))
+    rel = max(float((a.float() - b.float()).norm() / b.float().norm())
+              for a, b in zip(got, want))
+    check(all(torch.allclose(a.float(), b.float(), atol=1e-3,
+                             rtol=2.0 ** -7) for a, b in zip(got, want))
+          and rel <= BF16_EPS,
+          f"K4 backward differs from its plain version by {err} (relative "
+          f"RMS {rel})")
+    del got, again, want
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                             enable_gqa=True)
+    lib_dout = dout.transpose(1, 2)
+    row = dict(
+        name="flash_attention_bwd", route="cuda",
+        source="src/repro_torch/csrc/flash_attention_bwd.cu",
+        replaces="none (XLA autodiff of src/repro/models/layers.py:109 "
+                 "_sdpa and :127 blockwise_attention)",
+        max_abs_err=err,
+        ms=time_ms(lambda: fa.flash_attention_backward(*args, causal=True),
+                   10),
+        plain_ms=time_ms(lambda: fa.flash_attention_backward_plain(
+            *args, True), 3, warmup=1),
+        library_ms=time_ms(lambda: torch.autograd.grad(
+            lib_out, (qt, kt, vt), lib_dout, retain_graph=True), 20))
+    # q, k, v, out and dout read once, dq, dk, dv written once; five
+    # products over the causal half (Q K^T, dO V^T, P^T dO, dS^T Q, dS K)
+    nbytes = 2 * (3 * q.numel() + 2 * k.numel() + 2 * v.numel()
+                  + out.numel() + dout.numel())
+    flops = 5 * 2 * B * H * hd * (S * (S + 1) // 2)
+    row["bound_ms"], row["bound_by"] = bound(nbytes, flops, BF16_FLOPS_PER_S)
+    print_row(row, f"within 1e-3 + 2**-7 |x| of plain, relative RMS "
+              f"{rel:.2e} <= 2**-8, bitwise equal on a second run")
+    return row
 
 
 def ssd_flops(B: int, S: int, nh: int, P: int, N: int) -> int:
@@ -1413,10 +1512,13 @@ def device_split(fn, label: str) -> None:
         print(f"{label} device split: not measured (the profiler saw no "
               f"device time)", flush=True)
         return
-    groups = {"flash_attention (K4)": 0.0, "ssd_scan (K5)": 0.0,
-              "matmul (cuBLAS)": 0.0, "other": 0.0}
+    groups = {"flash_attention (K4)": 0.0,
+              "flash_attention backward (K4 bwd)": 0.0,
+              "ssd_scan (K5)": 0.0, "matmul (cuBLAS)": 0.0, "other": 0.0}
     for name, us in by_name.items():
-        if "repro_torch::flash" in name:
+        if "repro_torch::flash_bwd" in name:
+            groups["flash_attention backward (K4 bwd)"] += us
+        elif "repro_torch::flash" in name:
             groups["flash_attention (K4)"] += us
         elif "repro_torch::ssd" in name:
             groups["ssd_scan (K5)"] += us
@@ -1595,6 +1697,100 @@ def ssm_phase(dev, seed: int, card: str) -> int:
     return launches
 
 
+def train_phase(dev, seed: int, card: str) -> int:
+    """qwen3-8b at its published widths trained through
+    ``launch.train.train_steps``: block remat, int8 moments, one fixed
+    batch.  The loss falls, every layer's attention weights get finite,
+    non-zero gradients at every step (a gradient dropped at K4 would
+    leave wq/wk/wv without one), and K4 launches twice per layer per step
+    (forward, and again under remat) and its backward once.  Returns the
+    backward's launches per step."""
+    from repro_torch.configs.base import ParallelismConfig
+    from repro_torch.launch.train import train_steps
+    from repro_torch.train.optimizer import AdamW
+
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model("qwen3-8b", dev, seed)
+    cfg = model.cfg
+    rng = np.random.default_rng(seed + 2)
+    toks = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (TRAIN_B, TRAIN_S + 1))).to(dev)
+    batch = {"tokens": toks[:, :-1].contiguous(),
+             "labels": toks[:, 1:].contiguous()}
+    attn_norms = []                    # per step: parameter -> grad norm
+
+    update_s = []                      # per step: the update's seconds
+
+    class Recording(AdamW):
+        """AdamW that keeps the attention weights' gradient norms of
+        every step it is handed, and times its update."""
+
+        def update(self, grads, state, params):
+            attn_norms.append({
+                n: float(torch.linalg.vector_norm(g, dtype=torch.float32))
+                for n, g in grads.items() if ".attn.w" in n})
+            out, secs = synced_seconds(
+                lambda: super(Recording, self).update(grads, state, params))
+            update_s.append(secs)
+            return out
+
+    parallel = ParallelismConfig(remat="block", opt_state_dtype="int8")
+    opt = Recording(lr=TRAIN_LR, state_dtype=parallel.opt_state_dtype)
+    reset_counts()
+    hist = train_steps(model, opt, parallel, lambda: batch, TRAIN_STEPS)
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    L = cfg.n_layers
+    check(counts["flash_attention"] == 2 * L * TRAIN_STEPS,
+          f"K4 launched {counts['flash_attention']} times in "
+          f"{TRAIN_STEPS} steps, expected {2 * L * TRAIN_STEPS} (forward "
+          f"and remat, once per layer each)")
+    check(counts["flash_attention_bwd"] == L * TRAIN_STEPS,
+          f"K4's backward launched {counts['flash_attention_bwd']} times "
+          f"in {TRAIN_STEPS} steps, expected {L * TRAIN_STEPS}")
+    losses = [h["loss"] for h in hist]
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"training losses {losses} are not finite or do not fall")
+    check(all(np.isfinite(h["grad_norm"]) and h["grad_norm"] > 0
+              for h in hist), f"grad norms {[h['grad_norm'] for h in hist]}")
+    want = {f"blocks.{l}.attn.{w}" for l in range(L)
+            for w in ("wq", "wk", "wv", "wo")}
+    for i, norms in enumerate(attn_norms):
+        check(set(norms) == want, f"step {i + 1}: attention gradients for "
+              f"{sorted(want - set(norms))[:4]} missing")
+        bad = [n for n, x in norms.items() if not (np.isfinite(x) and x > 0)]
+        check(not bad, f"step {i + 1}: attention gradients zero or not "
+              f"finite: {bad[:4]}")
+    secs = [h["seconds"] for h in hist]
+    steady = float(np.median(secs[1:]))
+    tokens = TRAIN_B * TRAIN_S
+    print(f"qwen3-8b training (full depth {L}, published widths, block "
+          f"remat, int8 moments, lr {TRAIN_LR}): {TRAIN_STEPS} steps of "
+          f"{TRAIN_B} x {TRAIN_S} tokens on one batch; losses "
+          f"{[round(x, 4) for x in losses]}; grad norms "
+          f"{[round(h['grad_norm'], 4) for h in hist]}; step seconds "
+          f"{[round(x, 3) for x in secs]}; median of steps 2-{TRAIN_STEPS} "
+          f"{steady:.3f} s = {tokens / steady:.1f} tok/s; peak memory "
+          f"{peak / 1e9:.2f} GB of {torch.cuda.get_device_properties(0).total_memory / 1e9:.1f} GB; "
+          f"K4 launches {counts['flash_attention']}, backward "
+          f"{counts['flash_attention_bwd']}; attention grad norms of "
+          f"{len(want)} weights finite and non-zero at every step, last "
+          f"step min {min(attn_norms[-1].values()):.3e} ({card})",
+          flush=True)
+    print(f"qwen3-8b training step split (host clock, synchronized): "
+          f"optimizer update {[round(x, 3) for x in update_s]} s, the rest "
+          f"(batch, forward, remat, backward, gradient norms) "
+          f"{[round(a - b, 3) for a, b in zip(secs, update_s)]} s",
+          flush=True)
+    params = [p for _, p in model.named_parameters()]
+    device_split(lambda: torch.autograd.grad(
+        model.loss(batch, remat=parallel.remat), params),
+        "qwen3-8b forward + backward (block remat)")
+    del model, opt, batch, params
+    torch.cuda.empty_cache()
+    return counts["flash_attention_bwd"] // TRAIN_STEPS
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1651,6 +1847,8 @@ def main(argv=None) -> int:
         "serving, qwen3-8b", dense_phase, dev, args.seed, card)
     rows["ssd_scan"]["launches"] = phase(
         "serving, mamba2-1.3b", ssm_phase, dev, args.seed, card)
+    rows["flash_attention_bwd"]["launches"] = phase(
+        "training, qwen3-8b", train_phase, dev, args.seed, card)
 
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -1662,7 +1860,8 @@ def main(argv=None) -> int:
               flush=True)
     kernels = [{k: rows[name][k] for k in keys}
                for name in ("decode_augment", "augment", "decode",
-                            "flash_attention", "ssd_scan")]
+                            "flash_attention", "flash_attention_bwd",
+                            "ssd_scan")]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -31,8 +31,10 @@ same clock.  The sharded data plane (``shards=N``,
 ``shard_transport="sim" | "process"``; :class:`ShardedCache` and its
 router and shards) keeps each shard's HBM tier on the service's device.
 Policies, telemetry, adaptive repartitioning and the closed-form
-performance model behave as in the reference package.  What is not
-ported yet (the simulator) is not exported here; see ROADMAP.md.
+performance model behave as in the reference package.  The fluid-flow
+simulator behind the paper-figure benchmarks (:class:`DSISimulator` and
+the Table 7 :class:`LoaderSpec` matrix) is re-exported too, as in the
+reference.
 """
 from repro_torch.api.backends import (AugmentBackend, CudaAugmentBackend,
                                       NumpyAugmentBackend, NumpyOdsBackend,
@@ -64,6 +66,11 @@ from repro_torch.core.perf_model import (AWS_P3, AZURE_NC96, DATASETS,
                                          DatasetProfile, HardwareProfile,
                                          JobProfile, dsi_throughput,
                                          dsi_throughput_tiered)
+# mechanistic simulator (Table 7 loader matrix)
+from repro_torch.sim.desim import (ALL_LOADERS, DALI_CPU, DALI_GPU,
+                                   DSISimulator, LoaderSpec, MDP_ONLY,
+                                   MINIO, PYTORCH, QUIVER, SENECA, SHADE,
+                                   SimJob, SimResult)
 # sharded data plane: consistent-hash router + per-shard caches behind
 # sim/process transports, selected via SenecaConfig(shards=N,
 # shard_transport=...)
@@ -120,6 +127,10 @@ __all__ = [
     "AZURE_NC96", "AWS_P3", "IN_HOUSE", "VALIDATION_PROFILES",
     "EVAL_PROFILES", "DATASETS", "IMAGENET_1K", "IMAGENET_22K",
     "OPENIMAGES", "GB", "MB", "KB", "Gbit",
+    # simulator
+    "DSISimulator", "LoaderSpec", "SimJob", "SimResult", "ALL_LOADERS",
+    "PYTORCH", "DALI_CPU", "DALI_GPU", "MINIO", "QUIVER", "SHADE",
+    "MDP_ONLY", "SENECA",
     # live multi-job workloads
     "WorkloadRunner", "JobSpec", "JobResult", "WorkloadResult",
     "Clock", "RealClock", "VirtualClock", "deterministic_runner",

@@ -1,13 +1,17 @@
 """Config dataclasses of the port: a copy of the reference's
 ``repro.configs.base`` model and shape configs.
 
-``ModelConfig``, ``SSMConfig``, ``MoEConfig`` and ``ShapeConfig`` are the
-reference's plain frozen dataclasses, copied unchanged.  The reference's
-``ParallelismConfig`` and ``RunConfig`` describe a TPU mesh layout and
-belong to the distributed layer, which is not ported yet (ROADMAP.md).
+``ModelConfig``, ``SSMConfig``, ``MoEConfig``, ``ShapeConfig`` and
+``ParallelismConfig`` are the reference's plain frozen dataclasses,
+copied unchanged.  The port runs on one device, so of
+``ParallelismConfig`` the training step reads only ``remat``,
+``microbatches`` and ``opt_state_dtype``; the mesh fields are kept for
+the distributed layer, which is not ported yet (ROADMAP.md), as is the
+reference's ``RunConfig``.
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
@@ -184,3 +188,38 @@ def shape_applicable(model: ModelConfig, shape: ShapeConfig) -> Tuple[bool, str]
     if shape.name == "long_500k" and not model.sub_quadratic:
         return False, "long_500k needs sub-quadratic attention (full-attention arch)"
     return True, ""
+
+
+# ---------------------------------------------------------------------------
+# Parallelism
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class ParallelismConfig:
+    """How a (arch x shape) cell is laid out on the mesh.
+
+    Axes: optional leading 'pod' (DCN), 'data' (DP/FSDP/SP), 'model' (TP/EP).
+    """
+    dp: bool = True            # batch over ('pod','data')
+    fsdp: bool = False         # params+opt state sharded over 'data' too
+    tp: bool = True            # heads/ffn over 'model'
+    ep: bool = False           # experts over 'model'
+    sp: bool = False           # sequence over 'data' (long-context decode)
+    remat: str = "none"        # none | block | full
+    microbatches: int = 1      # gradient accumulation factor
+    grad_compression: str = "none"   # none | int8_ef
+    opt_state_dtype: str = "float32"  # float32 | bfloat16 | int8
+    param_dtype: str = "bfloat16"
+    # attention implementation: splash (pallas flash) | xla
+    attn_impl: str = "xla"
+    # pure-DP layout: replicate params and shard the batch over BOTH mesh
+    # axes (tp must be off)
+    dp_over_model: bool = False
+    # sequence-parallel SSD prefill (SSM family)
+    sp_ssd: bool = False
+    # SSM out-projection comm strategy: all-gather the inner-sharded
+    # activations instead of psum-ing the projected output
+    ssm_gather_out: bool = False
+
+    def replace(self, **kw) -> "ParallelismConfig":
+        return dataclasses.replace(self, **kw)

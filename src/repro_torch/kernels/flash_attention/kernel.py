@@ -1,4 +1,4 @@
-"""Blockwise (flash) attention forward: the CUDA kernel and its plain twin.
+"""Blockwise (flash) attention: the CUDA kernels and their plain twins.
 
 :func:`flash_attention` (K4) launches the hand-written kernel of
 ``csrc/flash_attention.cu`` for CUDA tensors and takes
@@ -15,6 +15,14 @@ differ at the reference's 2e-2 tolerance.
 Unlike the reference kernel, both take the model's layout, q (B, S, H,
 hd) and k/v (B, S, K, hd) with query head ``h`` reading kv head
 ``h // (H // K)`` (grouped-query attention), and any S.
+
+The backward, :func:`flash_attention_backward`, launches the kernel of
+``csrc/flash_attention_bwd.cu`` for CUDA tensors and takes
+:func:`flash_attention_backward_plain` for CPU tensors; the reference
+has no counterpart (XLA differentiates its attention).
+:class:`FlashAttention` joins the two for autograd: its forward is K4,
+its backward the backward kernel, so a gradient on the card never drops
+silently through a kernel's output.
 """
 from __future__ import annotations
 
@@ -37,6 +45,7 @@ _TMA_ERRORS = {-1: "the driver gave no cuTensorMapEncodeTiled entry point",
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    """Validate K4's arguments (the backward adds ``out`` and ``dout``)."""
     check_tensor("q", q, q.dtype, 4)
     check_tensor("k", k, q.dtype, 4, q.device)
     check_tensor("v", v, q.dtype, 4, q.device)
@@ -108,3 +117,104 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 flash_attention.launches = 0
+
+
+def flash_attention_backward_plain(q: torch.Tensor, k: torch.Tensor,
+                                   v: torch.Tensor, out: torch.Tensor,
+                                   dout: torch.Tensor, causal: bool = True):
+    """Plain twin of K4's backward: the explicit formula in float32, not
+    autograd through :func:`flash_attention_plain`.  With P the
+    normalized probabilities and ``D = rowsum(dout * out)``,
+    ``dS = P * (dout V^T - D)``; returns ``(dS K / sqrt(hd),
+    dS^T Q / sqrt(hd), P^T dout)`` in q's, k's and v's types, the G query
+    heads of a kv head summed into its dK and dV."""
+    B, S, H, hd = q.shape
+    K = k.shape[2]
+    G = H // K
+    scale = 1.0 / math.sqrt(hd)
+    qg = q.float().reshape(B, S, K, G, hd)
+    dog = dout.float().reshape(B, S, K, G, hd)
+    kf, vf = k.float(), v.float()
+    s = torch.einsum("bqkgh,bskh->bkgqs", qg, kf) * scale
+    if causal:
+        pos = torch.arange(S, device=q.device)
+        above = pos[None, :] > pos[:, None]
+        s = s.masked_fill(above, NEG_INF)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    if causal:
+        p = p.masked_fill(above, 0.0)
+    p = p / p.sum(dim=-1, keepdim=True).clamp_min(1e-20)
+    delta = (dog * out.float().reshape(B, S, K, G, hd)).sum(-1)
+    dp = torch.einsum("bqkgh,bskh->bkgqs", dog, vf)
+    ds = p * (dp - delta.permute(0, 2, 3, 1)[..., None])
+    dq = torch.einsum("bkgqs,bskh->bqkgh", ds, kf) * scale
+    dk = torch.einsum("bkgqs,bqkgh->bskh", ds, qg) * scale
+    dv = torch.einsum("bkgqs,bqkgh->bskh", p, dog)
+    return (dq.reshape(B, S, H, hd).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, out: torch.Tensor,
+                             dout: torch.Tensor, *, causal: bool = True):
+    """K4's backward: K4's arguments plus its output ``out`` and the
+    output's gradient ``dout`` (both (B, S, H, hd), q's type, contiguous)
+    -> ``(dq, dk, dv)`` in the inputs' types.  A CUDA tensor launches the
+    kernel (or raises); a CPU tensor takes the plain version."""
+    _check(q, k, v)
+    for name, t in (("out", out), ("dout", dout)):
+        check_tensor(name, t, q.dtype, 4, q.device)
+        if t.shape != q.shape:
+            raise ValueError(f"{name} must have q's shape {tuple(q.shape)}, "
+                             f"got {tuple(t.shape)}")
+    if q.device.type == "cpu":
+        return flash_attention_backward_plain(q, k, v, out, dout, causal)
+    if q.device.type != "cuda":
+        raise ValueError(f"no flash_attention_bwd kernel for device "
+                         f"{q.device}")
+    B, S, H, hd = q.shape
+    if B * H > 65_535:
+        raise ValueError(f"B*H = {B * H} exceeds the kernel's grid")
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    # per-row log-sum-exp and rowsum(dout * out), filled by the first pass
+    lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    delta = torch.empty_like(lse)
+    fn = library("flash_attention_bwd").repro_torch_flash_attention_bwd
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 \
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(q.device):
+        flash_attention_backward.launches += 1
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                 lse.data_ptr(), delta.data_ptr(), B, S, H, k.shape[2], hd,
+                 int(causal), 1.0 / math.sqrt(hd),
+                 int(q.dtype == torch.bfloat16), stream_ptr(q))
+    check_launch("flash_attention_bwd", err)
+    return dq, dk, dv
+
+
+flash_attention_backward.launches = 0
+
+
+class FlashAttention(torch.autograd.Function):
+    """K4 with its backward: ``FlashAttention.apply(q, k, v, causal)``.
+    Forward and backward each take the kernel for CUDA tensors and the
+    plain version for CPU tensors; the backward keeps q, k, v and the
+    output, and recomputes the probabilities from them."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        out = flash_attention(q, k, v, causal=causal)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.causal = causal
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out = ctx.saved_tensors
+        # the plain forward's output may be a strided view; K4's is not
+        dq, dk, dv = flash_attention_backward(q, k, v, out.contiguous(),
+                                              dout.contiguous(),
+                                              causal=ctx.causal)
+        return dq, dk, dv, None

@@ -6,16 +6,18 @@ The reference expands the grouped kv heads with ``jnp.repeat`` and
 swaps to (B, H, S, hd) for its kernel; the port's kernel reads the
 grouping and the layout directly, so nothing is copied.  ``q``, ``k``
 and ``v`` are made contiguous (the model's projections already are).
+The call goes through :class:`FlashAttention`, so gradients flow through
+K4's backward kernel.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.flash_attention.kernel import flash_attention
+from repro_torch.kernels.flash_attention.kernel import FlashAttention
 
 
 def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True) -> torch.Tensor:
     """q: (B, S, H, hd); k/v: (B, S, K, hd) -> (B, S, H, hd)."""
-    return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                           causal=causal)
+    return FlashAttention.apply(q.contiguous(), k.contiguous(),
+                                v.contiguous(), causal)

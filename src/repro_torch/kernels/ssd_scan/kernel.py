@@ -111,7 +111,17 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     launches the kernel (or raises); a CPU tensor takes the plain
     version.  ``chunk`` sets the plain version's chunk length and, through
     :func:`kernel_chunk`, the bfloat16 kernel's; the float32 kernel walks
-    its own 32-row sub-chunks."""
+    its own 32-row sub-chunks.
+
+    K5 has no backward yet: under grad mode, an input that requires grad
+    raises ``NotImplementedError`` on the card and on the CPU alike,
+    rather than return an output with no gradient (the kernel's output
+    has no ``grad_fn``)."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, dt, A, Bm, Cm)):
+        raise NotImplementedError(
+            "ssd_scan (K5) has no backward yet, so the ssm family cannot "
+            "train; see the K5 reverse pass in ROADMAP.md")
     check_tensor("x", x, x.dtype, 4)
     if x.dtype not in _DTYPES:
         raise TypeError(f"x must be one of {_DTYPES}, got {x.dtype}")

@@ -5,7 +5,8 @@ prefill, decode and caches.
 The reference's ``Model`` is a stateless frozen dataclass whose methods
 take a ``params`` pytree; the port's ``Model`` owns its parameters, so
 the methods drop that argument: ``model.forward(batch)`` is the
-reference's ``model.forward(params, batch)``.  The dry-run's abstract
+reference's ``model.forward(params, batch)`` and ``model.loss(batch)``
+its ``model.loss(params, batch)``.  The dry-run's abstract
 shapes and ``input_specs`` belong to the XLA tooling, not ported yet.
 """
 from __future__ import annotations
@@ -46,6 +47,12 @@ class Model(ParamTree):
         return param_count(self.defs)
 
     # ---- compute ----
+    def loss(self, batch: Dict, *, remat: str = "none") -> torch.Tensor:
+        """Training loss (scalar float32) with autograd on: the training
+        step turns the parameters' gradients on; serving leaves them off
+        and keeps to the ``no_grad`` methods below."""
+        return tfm.loss_fn(self, self.cfg, batch, remat=remat)
+
     @torch.no_grad()
     def forward(self, batch: Dict) -> Tuple[torch.Tensor, torch.Tensor]:
         return tfm.forward(self, self.cfg, batch)

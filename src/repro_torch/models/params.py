@@ -17,8 +17,9 @@ derives
   (:mod:`repro_torch.models.convert`).
 
 The logical axes are kept for the distributed layer, which is not ported
-yet.  Parameters are created with ``requires_grad=False``: this slice is
-the serving path; the training step (ROADMAP.md) turns gradients on.
+yet.  Parameters are created with ``requires_grad=False``, as serving
+wants them; :func:`repro_torch.train.step.build_train_step` turns their
+gradients on.
 """
 from __future__ import annotations
 

@@ -2,7 +2,10 @@
 the families ported so far, dense (qwen3) and ssm (mamba2).
 
 The reference scans over stacked per-layer params (``lax.scan``); the
-port loops over the ``nn.ModuleList`` of layers.  Every other family
+port loops over the ``nn.ModuleList`` of layers.  ``remat != "none"``
+recomputes each block in the backward
+(``torch.utils.checkpoint.checkpoint(..., use_reentrant=False)`` per
+block, as the reference's ``jax.checkpoint`` of the scan body).  Every other family
 (moe, vlm, encdec/audio, hybrid, encoder) raises ``NotImplementedError``
 until it is ported (ROADMAP.md).
 
@@ -21,6 +24,7 @@ from __future__ import annotations
 from typing import Dict, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as lyr
@@ -90,33 +94,63 @@ def _ssm_block(lp, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 
 def run_decoder(params, x: torch.Tensor, cfg: ModelConfig, positions, *,
-                causal: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+                causal: bool = True,
+                remat: str = "none") -> Tuple[torch.Tensor, torch.Tensor]:
     """Run the main block stack. Returns (x, aux_loss)."""
     check_family(cfg)
     aux = torch.zeros((), dtype=F32, device=x.device)
     for lp in params["blocks"]:
         if cfg.family == "ssm":
-            x = _ssm_block(lp, x, cfg)
+            def body(h, lp=lp):
+                return _ssm_block(lp, h, cfg), torch.zeros_like(aux)
         else:
-            x, a = _attn_block(lp, x, cfg, positions, causal=causal)
-            aux = aux + a
+            def body(h, lp=lp):
+                return _attn_block(lp, h, cfg, positions, causal=causal)
+        if remat != "none":
+            x, a = checkpoint(body, x, use_reentrant=False)
+        else:
+            x, a = body(x)
+        aux = aux + a
     return x, aux
 
 
 # ---------------------------------------------------------------------------
-# Forward passes (prefill)
+# Forward passes (train / prefill)
 # ---------------------------------------------------------------------------
 
-def forward(params, cfg: ModelConfig,
-            batch: Dict) -> Tuple[torch.Tensor, torch.Tensor]:
+def forward(params, cfg: ModelConfig, batch: Dict, *,
+            remat: str = "none") -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward. batch: {"tokens": (B, S) int}.  Returns
     (logits (B, S, V_pad), aux_loss)."""
     check_family(cfg)
     x = lyr.embed(params["embed"], batch["tokens"])
     positions = torch.arange(x.shape[1], device=x.device)
-    x, aux = run_decoder(params, x, cfg, positions, causal=True)
+    x, aux = run_decoder(params, x, cfg, positions, causal=True, remat=remat)
     x = lyr.rmsnorm(x, params["final_norm"], cfg.norm_eps)
     return lyr.logits(params["embed"], x), aux
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  vocab_size: int) -> torch.Tensor:
+    """Masked CE over a padded vocab. labels < 0 are ignored."""
+    v_pad = logits.shape[-1]
+    lf = logits.to(F32)
+    if vocab_size and v_pad > vocab_size:
+        pad_mask = torch.arange(v_pad, device=lf.device) >= vocab_size
+        lf = lf.masked_fill(pad_mask, lyr.NEG_INF)
+    lse = torch.logsumexp(lf, dim=-1)
+    tgt = torch.gather(lf, -1, labels.clamp(0, v_pad - 1).long()[..., None])
+    nll = lse - tgt[..., 0]
+    mask = (labels >= 0).to(F32)
+    return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+
+
+def loss_fn(params, cfg: ModelConfig, batch: Dict, *,
+            remat: str = "none") -> torch.Tensor:
+    """Next-token CE (batch: tokens and labels, (B, S) int) plus the
+    blocks' auxiliary loss."""
+    logits, aux = forward(params, cfg, batch, remat=remat)
+    return cross_entropy(logits, batch["labels"], cfg.vocab_size) + aux
 
 
 # ---------------------------------------------------------------------------

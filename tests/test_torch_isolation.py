@@ -7,7 +7,10 @@ CPU device-executor batch, again over two sim shards of the sharded data
 plane, imports the fault and workload layers and
 runs a 2-job VirtualClock trace with a worker crash on the "torch" ODS
 engine, imports the serving path (models, server, CLI), runs one reduced
-qwen3-8b prefill and decode step, and exits 0.  A static scan of the
+qwen3-8b prefill and decode step, imports the simulator, the baselines,
+the training step and the trainer (with the training CLI), runs one
+simulation and two resilient training steps with a checkpoint restore,
+and exits 0.  A static scan of the
 port's sources backs it up for modules the run does not import.
 """
 import ast
@@ -98,6 +101,35 @@ logits, cache = model.prefill({{"tokens": tokens}}, model.init_cache(2, 12))
 step, _ = model.decode_step(cache, tokens[:, :1], 8)
 assert logits.shape[:2] == (2, 8) and step.shape[:2] == (2, 1)
 assert torch.isfinite(step.float()).all()
+
+import tempfile
+import repro_torch.baselines
+import repro_torch.distributed
+import repro_torch.launch.train
+import repro_torch.sim
+import repro_torch.train
+from repro_torch.api import AZURE_NC96, GB, SENECA, DSISimulator, SimJob
+from repro_torch.core.perf_model import DatasetProfile
+from repro_torch.distributed.ft import FTConfig, ResilientTrainer
+from repro_torch.train.optimizer import AdamW
+from repro_torch.train.step import build_train_step
+from repro_torch.configs.base import ParallelismConfig
+
+sim = DSISimulator(AZURE_NC96, DatasetProfile("tiny", 2_000, 1e5), SENECA,
+                   cache_bytes=0.1 * GB, seed=0)
+assert sim.run([SimJob(0, gpu_rate=1000, batch_size=128)]).throughput > 0
+model.requires_grad_(True)
+opt = AdamW(lr=1e-3, state_dtype="int8")
+step = build_train_step(model, ParallelismConfig(remat="block"), opt)
+batch = {{"tokens": tokens, "labels": tokens}}
+with tempfile.TemporaryDirectory() as d:
+    trainer = ResilientTrainer(step, model, opt.init(model),
+                               FTConfig(ckpt_dir=d, ckpt_every=1),
+                               batch_source=lambda: batch)
+    hist = trainer.run(2)
+    trainer._restart()
+    assert trainer.step == 2 and len(hist) == 2
+assert all(np.isfinite(h["loss"]) for h in hist)
 held = sorted(m for m in sys.modules if m.split(".")[0] in {blocked!r})
 assert not held, held
 print("ok")
