@@ -57,9 +57,12 @@ into ``build/repro_torch/``), then:
    cores in bf16), each against its plain version on the card, timed
    with the L2 flushed beside its bound and (K4) beside
    ``scaled_dot_product_attention`` as a yardstick the port never calls;
-   K4's backward likewise (float32 at a ragged S, checked; bf16 at K4's
-   shape, checked, bitwise repeatable and timed beside
-   ``scaled_dot_product_attention``'s backward);
+   K4's backward likewise (float32 at a ragged S through the CUDA-core
+   form, checked; bf16 at K4's shape through the tensor-core kernels,
+   checked, bitwise repeatable and timed beside
+   ``scaled_dot_product_attention``'s backward, with each pass's device
+   time from ``torch.profiler`` and a check that each bf16 kernel's SASS
+   holds HGMMA, from ``cuobjdump -sass``);
 6. serving path, dense: qwen3-8b at full width (random weights from
    ``--seed``): ``Model.prefill`` of 4 x 1024 tokens (K4 launched once
    per layer; prefill logits equal forward's; decode at index S agrees
@@ -97,6 +100,7 @@ import argparse
 import functools
 import json
 import os
+import re
 import subprocess
 import sys
 import threading
@@ -1449,7 +1453,63 @@ def flash_attention_bwd_rows(dev, rng):
     row["bound_ms"], row["bound_by"] = bound(nbytes, flops, BF16_FLOPS_PER_S)
     print_row(row, f"within 1e-3 + 2**-7 |x| of plain, relative RMS "
               f"{rel:.2e} <= 2**-8, bitwise equal on a second run")
+    hgmma = sass_count("flash_attention_bwd", "HGMMA", BWD_PASSES)
+    check(all(n > 0 for n in hgmma.values()),
+          f"K4 backward: a bf16 kernel's SASS holds no HGMMA: {hgmma}")
+    split = pass_ms(lambda: fa.flash_attention_backward(*args, causal=True),
+                    BWD_PASSES)
+    print("kernel flash_attention_bwd by pass (torch.profiler, 10 calls): "
+          + ("not measured (the profiler saw no device time)"
+             if not any(n for _, n in split.values()) else ", ".join(
+                 f"{k} {ms:.4f} ms (mean of {n} launches)"
+                 for k, (ms, n) in split.items()))
+          + "; HGMMA in the SASS (cuobjdump): " + ", ".join(
+              f"{k} {n}" for k, n in hgmma.items()), flush=True)
     return row
+
+
+#: the bf16 kernels of K4's backward, one per pass (csrc/flash_attention_bwd.cu)
+BWD_PASSES = ("prep_tc_kernel", "dkdv_tc_kernel", "dq_tc_kernel")
+
+
+def sass_count(stem: str, opcode: str, kernels) -> dict:
+    """Instructions ``opcode`` in the SASS of each of ``kernels`` (all
+    instantiations summed) in the built library of ``csrc/<stem>.cu``,
+    from ``cuobjdump -sass``."""
+    from torch.utils.cpp_extension import CUDA_HOME
+    from repro_torch.kernels.device import library
+    out = subprocess.run([os.path.join(CUDA_HOME, "bin", "cuobjdump"),
+                          "-sass", library(stem)._name], capture_output=True,
+                         text=True, timeout=120, check=True).stdout
+    counts = dict.fromkeys(kernels, 0)
+    for func in re.split(r"\n\s*Function : ", out)[1:]:
+        name = func.split("\n", 1)[0]
+        for k in kernels:
+            if k in name:
+                counts[k] += len(re.findall(rf"\b{opcode}\b", func))
+    return counts
+
+
+def pass_ms(fn, kernels, iters: int = 10) -> dict:
+    """Device milliseconds of a launch of each of ``kernels`` over
+    ``iters`` calls of ``fn``, from ``torch.profiler``: (mean, launches
+    seen) by kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = {k: [] for k in kernels}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            for k in kernels:
+                if f"{k}<" in e.name:
+                    us[k].append(e.time_range.elapsed_us())
+    return {k: (float(np.mean(v)) / 1e3 if v else 0.0, len(v))
+            for k, v in us.items()}
 
 
 def ssd_flops(B: int, S: int, nh: int, P: int, N: int) -> int:

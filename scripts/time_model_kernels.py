@@ -1,13 +1,15 @@
 """Time the port's kernels alone on one NVIDIA GPU, with one-edit variants.
 
-    python3 scripts/time_model_kernels.py [--loader] [--variants] [--seed N]
+    python3 scripts/time_model_kernels.py [--loader] [--variants]
+        [--against DIR] [--seed N]
 
 Builds the port's kernels from ``src/repro_torch/csrc`` as the port does
 (at first use, into ``build/repro_torch/``), then runs
-``chip_smoke.model_kernel_phase``: K4 at qwen3-8b's prefill shapes and K5
-at mamba2-1.3b's forward shapes, each held against its plain version and
-timed with CUDA events beside its bound (and, for K4,
-``scaled_dot_product_attention``).  It also prints the device time of each
+``chip_smoke.model_kernel_phase``: K4 and its backward at qwen3-8b's
+shapes and K5 at mamba2-1.3b's forward shapes, each held against its
+plain version and timed with CUDA events beside its bound (and, for K4
+and its backward, ``scaled_dot_product_attention``; the backward also by
+pass).  It also prints the device time of each
 of K5's four launches (``torch.profiler``).  With ``--loader`` it runs
 ``chip_smoke.kernel_phase`` instead: K1-K3 at the loader's main-path
 shapes (batch 256, 256x256 -> 224x224), and prints the SASS instruction
@@ -16,14 +18,20 @@ library).  Every timing flushes the L2 before each launch
 (``chip_smoke.time_ms``).
 
 ``--variants`` also builds, into ``build/variants/``, copies of the
-sources (with ``common.cuh`` inlined) with one edit each (``VARIANTS``
-below: the model kernels' by default, the loader kernels' with
-``--loader``) and times every copy beside the committed source on the
+sources (with ``common.cuh`` inlined) with one design choice changed each
+(``VARIANTS`` below: the model kernels' by default, the loader kernels'
+with ``--loader``) and times every copy beside the committed source on the
 same inputs, in turns (committed, variant, variant, committed); K1-K3
 are called through the port's wrappers with the variant's library in
-place of the committed one, K4 and K5 through their C entry points.  A
+place of the committed one, K4, its backward and K5 through their C
+entry points (the backward in bf16 at qwen3-8b's shape, causal).  A
 variant shows what one design choice costs; it may compute something
 else, so it is timed and not checked.
+
+``--against DIR`` times the K4, K4-backward and K5 sources of another
+checkout (``DIR/src/repro_torch/csrc``, e.g. the parent commit unpacked
+with ``git archive``) beside the committed ones, built and called the
+same way, in turns (there, here, here, there).
 """
 from __future__ import annotations
 
@@ -52,6 +60,62 @@ VARIANTS = {
         "          wgmma_rs<HDP>(o, p_lo[kk], vd);\n", "")]),
     "k4_128_key_tiles": ("flash_attention", [(
         "constexpr int kBlockN = 64;", "constexpr int kBlockN = 128;")]),
+    # K4's bf16 backward: P and dS as one bf16 part, the lo products
+    # dropped (misses the card check): what the hi + lo split costs
+    "k4_bwd_single_bf16": ("flash_attention_bwd", [(
+        "    wgmma_rs<HDP>(acc, lo[kk], mnmajor(b, kk));\n", "")]),
+    # work items in a plain stride of the grid, not the snake order
+    "k4_bwd_stride_order": ("flash_attention_bwd", [(
+        "const int w = r * g + ((r & 1) ? g - 1 - b : b);",
+        "const int w = r * g + b;")]),
+    # one buffer of the prep and dQ items' Q, O and dO tiles, not two
+    "k4_bwd_single_buffer": ("flash_attention_bwd", [
+        ("kBuffers = 2;  // of the items' Q, O", "kBuffers = 1;  // of the items' Q, O"),
+        ("kBuffers = 2;  // of the items' Q and", "kBuffers = 1;  // of the items' Q and")]),
+    # the prep pass with one input buffer and a deeper K ring
+    "k4_bwd_prep_4_stages": ("flash_attention_bwd", [
+        ("kBuffers = 2;  // of the items' Q, O", "kBuffers = 1;  // of the items' Q, O"),
+        ("kStages = 2;   // of the K ring", "kStages = 4;   // of the K ring")]),
+    "k4_bwd_prep_6_stages": ("flash_attention_bwd", [
+        ("kBuffers = 2;  // of the items' Q, O", "kBuffers = 1;  // of the items' Q, O"),
+        ("kStages = 2;   // of the K ring", "kStages = 6;   // of the K ring")]),
+    # the prep pass with one of its parts taken out (what each costs): D
+    # from O and dO, the exponentials of the row sums, the O and dO
+    # loads, the score products and softmax (the K ring alone)
+    "k4_bwd_prep_no_d": ("flash_attention_bwd", [(
+        "      for (int i = 0; i < kHalf; ++i) {\n        const int ch",
+        "      for (int i = 0; i < 0; ++i) {\n        const int ch")]),
+    "k4_bwd_prep_no_exp": ("flash_attention_bwd", [(
+        "l[(j >> 1) & 1] += ex2(s[j] - m[(j >> 1) & 1]);",
+        "l[(j >> 1) & 1] += s[j];")]),
+    "k4_bwd_prep_no_o_do_loads": ("flash_attention_bwd", [(
+        "        mbar_expect_tx(q_full(qb), L::kIn);\n"
+        "        load_tile<HDP, kBlock>(in + L::kQ, &q_map, q_full(qb), it.h, "
+        "it.q0, it.b);\n"
+        "        load_tile<HDP, kBlock>(in + L::kO, &o_map, q_full(qb), it.h, "
+        "it.q0, it.b);\n"
+        "        load_tile<HDP, kBlock>(in + L::kDO, &do_map, q_full(qb), it.h, "
+        "it.q0, it.b);\n",
+        "        mbar_expect_tx(q_full(qb), tile_bytes(HDP, kBlock));\n"
+        "        load_tile<HDP, kBlock>(in + L::kQ, &q_map, q_full(qb), it.h, "
+        "it.q0, it.b);\n")]),
+    "k4_bwd_prep_no_scores": ("flash_attention_bwd", [(
+        "        if (t < n_mine) {\n          const int k0 = t * kRows;\n"
+        "          float s[32];",
+        "        if (false) {\n          const int k0 = t * kRows;\n"
+        "          float s[32];")]),
+    # the accurate exp2f in place of ex2.approx.ftz, and the mask on every
+    # tile, not only on those that cross the diagonal or S
+    "k4_bwd_accurate_exp2": ("flash_attention_bwd", [(
+        'asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));',
+        "y = exp2f(x);")]),
+    "k4_bwd_mask_every_tile": ("flash_attention_bwd", [
+        ("if (edge) {", "if (true) {")]),
+    # deeper rings of the dK/dV and dQ passes
+    "k4_bwd_dkdv_3_stages": ("flash_attention_bwd", [(
+        "kStages = 2;  // of the Q/dO ring", "kStages = 3;  // of the Q/dO ring")]),
+    "k4_bwd_dq_3_stages": ("flash_attention_bwd", [(
+        "kStages = 2;   // of the K/V ring", "kStages = 3;   // of the K/V ring")]),
     # the scan kernel's staging alone, without its products
     "k5_scan_no_products": ("ssd_scan", [
         ("    if (active) {\n      const float* cbt",
@@ -104,6 +168,7 @@ LOADER_VARIANTS = {
 #: kernel -> the source stem under ``src/repro_torch/csrc`` that holds it
 SOURCE_OF = {"decode": "decode", "decode_augment": "decode",
              "augment": "augment", "flash_attention": "flash_attention",
+             "flash_attention_bwd": "flash_attention_bwd",
              "ssd_scan": "ssd_scan"}
 #: SASS opcodes by the pipe that executes them (Nsight Compute's pipe
 #: names): the integer and logic ALU pipe, and the FMA pipe, which also
@@ -115,12 +180,12 @@ FMA_OPCODES = {"IMAD", "IMUL"}
 HASH_M1 = "0x7feb352d"
 
 
-def build_variant(name: str) -> ctypes.CDLL:
-    from repro_torch.kernels.device import CSRC, NVCC_FLAGS, _nvcc
-    kernel, edits = {**VARIANTS, **LOADER_VARIANTS}[name]
-    stem = SOURCE_OF[kernel]
-    text = (CSRC / f"{stem}.cu").read_text().replace(
-        '#include "common.cuh"', (CSRC / "common.cuh").read_text())
+def build_source(name: str, csrc: Path, stem: str, edits=()) -> ctypes.CDLL:
+    """``csrc/<stem>.cu`` with ``edits`` applied (``common.cuh`` inlined,
+    the other headers from ``csrc``), built into ``build/variants/``."""
+    from repro_torch.kernels.device import NVCC_FLAGS, _nvcc
+    text = (csrc / f"{stem}.cu").read_text().replace(
+        '#include "common.cuh"', (csrc / "common.cuh").read_text())
     for old, new in edits:
         if old not in text:
             raise RuntimeError(f"variant {name}: its edit no longer applies")
@@ -130,9 +195,15 @@ def build_variant(name: str) -> ctypes.CDLL:
     src = out / f"{name}.cu"
     src.write_text(text)
     lib = out / f"lib{name}.so"
-    subprocess.run([_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(lib),
+    subprocess.run([_nvcc(), *NVCC_FLAGS, "-I", str(csrc), "-o", str(lib),
                     str(src)], check=True, capture_output=True, text=True)
     return ctypes.CDLL(str(lib))
+
+
+def build_variant(name: str) -> ctypes.CDLL:
+    from repro_torch.kernels.device import CSRC
+    kernel, edits = {**VARIANTS, **LOADER_VARIANTS}[name]
+    return build_source(name, CSRC, SOURCE_OF[kernel], edits)
 
 
 def model_inputs(dev, seed: int):
@@ -261,6 +332,28 @@ def launcher(lib: ctypes.CDLL, stem: str, attn, ssm):
         args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B,
                 S, H, k.shape[2], hd, 1, 1 / math.sqrt(hd), 1, stream)
         tensors = (out,)
+    elif stem == "flash_attention_bwd":
+        from repro_torch.kernels.flash_attention.kernel import \
+            flash_attention
+        q, k, v = attn
+        out = flash_attention(q, k, v, causal=True)
+        dout = torch.from_numpy(np.random.default_rng(1).standard_normal(
+            q.shape).astype(np.float32)).to(q.device, q.dtype)
+        grads = [torch.empty_like(t) for t in (q, k, v)]
+        B, S, H, hd = q.shape
+        # a source without the entry (the CUDA-core form alone) takes
+        # (B, H, S) scratch
+        rows = lib.repro_torch_flash_attention_bwd_rows(S) if hasattr(
+            lib, "repro_torch_flash_attention_bwd_rows") else S
+        lse, delta = (torch.empty((B, H, rows), device=q.device)
+                      for _ in range(2))
+        fn = lib.repro_torch_flash_attention_bwd
+        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 \
+            + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        args = tuple(t.data_ptr() for t in (q, k, v, out, dout, *grads, lse,
+                                            delta)) \
+            + (B, S, H, k.shape[2], hd, 1, 1 / math.sqrt(hd), 1, stream)
+        tensors = (out, dout, *grads, lse, delta)
     else:
         from repro_torch.kernels.ssd_scan.kernel import kernel_chunk
         x, dt, A, Bm, Cm = ssm
@@ -316,6 +409,9 @@ def main(argv=None) -> int:
     ap.add_argument("--loader", action="store_true",
                     help="K1-K3 and their variants instead of K4/K5")
     ap.add_argument("--variants", action="store_true")
+    ap.add_argument("--against", metavar="DIR",
+                    help="time this checkout's K4, K4-backward and K5 "
+                         "sources beside the committed ones")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -363,6 +459,18 @@ def main(argv=None) -> int:
                       f"committed {kernel} in {stem}.cu (turns: "
                       + ", ".join(f"{t:.4f}" for t in times) + ")",
                       flush=True)
+    if args.against and not args.loader:
+        csrc = Path(args.against).resolve() / "src" / "repro_torch" / "csrc"
+        for stem in ("flash_attention", "flash_attention_bwd", "ssd_scan"):
+            there = make(build_source(f"against_{stem}", csrc, stem), stem,
+                         None)
+            here = make(libs[stem], stem, None)
+            times = [chip_smoke.time_ms(fn, 10)
+                     for fn in (there, here, here, there)]
+            print(f"against {args.against}: {stem} "
+                  f"{(times[0] + times[3]) / 2:.4f} ms there, "
+                  f"{(times[1] + times[2]) / 2:.4f} ms here (turns: "
+                  + ", ".join(f"{t:.4f}" for t in times) + ")", flush=True)
     return 0
 
 

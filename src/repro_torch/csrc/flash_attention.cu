@@ -273,7 +273,7 @@ using namespace repro_torch::hopper;
 constexpr int kBlockM = 128;  // query rows per CTA, 64 per consumer warpgroup
 constexpr int kBlockN = 64;   // keys per tile
 constexpr int kStages = 2;
-constexpr int kBox = 64;      // bf16 columns in one 128-byte swizzled row
+constexpr int kBox = kTmaBox;  // bf16 columns in one 128-byte swizzled row
 constexpr int kThreads = 384; // producer warpgroup + two consumer warpgroups
 constexpr int kConsumerWarps = 8;
 constexpr int kRowBytes = kBox * 2;
@@ -512,47 +512,6 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
   }
 }
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled is a driver-API function; the runtime hands out
-// its entry point, so the library links no libcuda
-inline EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult status;
-    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                         cudaEnableDefault, &status) == cudaSuccess &&
-        status == cudaDriverEntryPointSuccess) {
-      fn = reinterpret_cast<EncodeTiled>(p);
-    }
-  }
-  return fn;
-}
-
-// 4-D map over a contiguous (B, S, heads, hd) bf16 tensor: boxes of 64
-// columns x 1 head x `rows` rows x 1 batch row, 128-byte swizzle
-inline bool make_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, int B, int S,
-                     int heads, int hd, int rows) {
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(hd), static_cast<cuuint64_t>(heads),
-                              static_cast<cuuint64_t>(S), static_cast<cuuint64_t>(B)};
-  const cuuint64_t row = static_cast<cuuint64_t>(hd) * 2;
-  const cuuint64_t strides[3] = {row, row * heads, row * heads * S};
-  const cuuint32_t box[4] = {kBox, 1, static_cast<cuuint32_t>(rows), 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
-                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-// error codes of the host side, beside cudaError_t's (all positive)
-constexpr int kErrNoEncode = -1;  // no cuTensorMapEncodeTiled entry point
-constexpr int kErrEncode = -2;    // a tensor map was refused
 
 template <int HDP>
 int launch(const void* q, const void* k, const void* v, void* out, int B, int S, int H, int K,

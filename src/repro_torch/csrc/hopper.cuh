@@ -1,12 +1,15 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core kernels: shared
-// memory addresses, mbarriers, TMA tile loads, wgmma descriptors and
-// instructions, and the mma.sync / ldmatrix fragments of the warp-level
-// tensor-core path.  Every helper is a thin wrapper of one PTX instruction.
+// memory addresses, mbarriers, TMA tile and bulk loads, wgmma descriptors
+// and instructions, and the mma.sync / ldmatrix fragments of the
+// warp-level tensor-core path (every device helper is a thin wrapper of
+// one PTX instruction); and, on the host, the TMA tensor maps of K4's
+// forward and backward.
 #pragma once
 
 #include <cstdint>
 #include <cuda.h>  // CUtensorMap (the type only; no libcuda is linked)
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 
 namespace repro_torch {
 namespace hopper {
@@ -58,6 +61,17 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// `bytes` (a multiple of 16) contiguous bytes global -> shared, both
+// 16-byte aligned; completion is counted in bytes on `bar`
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::
+          "r"(dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
       : "memory");
 }
 
@@ -300,6 +314,51 @@ __device__ __forceinline__ void split_bf16x2(float x0, float x1, uint32_t& hi, u
   hi = bf16x2_bits(h);
   lo = bf16x2_bits(__floats2bfloat162_rn(x0 - hf.x, x1 - hf.y));
 }
+
+// ------------------------------------------------------ TMA maps (host)
+constexpr int kTmaBox = 64;  // bf16 columns in one 128-byte swizzled row
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled is a driver-API function; the runtime hands out
+// its entry point, so the library links no libcuda
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult status;
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                         cudaEnableDefault, &status) == cudaSuccess &&
+        status == cudaDriverEntryPointSuccess) {
+      fn = reinterpret_cast<EncodeTiled>(p);
+    }
+  }
+  return fn;
+}
+
+// 4-D map over a contiguous (B, S, heads, hd) bf16 tensor: boxes of 64
+// columns x 1 head x `rows` rows x 1 batch row, 128-byte swizzle
+inline bool make_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, int B, int S,
+                     int heads, int hd, int rows) {
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(hd), static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(S), static_cast<cuuint64_t>(B)};
+  const cuuint64_t row = static_cast<cuuint64_t>(hd) * 2;
+  const cuuint64_t strides[3] = {row, row * heads, row * heads * S};
+  const cuuint32_t box[4] = {kTmaBox, 1, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
+                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// error codes of the host side, beside cudaError_t's (all positive); the
+// wrappers name them (kernels/flash_attention/kernel.py, _TMA_ERRORS)
+constexpr int kErrNoEncode = -1;  // no cuTensorMapEncodeTiled entry point
+constexpr int kErrEncode = -2;    // a tensor map was refused
 
 }  // namespace hopper
 }  // namespace repro_torch

@@ -16,10 +16,12 @@ Unlike the reference kernel, both take the model's layout, q (B, S, H,
 hd) and k/v (B, S, K, hd) with query head ``h`` reading kv head
 ``h // (H // K)`` (grouped-query attention), and any S.
 
-The backward, :func:`flash_attention_backward`, launches the kernel of
+The backward, :func:`flash_attention_backward`, launches the kernels of
 ``csrc/flash_attention_bwd.cu`` for CUDA tensors and takes
 :func:`flash_attention_backward_plain` for CPU tensors; the reference
-has no counterpart (XLA differentiates its attention).
+has no counterpart (XLA differentiates its attention).  It routes by
+type as K4 does: bfloat16 takes the tensor-core kernels (wgmma, TMA; P
+and dS carried as hi + lo bfloat16 parts), float32 the CUDA-core form.
 :class:`FlashAttention` joins the two for autograd: its forward is K4,
 its backward the backward kernel, so a gradient on the card never drops
 silently through a kernel's output.
@@ -39,7 +41,7 @@ NEG_INF = -1e30
 #: the largest head width the kernels stage (float32 tiles are padded to
 #: 16, 32, 64 or 128 columns, bfloat16 TMA boxes to 64 or 128)
 MAX_HEAD_DIM = 128
-#: the bfloat16 kernel's host-side failures (negative return codes)
+#: the bfloat16 kernels' host-side failures (negative return codes)
 _TMA_ERRORS = {-1: "the driver gave no cuTensorMapEncodeTiled entry point",
                -2: "a TMA tensor map was refused by cuTensorMapEncodeTiled"}
 
@@ -160,7 +162,8 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
     """K4's backward: K4's arguments plus its output ``out`` and the
     output's gradient ``dout`` (both (B, S, H, hd), q's type, contiguous)
     -> ``(dq, dk, dv)`` in the inputs' types.  A CUDA tensor launches the
-    kernel (or raises); a CPU tensor takes the plain version."""
+    kernels (or raises): bfloat16 the tensor-core ones, float32 the
+    CUDA-core ones; a CPU tensor takes the plain version."""
     _check(q, k, v)
     for name, t in (("out", out), ("dout", dout)):
         check_tensor(name, t, q.dtype, 4, q.device)
@@ -175,11 +178,16 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
     B, S, H, hd = q.shape
     if B * H > 65_535:
         raise ValueError(f"B*H = {B * H} exceeds the kernel's grid")
+    lib = library("flash_attention_bwd")
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-    # per-row log-sum-exp and rowsum(dout * out), filled by the first pass
-    lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    # per-row log-sum-exp and rowsum(dout * out), filled by the first
+    # pass; the tensor-core kernels read whole 128-row tiles of them
+    rows_fn = lib.repro_torch_flash_attention_bwd_rows
+    rows_fn.argtypes, rows_fn.restype = [ctypes.c_int], ctypes.c_int
+    lse = torch.empty((B, H, rows_fn(S)), dtype=torch.float32,
+                      device=q.device)
     delta = torch.empty_like(lse)
-    fn = library("flash_attention_bwd").repro_torch_flash_attention_bwd
+    fn = lib.repro_torch_flash_attention_bwd
     fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 \
         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -190,6 +198,9 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
                  lse.data_ptr(), delta.data_ptr(), B, S, H, k.shape[2], hd,
                  int(causal), 1.0 / math.sqrt(hd),
                  int(q.dtype == torch.bfloat16), stream_ptr(q))
+    if err in _TMA_ERRORS:
+        raise RuntimeError(f"CUDA kernel flash_attention_bwd: "
+                           f"{_TMA_ERRORS[err]}")
     check_launch("flash_attention_bwd", err)
     return dq, dk, dv
 

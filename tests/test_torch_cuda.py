@@ -440,6 +440,66 @@ def test_flash_attention_backward_kernel_matches_plain(cuda, S, H, K, hd,
             _k4_within_one_bf16_ulp(g, w)
 
 
+@pytest.mark.parametrize("S,hd,causal", [
+    (1024, 128, True), (1024, 128, False),   # qwen3-8b's training shape
+    (1000, 64, True), (1000, 64, False), (1025, 64, True),
+    (1025, 64, False), (1000, 128, True), (1000, 128, False),
+    (1025, 128, True), (1025, 128, False)])
+def test_flash_attention_backward_bf16_tensor_cores_at_model_widths(
+        cuda, S, hd, causal):
+    """The bfloat16 backward (wgmma, TMA; P and dS as hi + lo) at
+    qwen3-8b's training shape (4, 1024, 32 | 8, 128) and at ragged S on
+    both sides of its 128-row items, within one bf16 ulp of its plain
+    version; two calls give the same bits (no atomics)."""
+    from repro_torch.kernels.flash_attention import kernel as fa
+    B, H, K = (4, 32, 8) if S == 1024 else (2, 8, 2)
+    q, k, v = _attn_inputs(B, S, H, K, hd, torch.bfloat16, cuda, S + hd)
+    dout = _attn_inputs(B, S, H, K, hd, torch.bfloat16, cuda, S + 2)[0]
+    out = fa.flash_attention(q, k, v, causal=causal)
+    n0 = fa.flash_attention_backward.launches
+    got = fa.flash_attention_backward(q, k, v, out, dout, causal=causal)
+    again = fa.flash_attention_backward(q, k, v, out, dout, causal=causal)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_backward.launches == n0 + 2
+    want = fa.flash_attention_backward_plain(q, k, v, out, dout, causal)
+    for g, a, w in zip(got, again, want):
+        assert g.dtype == torch.bfloat16 and g.shape == w.shape
+        assert torch.equal(g, a)
+        _k4_within_one_bf16_ulp(g, w)
+
+
+#: the kernels of each route of K4's backward (csrc/flash_attention_bwd.cu)
+_BWD_KERNELS = {torch.bfloat16: ("prep_tc_kernel", "dkdv_tc_kernel",
+                                 "dq_tc_kernel"),
+                torch.float32: ("bwd_prep_kernel", "bwd_dkdv_kernel",
+                                "bwd_dq_kernel")}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_attention_backward_routes_by_type(cuda, dtype):
+    """By the profiler's kernel names: a bf16 call runs the three
+    tensor-core kernels and none of the CUDA-core form; a float32 call
+    the CUDA-core form and none of the tensor-core kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels.flash_attention import kernel as fa
+    q, k, v = _attn_inputs(2, 200, 8, 2, 128, dtype, cuda, 7)
+    dout = _attn_inputs(2, 200, 8, 2, 128, dtype, cuda, 8)[0]
+    out = fa.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fa.flash_attention_backward(q, k, v, out, dout, causal=True)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    mine = _BWD_KERNELS[dtype]
+    other = _BWD_KERNELS[torch.float32 if dtype == torch.bfloat16
+                         else torch.bfloat16]
+    for kernel in mine:
+        assert sum(f"{kernel}<" in n for n in names) == 1, names
+    assert not any(f"{kernel}<" in n for n in names for kernel in other)
+
+
 def test_training_step_on_card_reaches_attention(cuda):
     """One reduced-depth qwen3-8b training step on the card (block
     remat, int8 moments): K4 launches twice per layer, its backward

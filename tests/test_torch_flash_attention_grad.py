@@ -137,3 +137,102 @@ def test_backward_validates_its_arguments():
         flash_attention_backward(q, k, v, out[:, :10].contiguous(), dout)
     with pytest.raises(TypeError):
         flash_attention_backward(q, k, v, out, dout.double())
+
+
+# ---- the bf16 tensor-core backward's arithmetic, emulated on the CPU
+def _k4_bwd_tensor_core_emulation(q, k, v, out, dout, causal, split_p,
+                                  split_ds):
+    """K4's bf16 backward (csrc/flash_attention_bwd.cu, the tensor-core
+    kernels) in torch: float32 products of the bf16 operands (S = Q K^T,
+    dP = dO V^T), lse from the float32 online pass, P = exp(S/sqrt(hd) -
+    lse) with masked keys exactly 0, dS = P (dP - D) in float32; P (into
+    dV) and dS (into dK and dQ) rounded to one bf16 (``split_*=False``) or
+    carried as hi + lo bf16 parts; float32 sums, dK and dQ scaled once,
+    one cast at the end."""
+    B, S, H, hd = q.shape
+    K = k.shape[2]
+    G = H // K
+    scale = 1.0 / np.sqrt(hd)
+    qg = q.float().reshape(B, S, K, G, hd)
+    dog = dout.float().reshape(B, S, K, G, hd)
+    kf, vf = k.float(), v.float()
+    s = torch.einsum("bqkgh,bskh->bkgqs", qg, kf) * scale
+    if causal:
+        pos = torch.arange(S)
+        masked = pos[None, :] > pos[:, None]
+    else:
+        masked = torch.zeros((S, S), dtype=torch.bool)
+    s = s.masked_fill(masked, float("-inf"))
+    m = s.amax(-1, keepdim=True)
+    lse = m + torch.log(torch.exp(s - m).sum(-1, keepdim=True)
+                        .clamp_min(1e-20))
+    p = torch.where(masked, torch.zeros(()), torch.exp(s - lse))
+    delta = (dog * out.float().reshape(B, S, K, G, hd)).sum(-1)
+    dp = torch.einsum("bqkgh,bskh->bkgqs", dog, vf)
+    ds = p * (dp - delta.permute(0, 2, 3, 1)[..., None])
+
+    def parts(x, split):
+        hi = x.bfloat16().float()
+        return hi + (x - hi).bfloat16().float() if split else hi
+
+    pq, dsq = parts(p, split_p), parts(ds, split_ds)
+    dq = torch.einsum("bkgqs,bskh->bqkgh", dsq, kf) * scale
+    dk = torch.einsum("bkgqs,bqkgh->bskh", dsq, qg) * scale
+    dv = torch.einsum("bkgqs,bqkgh->bskh", pq, dog)
+    return (dq.reshape(B, S, H, hd).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+def _k4_within_one_bf16_ulp(out, ref):
+    """The card check of the bf16 backward (as of K4): per element
+    1e-3 + 2**-7 |x|, relative RMS <= 2**-8."""
+    out, ref = out.float(), ref.float()
+    rel = float((out - ref).norm() / ref.norm())
+    return torch.allclose(out, ref, atol=1e-3, rtol=2.0 ** -7) \
+        and rel <= 2.0 ** -8
+
+
+# qwen3-8b's head width and GQA 4:1, at S 1024 and at a ragged S
+_CARD_SHAPES = [(1, 1024, 8, 2, 128), (2, 333, 8, 2, 128)]
+
+
+def _k4_bwd_card_inputs(B, S, H, K, hd):
+    rng = np.random.default_rng(13)
+    q, k, v, dout = (torch.from_numpy(rng.standard_normal(s)
+                                      .astype(np.float32)).bfloat16()
+                     for s in ((B, S, H, hd), (B, S, K, hd), (B, S, K, hd),
+                               (B, S, H, hd)))
+    out = flash_attention_plain(q, k, v, True).contiguous()
+    return q, k, v, out, dout
+
+
+@pytest.mark.parametrize("shape", _CARD_SHAPES)
+def test_k4_bwd_hi_lo_emulation_holds_the_card_bound(shape):
+    """P and dS each as hi + lo bf16 parts (two wgmmas per product) keep
+    all three gradients within one bf16 ulp of the plain version, the
+    bound the card check holds the kernel to."""
+    args = _k4_bwd_card_inputs(*shape)
+    want = flash_attention_backward_plain(*args, True)
+    got = _k4_bwd_tensor_core_emulation(*args, True, split_p=True,
+                                        split_ds=True)
+    for g, w in zip(got, want):
+        assert _k4_within_one_bf16_ulp(g, w)
+
+
+@pytest.mark.parametrize("split_p,split_ds", [(False, False), (True, False),
+                                              (False, True)])
+@pytest.mark.parametrize("shape", _CARD_SHAPES)
+def test_k4_bwd_single_bf16_emulation_misses_the_card_bound(shape, split_p,
+                                                            split_ds):
+    """One bf16 rounding of P misses the bound in dV, of dS in dQ or dK:
+    gradients near 0 fall beyond 1e-3 + 2**-7 |x|.  Why the kernels
+    carry both as hi + lo."""
+    args = _k4_bwd_card_inputs(*shape)
+    want = flash_attention_backward_plain(*args, True)
+    dq, dk, dv = _k4_bwd_tensor_core_emulation(*args, True, split_p=split_p,
+                                               split_ds=split_ds)
+    if not split_p:
+        assert not _k4_within_one_bf16_ulp(dv, want[2])
+    if not split_ds:
+        assert not (_k4_within_one_bf16_ulp(dq, want[0])
+                    and _k4_within_one_bf16_ulp(dk, want[1]))
