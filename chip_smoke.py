@@ -62,7 +62,11 @@ into ``build/repro_torch/``), then:
    checked, bitwise repeatable and timed beside
    ``scaled_dot_product_attention``'s backward, with each pass's device
    time from ``torch.profiler`` and a check that each bf16 kernel's SASS
-   holds HGMMA, from ``cuobjdump -sass``);
+   holds HGMMA, from ``cuobjdump -sass``); K5's backward likewise
+   (float32 at a ragged S with the final state's gradient, checked; bf16
+   at mamba2-1.3b's training shape, each gradient within a relative RMS
+   of its plain version, bitwise repeatable, timed, each of its six
+   launches' device time from ``torch.profiler``);
 6. serving path, dense: qwen3-8b at full width (random weights from
    ``--seed``): ``Model.prefill`` of 4 x 1024 tokens (K4 launched once
    per layer; prefill logits equal forward's; decode at index S agrees
@@ -82,7 +86,11 @@ into ``build/repro_torch/``), then:
    with block remat and int8 AdamW moments: the loss finite and falling,
    every layer's attention weights with finite non-zero gradients at
    every step, K4 launched 2 x 36 times and its backward 36 times per
-   step; step time, tokens/s and peak memory printed;
+   step; step time, tokens/s and peak memory printed; then mamba2-1.3b
+   likewise (the qwen3-8b model freed first), 4 x 1024 tokens per step,
+   every layer's wx, wB, wC, wdt, A_log, dt_bias and conv weights with
+   finite non-zero gradients at every step, K5 launched 2 x 48 times
+   and its backward 48 times per step;
 9. the kernel JSON line, the card line, and the result line
    ``{"ok": true, "device": {...}}`` last.
 
@@ -98,6 +106,7 @@ from __future__ import annotations
 
 import argparse
 import functools
+import gc
 import json
 import os
 import re
@@ -372,7 +381,8 @@ def _wrappers():
             "augment": augment_k.augment,
             "flash_attention": fa.flash_attention,
             "flash_attention_bwd": fa.flash_attention_backward,
-            "ssd_scan": ssd_k.ssd_scan}
+            "ssd_scan": ssd_k.ssd_scan,
+            "ssd_scan_bwd": ssd_k.ssd_scan_backward}
 
 
 def reset_counts():
@@ -1230,6 +1240,23 @@ BWD_S_F32 = 200
 TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_LR = 2, 1024, 4, 3e-4
 #: mamba2-1.3b forward, and the prefix its decode trajectory checks
 SSM_B, SSM_S, SSM_PREFIX = 4, 1024, 64
+#: mamba2-1.3b's training batch (of TRAIN_S tokens)
+SSM_TRAIN_B = 4
+#: K5's backward in float32: a short S that is not a multiple of 64
+SSD_BWD_S_F32 = 300
+#: the gradients of K5's backward against its plain version, as a
+#: relative RMS by the type each is stored in.  The kernel sums in float32
+#: in another order: at most 6.9e-5 (bf16) and 1.7e-6 (float32) on an H100
+#: with dt on mamba2's scale (``ssd_bwd_inputs``; 9.9e-5 and 4.9e-5 with
+#: dt = softplus(z), where states barely pass between chunks).  A
+#: tensor-core form that rounds its float32 operands once to bf16 misses
+#: both limits in every gradient, by 4x or more (2.0e-3 to 4.3e-3 in a CPU
+#: emulation, tests/test_torch_ssd_scan_grad.py), and once to tf32 in dx,
+#: dA, dB and dC; as hi + lo bf16 parts it holds them (at most 1.3e-4)
+SSD_BWD_RMS = {torch.bfloat16: 5e-4, torch.float32: 2e-4}
+#: the range of mamba2's dt at initialisation (its dt_bias is drawn so
+#: that softplus(dt_bias) is log-uniform on it)
+SSM_DT_RANGE = (1e-3, 0.1)
 #: the serving CLI's defaults (``repro_torch.launch.serve``)
 SERVE = dict(requests=8, slots=4, prompt_len=12, max_new=16, s_max=128)
 #: bf16's unit roundoff (8 significant bits)
@@ -1362,16 +1389,122 @@ def model_kernel_phase(dev, seed: int):
         library_ms=None)              # no single PyTorch call computes it
     nbytes = 2 * (2 * x.numel() + Bm.numel() + Cm.numel()) \
         + 4 * (dt.numel() + A.numel() + h.numel())
-    # float32 accuracy on the bf16 tensor cores takes at most twice the
-    # float32 operations (a float32 operand as hi + lo bf16 parts)
-    flops = ssd_flops(B, S, nh, P, N)
-    rows["ssd_scan"]["bound_ms"], rows["ssd_scan"]["bound_by"] = \
-        bound(nbytes, 2 * flops, BF16_FLOPS_PER_S)
+    # float32 accuracy on the bf16 tensor cores: a float32 operand as hi +
+    # lo bf16 parts, two products
+    rows["ssd_scan"]["bound_ms"], rows["ssd_scan"]["bound_by"] = bound(
+        nbytes, ssd_flops(B, S, nh, P, N, 2), BF16_FLOPS_PER_S)
     print_row(rows["ssd_scan"], "within 5e-2 (y) / 5e-4 (h) of plain")
     print(f"kernel ssd_scan: bound priced at the float32 CUDA-core rate "
-          f"(before the tensor-core form) {bound(nbytes, flops)[0]:.4f} ms",
-          flush=True)
+          f"(before the tensor-core form) "
+          f"{bound(nbytes, ssd_flops(B, S, nh, P, N))[0]:.4f} ms", flush=True)
+    del x, dt, A, Bm, Cm, y, h, y_p, h_p
+    rows["ssd_scan_bwd"] = ssd_scan_bwd_row(dev, rng, B, S, nh, P, N, chunk)
     return rows
+
+
+def ssd_scan_bwd_row(dev, rng, B, S, nh, P, N, chunk):
+    """K5's backward against its plain version: in float32 at a short
+    ragged S with the final state's gradient (checked only), then in
+    bf16 at mamba2-1.3b's training shape without it, as the model calls
+    it (checked, bitwise repeatable, timed).  Each gradient is held to
+    ``SSD_BWD_RMS`` by the type it is stored in."""
+    from repro_torch.kernels.ssd_scan import kernel as ssd_k
+
+    def held(got, want, what):
+        rel = {}
+        for name, g, w in zip(("dx", "ddt", "dA", "dB", "dC"), got, want):
+            check(g.dtype == w.dtype and g.shape == w.shape
+                  and bool(torch.isfinite(g.float()).all()),
+                  f"K5 backward {what}: {name} is {g.dtype} {tuple(g.shape)} "
+                  f"or not finite")
+            rel[name] = float((g.float() - w.float()).norm()
+                              / w.float().norm())
+        over = [f"{name} {rel[name]} > {SSD_BWD_RMS[g.dtype]}" for name, g
+                in zip(rel, got) if rel[name] > SSD_BWD_RMS[g.dtype]]
+        check(not over, f"K5 backward {what} differs from its plain version "
+              f"by a relative RMS of {rel}: {', '.join(over)}")
+        return rel
+
+    args = ssd_bwd_inputs(dev, rng, 2, SSD_BWD_S_F32, nh, P, N,
+                          torch.float32)
+    dh = torch.from_numpy(rng.standard_normal((2, nh, P, N), np.float32)
+                          ).to(dev)
+    got = ssd_k.ssd_scan_backward(*args, dh, chunk=chunk)
+    again = ssd_k.ssd_scan_backward(*args, dh, chunk=chunk)
+    want = ssd_k.ssd_scan_backward_plain(*args, dh, chunk)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          "K5 backward (float32) gave other bits on a second run")
+    rel = held(got, want, f"float32 (2, {SSD_BWD_S_F32}, {nh}, {P}, {N})")
+    print(f"kernel ssd_scan_bwd float32 (2, {SSD_BWD_S_F32}, {nh}, {P}, {N}) "
+          f"with dh: relative RMS " + ", ".join(
+              f"{k} {v:.2e}" for k, v in rel.items())
+          + f" (tolerance {SSD_BWD_RMS[torch.float32]}), bitwise equal on a "
+          f"second run", flush=True)
+    del args, dh, got, again, want
+
+    args = ssd_bwd_inputs(dev, rng, B, S, nh, P, N, torch.bfloat16)
+    got = ssd_k.ssd_scan_backward(*args, chunk=chunk)
+    again = ssd_k.ssd_scan_backward(*args, chunk=chunk)
+    want = ssd_k.ssd_scan_backward_plain(*args, None, chunk)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          "K5 backward gave other bits on a second run")
+    rel = held(got, want, f"bf16 ({B}, {S}, {nh}, {P}, {N})")
+    err = max(max_abs_err(a, b) for a, b in zip(got, want))
+    del got, again, want
+    x, dt, A, Bm, Cm, dy = args
+    row = dict(
+        name="ssd_scan_bwd", route="cuda",
+        source="src/repro_torch/csrc/ssd_scan_bwd.cu",
+        replaces="none (XLA autodiff of src/repro/models/ssm.py:91 "
+                 "_ssd_core)",
+        max_abs_err=err,
+        ms=time_ms(lambda: ssd_k.ssd_scan_backward(*args, chunk=chunk), 10),
+        plain_ms=time_ms(lambda: ssd_k.ssd_scan_backward_plain(
+            *args, None, chunk), 3, warmup=1),
+        library_ms=None)              # no single PyTorch call computes it
+    # x, dy, B, C (bf16), dt and A read once; dx, dB, dC (bf16), ddt and
+    # dA written once
+    nbytes = 2 * (3 * x.numel() + 4 * Bm.numel()) \
+        + 4 * (2 * dt.numel() + 2 * A.numel())
+    flops = ssd_bwd_flops(B, S, nh, P, N)
+    # float32 accuracy on the bf16 tensor cores: a float32 operand as hi +
+    # lo bf16 parts, two products, as for K5
+    row["bound_ms"], row["bound_by"] = bound(
+        nbytes, ssd_bwd_flops(B, S, nh, P, N, 2), BF16_FLOPS_PER_S)
+    print_row(row, "relative RMS " + ", ".join(
+        f"{k} {v:.2e}" for k, v in rel.items())
+        + f" within {SSD_BWD_RMS[torch.bfloat16]} (bf16) / "
+        f"{SSD_BWD_RMS[torch.float32]} (float32) of plain, bitwise equal on "
+        f"a second run")
+    split = pass_ms(lambda: ssd_k.ssd_scan_backward(*args, chunk=chunk),
+                    SSD_BWD_PASSES)
+    print(f"kernel ssd_scan_bwd: bound priced at the float32 CUDA-core rate "
+          f"{bound(nbytes, flops)[0]:.4f} ms ({flops / 1e9:.2f} GFLOP); by "
+          f"pass (torch.profiler, 10 calls): " + (
+              "not measured (the profiler saw no device time)"
+              if not any(n for _, n in split.values()) else ", ".join(
+                  f"{k.split('::')[-1]} {ms:.4f} ms (mean of {n})"
+                  for k, (ms, n) in split.items())), flush=True)
+    return row
+
+
+def ssd_bwd_inputs(dev, rng, B, S, nh, P, N, dtype):
+    """K5's backward's inputs (x, dt, A, Bm, Cm, dy) from ``rng``: x, B
+    and C at half scale and dy at unit scale in ``dtype``; dt log-uniform
+    on ``SSM_DT_RANGE`` and A = -exp(0.3 z), so that a state decays by
+    about e^-1.4 over a 64-row chunk and the chunks pass it on."""
+    def t(shape, dt=dtype, scale=1.0):
+        return (torch.from_numpy(rng.standard_normal(shape, np.float32))
+                * scale).to(dev, dt)
+    lo, hi = np.log(SSM_DT_RANGE)
+    dt = torch.from_numpy(np.exp(rng.uniform(lo, hi, (B, S, nh))).astype(
+        np.float32)).to(dev)
+    return (t((B, S, nh, P), scale=0.5), dt,
+            -torch.exp(t((nh,), torch.float32, 0.3)),
+            t((B, S, N), scale=0.5), t((B, S, N), scale=0.5),
+            t((B, S, nh, P)))
 
 
 def flash_attention_bwd_rows(dev, rng):
@@ -1470,6 +1603,10 @@ def flash_attention_bwd_rows(dev, rng):
 
 #: the bf16 kernels of K4's backward, one per pass (csrc/flash_attention_bwd.cu)
 BWD_PASSES = ("prep_tc_kernel", "dkdv_tc_kernel", "dq_tc_kernel")
+#: the six launches of K5's backward (csrc/ssd_scan_bwd.cu)
+SSD_BWD_PASSES = tuple(f"ssd_bwd::{k}" for k in (
+    "prep_kernel", "pair_kernel", "pass_kernel", "dx_kernel", "dbc_kernel",
+    "da_kernel"))
 
 
 def sass_count(stem: str, opcode: str, kernels) -> dict:
@@ -1506,25 +1643,52 @@ def pass_ms(fn, kernels, iters: int = 10) -> dict:
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             for k in kernels:
-                if f"{k}<" in e.name:
+                if f"{k}<" in e.name or f"{k}(" in e.name:
                     us[k].append(e.time_range.elapsed_us())
     return {k: (float(np.mean(v)) / 1e3 if v else 0.0, len(v))
             for k, v in us.items()}
 
 
-def ssd_flops(B: int, S: int, nh: int, P: int, N: int) -> int:
-    """Float32 operations of the SSD scan at the chunk length that needs
-    fewest (y and h do not depend on it).  At chunk c, with ``pairs`` the
-    (i, j <= i) pairs of all chunks: per batch row the lower triangle of
-    C.B^T, shared by every head (ngroups = 1), 2 N per pair; per (batch,
-    head) its product with dt*x, 2 P per pair, the chunk states and the
-    carried state's contribution to y, 2 P N per row each, and the state
+def ssd_flops(B: int, S: int, nh: int, P: int, N: int,
+              f32_cost: int = 1) -> int:
+    """Operations of the SSD scan at the chunk length that needs fewest
+    (y and h do not depend on it), a product with a float32 operand
+    counted ``f32_cost`` times: once on the CUDA cores, twice on the bf16
+    tensor cores, whose float32 accuracy takes a float32 operand as hi +
+    lo bf16 parts.  At chunk c, with ``pairs`` the (i, j <= i) pairs of
+    all chunks: per batch row the lower triangle of C.B^T (bf16 operands),
+    shared by every head (ngroups = 1), 2 N per pair; per (batch, head)
+    its product with dt*x, 2 P per pair, the chunk states and the carried
+    state's contribution to y, 2 P N per row each, and the state
     recurrence, 2 P N per chunk."""
     def at(c: int) -> int:
         nc = -(-S // c)
         pairs = nc * c * (c + 1) // 2
-        return B * (2 * pairs * N + nh * (2 * pairs * P + 4 * S * P * N
-                                          + 2 * nc * P * N))
+        return B * (2 * pairs * N + f32_cost * nh * (
+            2 * pairs * P + 4 * S * P * N + 2 * nc * P * N))
+    return min(at(c) for c in range(1, S + 1))
+
+
+def ssd_bwd_flops(B: int, S: int, nh: int, P: int, N: int,
+                  f32_cost: int = 1) -> int:
+    """Operations of K5's backward at the chunk length that needs fewest,
+    counted as ``ssd_flops`` counts the forward's (``f32_cost`` for a
+    product with a float32 operand).  At chunk c, with ``pairs`` the (i,
+    j <= i) pairs of all chunks: per batch row C.B^T (bf16 operands) and
+    the two products of the head-summed W with B and C, 2 N per pair
+    each; per (batch, head) the products g.x^T (bf16 operands) and M^T g,
+    2 P per pair each; per row five products of a (P, N) state with a row
+    (the chunk state, G B_j, H^T g_i, G^T x_j and exp(cum_i) g_i C_i^T),
+    2 P N each, and cum's gradient's inter-chunk term exp(cum_i) C_i.(H^T
+    g_i), 2 N, from H^T g_i; per chunk the two state recurrences, forward
+    and reverse, 2 P N each."""
+    def at(c: int) -> int:
+        nc = -(-S // c)
+        pairs = nc * c * (c + 1) // 2
+        bf16 = 2 * pairs * N + nh * 2 * pairs * P
+        f32 = 4 * pairs * N + nh * (2 * pairs * P + 10 * S * P * N
+                                    + 2 * S * N + 4 * nc * P * N)
+        return B * (bf16 + f32_cost * f32)
     return min(at(c) for c in range(1, S + 1))
 
 
@@ -1574,12 +1738,15 @@ def device_split(fn, label: str) -> None:
         return
     groups = {"flash_attention (K4)": 0.0,
               "flash_attention backward (K4 bwd)": 0.0,
-              "ssd_scan (K5)": 0.0, "matmul (cuBLAS)": 0.0, "other": 0.0}
+              "ssd_scan (K5)": 0.0, "ssd_scan backward (K5 bwd)": 0.0,
+              "matmul (cuBLAS)": 0.0, "other": 0.0}
     for name, us in by_name.items():
         if "repro_torch::flash_bwd" in name:
             groups["flash_attention backward (K4 bwd)"] += us
         elif "repro_torch::flash" in name:
             groups["flash_attention (K4)"] += us
+        elif "repro_torch::ssd_bwd" in name:
+            groups["ssd_scan backward (K5 bwd)"] += us
         elif "repro_torch::ssd" in name:
             groups["ssd_scan (K5)"] += us
         elif any(t in name.lower() for t in ("gemm", "cutlass", "xmma",
@@ -1757,38 +1924,59 @@ def ssm_phase(dev, seed: int, card: str) -> int:
     return launches
 
 
-def train_phase(dev, seed: int, card: str) -> int:
-    """qwen3-8b at its published widths trained through
+#: per family: the training batch, the scan or attention kernel and its
+#: backward (names of ``_wrappers``), and the per-layer weights whose
+#: gradients reach that kernel (a gradient dropped at the kernel would
+#: leave them without one)
+TRAIN_RUNS = {
+    "qwen3-8b": dict(batch=TRAIN_B, kernel="flash_attention",
+                     bwd="flash_attention_bwd", scope="attn",
+                     weights=("wq", "wk", "wv", "wo")),
+    "mamba2-1.3b": dict(batch=SSM_TRAIN_B, kernel="ssd_scan",
+                        bwd="ssd_scan_bwd", scope="ssm",
+                        weights=("wx", "wB", "wC", "wdt", "A_log",
+                                 "dt_bias", "conv_x", "conv_B", "conv_C")),
+}
+
+
+def train_phase(dev, seed: int, card: str, arch: str = "qwen3-8b") -> int:
+    """``arch`` at its published widths and full depth trained through
     ``launch.train.train_steps``: block remat, int8 moments, one fixed
-    batch.  The loss falls, every layer's attention weights get finite,
-    non-zero gradients at every step (a gradient dropped at K4 would
-    leave wq/wk/wv without one), and K4 launches twice per layer per step
-    (forward, and again under remat) and its backward once.  Returns the
-    backward's launches per step."""
+    batch of ``TRAIN_RUNS[arch]["batch"]`` x ``TRAIN_S`` tokens.  The loss
+    falls, every layer's weights that reach the family's kernel get
+    finite, non-zero gradients at every step (a gradient dropped at K4 or
+    K5 would leave them without one), and the kernel launches twice per
+    layer per step (forward, and again under remat) and its backward
+    once.  Returns the backward's launches in the run."""
     from repro_torch.configs.base import ParallelismConfig
     from repro_torch.launch.train import train_steps
     from repro_torch.train.optimizer import AdamW
 
+    run = TRAIN_RUNS[arch]
+    gc.collect()
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    model = build_model("qwen3-8b", dev, seed)
+    model = build_model(arch, dev, seed)
     cfg = model.cfg
     rng = np.random.default_rng(seed + 2)
     toks = torch.from_numpy(rng.integers(
-        0, cfg.vocab_size, (TRAIN_B, TRAIN_S + 1))).to(dev)
+        0, cfg.vocab_size, (run["batch"], TRAIN_S + 1))).to(dev)
     batch = {"tokens": toks[:, :-1].contiguous(),
              "labels": toks[:, 1:].contiguous()}
-    attn_norms = []                    # per step: parameter -> grad norm
-
+    L = cfg.n_layers
+    want = {f"blocks.{l}.{run['scope']}.{w}" for l in range(L)
+            for w in run["weights"]}
+    norms = []                         # per step: parameter -> grad norm
     update_s = []                      # per step: the update's seconds
 
     class Recording(AdamW):
-        """AdamW that keeps the attention weights' gradient norms of
-        every step it is handed, and times its update."""
+        """AdamW that keeps the watched weights' gradient norms of every
+        step it is handed, and times its update."""
 
         def update(self, grads, state, params):
-            attn_norms.append({
+            norms.append({
                 n: float(torch.linalg.vector_norm(g, dtype=torch.float32))
-                for n, g in grads.items() if ".attn.w" in n})
+                for n, g in grads.items() if n in want})
             out, secs = synced_seconds(
                 lambda: super(Recording, self).update(grads, state, params))
             update_s.append(secs)
@@ -1800,44 +1988,41 @@ def train_phase(dev, seed: int, card: str) -> int:
     hist = train_steps(model, opt, parallel, lambda: batch, TRAIN_STEPS)
     counts = read_counts()
     peak = torch.cuda.max_memory_allocated()
-    L = cfg.n_layers
-    check(counts["flash_attention"] == 2 * L * TRAIN_STEPS,
-          f"K4 launched {counts['flash_attention']} times in "
-          f"{TRAIN_STEPS} steps, expected {2 * L * TRAIN_STEPS} (forward "
-          f"and remat, once per layer each)")
-    check(counts["flash_attention_bwd"] == L * TRAIN_STEPS,
-          f"K4's backward launched {counts['flash_attention_bwd']} times "
-          f"in {TRAIN_STEPS} steps, expected {L * TRAIN_STEPS}")
+    fwd, bwd = counts[run["kernel"]], counts[run["bwd"]]
+    check(fwd == 2 * L * TRAIN_STEPS,
+          f"{run['kernel']} launched {fwd} times in {TRAIN_STEPS} steps, "
+          f"expected {2 * L * TRAIN_STEPS} (forward and remat, once per "
+          f"layer each)")
+    check(bwd == L * TRAIN_STEPS,
+          f"{run['bwd']} launched {bwd} times in {TRAIN_STEPS} steps, "
+          f"expected {L * TRAIN_STEPS}")
     losses = [h["loss"] for h in hist]
     check(all(np.isfinite(losses)) and losses[-1] < losses[0],
           f"training losses {losses} are not finite or do not fall")
     check(all(np.isfinite(h["grad_norm"]) and h["grad_norm"] > 0
               for h in hist), f"grad norms {[h['grad_norm'] for h in hist]}")
-    want = {f"blocks.{l}.attn.{w}" for l in range(L)
-            for w in ("wq", "wk", "wv", "wo")}
-    for i, norms in enumerate(attn_norms):
-        check(set(norms) == want, f"step {i + 1}: attention gradients for "
-              f"{sorted(want - set(norms))[:4]} missing")
-        bad = [n for n, x in norms.items() if not (np.isfinite(x) and x > 0)]
-        check(not bad, f"step {i + 1}: attention gradients zero or not "
-              f"finite: {bad[:4]}")
+    for i, seen in enumerate(norms):
+        check(set(seen) == want, f"step {i + 1}: gradients for "
+              f"{sorted(want - set(seen))[:4]} missing")
+        bad = [n for n, x in seen.items() if not (np.isfinite(x) and x > 0)]
+        check(not bad, f"step {i + 1}: gradients zero or not finite: "
+              f"{bad[:4]}")
     secs = [h["seconds"] for h in hist]
     steady = float(np.median(secs[1:]))
-    tokens = TRAIN_B * TRAIN_S
-    print(f"qwen3-8b training (full depth {L}, published widths, block "
+    tokens = run["batch"] * TRAIN_S
+    print(f"{arch} training (full depth {L}, published widths, block "
           f"remat, int8 moments, lr {TRAIN_LR}): {TRAIN_STEPS} steps of "
-          f"{TRAIN_B} x {TRAIN_S} tokens on one batch; losses "
+          f"{run['batch']} x {TRAIN_S} tokens on one batch; losses "
           f"{[round(x, 4) for x in losses]}; grad norms "
           f"{[round(h['grad_norm'], 4) for h in hist]}; step seconds "
           f"{[round(x, 3) for x in secs]}; median of steps 2-{TRAIN_STEPS} "
           f"{steady:.3f} s = {tokens / steady:.1f} tok/s; peak memory "
           f"{peak / 1e9:.2f} GB of {torch.cuda.get_device_properties(0).total_memory / 1e9:.1f} GB; "
-          f"K4 launches {counts['flash_attention']}, backward "
-          f"{counts['flash_attention_bwd']}; attention grad norms of "
-          f"{len(want)} weights finite and non-zero at every step, last "
-          f"step min {min(attn_norms[-1].values()):.3e} ({card})",
-          flush=True)
-    print(f"qwen3-8b training step split (host clock, synchronized): "
+          f"{run['kernel']} launches {fwd}, backward {bwd}; gradient norms "
+          f"of {len(want)} {run['scope']} weights finite and non-zero at "
+          f"every step, last step min {min(norms[-1].values()):.3e} "
+          f"({card})", flush=True)
+    print(f"{arch} training step split (host clock, synchronized): "
           f"optimizer update {[round(x, 3) for x in update_s]} s, the rest "
           f"(batch, forward, remat, backward, gradient norms) "
           f"{[round(a - b, 3) for a, b in zip(secs, update_s)]} s",
@@ -1845,10 +2030,11 @@ def train_phase(dev, seed: int, card: str) -> int:
     params = [p for _, p in model.named_parameters()]
     device_split(lambda: torch.autograd.grad(
         model.loss(batch, remat=parallel.remat), params),
-        "qwen3-8b forward + backward (block remat)")
+        f"{arch} forward + backward (block remat)")
     del model, opt, batch, params
+    gc.collect()
     torch.cuda.empty_cache()
-    return counts["flash_attention_bwd"] // TRAIN_STEPS
+    return bwd
 
 
 def main(argv=None) -> int:
@@ -1909,6 +2095,9 @@ def main(argv=None) -> int:
         "serving, mamba2-1.3b", ssm_phase, dev, args.seed, card)
     rows["flash_attention_bwd"]["launches"] = phase(
         "training, qwen3-8b", train_phase, dev, args.seed, card)
+    rows["ssd_scan_bwd"]["launches"] = phase(
+        "training, mamba2-1.3b", train_phase, dev, args.seed, card,
+        "mamba2-1.3b")
 
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -1921,7 +2110,7 @@ def main(argv=None) -> int:
     kernels = [{k: rows[name][k] for k in keys}
                for name in ("decode_augment", "augment", "decode",
                             "flash_attention", "flash_attention_bwd",
-                            "ssd_scan")]
+                            "ssd_scan", "ssd_scan_bwd")]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

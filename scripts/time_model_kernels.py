@@ -1,14 +1,15 @@
 """Time the port's kernels alone on one NVIDIA GPU, with one-edit variants.
 
-    python3 scripts/time_model_kernels.py [--loader] [--variants]
+    python3 scripts/time_model_kernels.py [--loader] [--variants [NAME ...]]
         [--against DIR] [--seed N]
 
 Builds the port's kernels from ``src/repro_torch/csrc`` as the port does
 (at first use, into ``build/repro_torch/``), then runs
 ``chip_smoke.model_kernel_phase``: K4 and its backward at qwen3-8b's
-shapes and K5 at mamba2-1.3b's forward shapes, each held against its
-plain version and timed with CUDA events beside its bound (and, for K4
-and its backward, ``scaled_dot_product_attention``; the backward also by
+shapes, K5 at mamba2-1.3b's forward shapes and its backward at the same
+shapes (mamba2-1.3b's training batch), each held against its plain
+version and timed with CUDA events beside its bound (and, for K4 and its
+backward, ``scaled_dot_product_attention``; both backwards also by
 pass).  It also prints the device time of each
 of K5's four launches (``torch.profiler``).  With ``--loader`` it runs
 ``chip_smoke.kernel_phase`` instead: K1-K3 at the loader's main-path
@@ -20,18 +21,22 @@ library).  Every timing flushes the L2 before each launch
 ``--variants`` also builds, into ``build/variants/``, copies of the
 sources (with ``common.cuh`` inlined) with one design choice changed each
 (``VARIANTS`` below: the model kernels' by default, the loader kernels'
-with ``--loader``) and times every copy beside the committed source on the
-same inputs, in turns (committed, variant, variant, committed); K1-K3
+with ``--loader``; only the ones named, if any are) and times every copy
+beside the committed source on the same inputs, in turns (committed,
+variant, variant, committed); K1-K3
 are called through the port's wrappers with the variant's library in
-place of the committed one, K4, its backward and K5 through their C
-entry points (the backward in bf16 at qwen3-8b's shape, causal).  A
+place of the committed one, as is K5's backward (in bf16 at K5's shape
+on ``chip_smoke.ssd_bwd_inputs``, without the final state's gradient),
+K4, K5 and K4's backward through their C entry points (K4's backward in
+bf16 at qwen3-8b's shape, causal).  A
 variant shows what one design choice costs; it may compute something
 else, so it is timed and not checked.
 
-``--against DIR`` times the K4, K4-backward and K5 sources of another
-checkout (``DIR/src/repro_torch/csrc``, e.g. the parent commit unpacked
-with ``git archive``) beside the committed ones, built and called the
-same way, in turns (there, here, here, there).
+``--against DIR`` times the K4, K4-backward, K5 and K5-backward sources
+of another checkout (``DIR/src/repro_torch/csrc``, e.g. the parent
+commit unpacked with ``git archive``) beside the committed ones, built
+and called the same way, in turns (there, here, here, there); a source
+the other checkout lacks is reported and skipped.
 """
 from __future__ import annotations
 
@@ -122,6 +127,13 @@ VARIANTS = {
          "    if (false) {\n      const float* cbt"),
         ("  if (c > 0) {\n    for (int k0 = 0; k0 < N; k0 += 16) {",
          "  if (false) {\n    for (int k0 = 0; k0 < N; k0 += 16) {")]),
+    # K5's backward: dx_kernel's staging and elementwise work alone,
+    # without its four products
+    "k5_bwd_dx_no_products": ("ssd_scan_bwd", [
+        ("  tile_fma<1>(a1, mt_s, kLd, x_s, kMaxP, kL);\n"
+         "  tile_fma<1>(a2, ct_s, kLd, ht_s, kLd, N);\n", ""),
+        ("  tile_fma<1>(a1, m_s, kL, g_s, kMaxP, kL);\n"
+         "  tile_fma<1>(a2, bt_s, kLd, gg_s, kLd, N);\n", "")]),
 }
 #: the loader kernels' variants: K3 (``decode``) and K1
 #: (``decode_augment``) in decode.cu, K2 (``augment``) in augment.cu
@@ -169,7 +181,7 @@ LOADER_VARIANTS = {
 SOURCE_OF = {"decode": "decode", "decode_augment": "decode",
              "augment": "augment", "flash_attention": "flash_attention",
              "flash_attention_bwd": "flash_attention_bwd",
-             "ssd_scan": "ssd_scan"}
+             "ssd_scan": "ssd_scan", "ssd_scan_bwd": "ssd_scan_bwd"}
 #: SASS opcodes by the pipe that executes them (Nsight Compute's pipe
 #: names): the integer and logic ALU pipe, and the FMA pipe, which also
 #: runs integer multiplies and the IMAD forms of adds, shifts and moves
@@ -207,9 +219,9 @@ def build_variant(name: str) -> ctypes.CDLL:
 
 
 def model_inputs(dev, seed: int):
-    """K4's and K5's inputs at the models' shapes, as chip_smoke draws
-    them."""
-    from chip_smoke import ATTN_B, ATTN_S, SSM_B, SSM_S
+    """K4's, K5's and K5's backward's inputs at the models' shapes, as
+    chip_smoke draws them."""
+    from chip_smoke import ATTN_B, ATTN_S, SSM_B, SSM_S, ssd_bwd_inputs
     rng = np.random.default_rng(seed)
 
     def t(a, dtype=torch.bfloat16):
@@ -223,7 +235,8 @@ def model_inputs(dev, seed: int):
         t(rng.standard_normal((SSM_B, SSM_S, 64)), torch.float32))
     A = -torch.exp(t(rng.standard_normal(64) * 0.3, torch.float32))
     Bm, Cm = (t(rng.standard_normal((SSM_B, SSM_S, 128))) for _ in range(2))
-    return (q, k, v), (x, dt, A, Bm, Cm)
+    return (q, k, v), (x, dt, A, Bm, Cm), ssd_bwd_inputs(
+        dev, rng, SSM_B, SSM_S, 64, 64, 128, torch.bfloat16)
 
 
 def loader_inputs(dev, seed: int):
@@ -246,7 +259,6 @@ def loader_launcher(lib: ctypes.CDLL, kernel: str, scalars, imgs,
     """A no-argument call of the port's K3 (``decode``), K1
     (``decode_augment``) or K2 (``augment``) wrapper that launches from
     ``lib`` instead of the committed library."""
-    from repro_torch.kernels import device
     from repro_torch.kernels.augment import kernel as augment_k
     from repro_torch.kernels.decode import kernel as decode_k
     stem = SOURCE_OF[kernel]
@@ -261,6 +273,13 @@ def loader_launcher(lib: ctypes.CDLL, kernel: str, scalars, imgs,
     else:
         def run():
             return augment_k.augment(imgs, *scalars[2:], **crop)
+    return swapped(stem, lib, run)
+
+
+def swapped(stem: str, lib: ctypes.CDLL, run):
+    """A no-argument call of ``run`` with ``lib`` in place of the port's
+    library of ``csrc/<stem>.cu``."""
+    from repro_torch.kernels import device
 
     def call():
         committed = device.build_all()[stem]
@@ -319,8 +338,12 @@ def sass_mix(lib: ctypes.CDLL, only: str = "", tag: str = "") -> None:
               f" {top}", flush=True)
 
 
-def launcher(lib: ctypes.CDLL, stem: str, attn, ssm):
-    """A no-argument call of the library's K4 or K5 entry point."""
+def launcher(lib: ctypes.CDLL, stem: str, attn, ssm, ssm_bwd):
+    """A no-argument call of the library's K4, K5 or K4-backward entry
+    point, or of K5's backward's wrapper launching from ``lib``."""
+    if stem == "ssd_scan_bwd":
+        from repro_torch.kernels.ssd_scan.kernel import ssd_scan_backward
+        return swapped(stem, lib, lambda: ssd_scan_backward(*ssm_bwd))
     stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
     if stem == "flash_attention":
         q, k, v = attn
@@ -408,9 +431,10 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--loader", action="store_true",
                     help="K1-K3 and their variants instead of K4/K5")
-    ap.add_argument("--variants", action="store_true")
+    ap.add_argument("--variants", nargs="*", metavar="NAME",
+                    help="time every variant, or the ones named")
     ap.add_argument("--against", metavar="DIR",
-                    help="time this checkout's K4, K4-backward and K5 "
+                    help="time this checkout's K4, K5 and backward "
                          "sources beside the committed ones")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
@@ -433,15 +457,20 @@ def main(argv=None) -> int:
         variants = LOADER_VARIANTS
     else:
         chip_smoke.model_kernel_phase(dev, args.seed)
-        attn, ssm = model_inputs(dev, args.seed)
+        attn, ssm, ssm_bwd = model_inputs(dev, args.seed)
         k5_split(dev, ssm)
 
         def make(lib, kernel, dtype):
-            return launcher(lib, kernel, attn, ssm)
+            return launcher(lib, kernel, attn, ssm, ssm_bwd)
 
         variants = VARIANTS
-    if args.variants:
+    if args.variants is not None:
+        unknown = set(args.variants) - set(variants)
+        if unknown:
+            ap.error(f"no variants {sorted(unknown)}")
         for name, (kernel, _) in variants.items():
+            if args.variants and name not in args.variants:
+                continue
             lib = build_variant(name)
             stem = SOURCE_OF[kernel]
             if kernel in ("decode", "decode_augment"):
@@ -461,7 +490,12 @@ def main(argv=None) -> int:
                       flush=True)
     if args.against and not args.loader:
         csrc = Path(args.against).resolve() / "src" / "repro_torch" / "csrc"
-        for stem in ("flash_attention", "flash_attention_bwd", "ssd_scan"):
+        for stem in ("flash_attention", "flash_attention_bwd", "ssd_scan",
+                     "ssd_scan_bwd"):
+            if not (csrc / f"{stem}.cu").exists():
+                print(f"against {args.against}: no {stem}.cu there",
+                      flush=True)
+                continue
             there = make(build_source(f"against_{stem}", csrc, stem), stem,
                          None)
             here = make(libs[stem], stem, None)

@@ -13,7 +13,9 @@ IEEE float32 op.  Flash attention (K4) and the SSD scan (K5) sum in
 another order than their plain versions and are held to the reference's
 tolerances (``tests/test_kernels.py``); unsupported shapes raise.  K4's
 backward is held to its plain twin like K4, and one reduced training
-step checks that gradients reach the attention weights on the card.
+step checks that gradients reach the attention weights on the card;
+K5's backward likewise, with one reduced mamba2-1.3b step for the ssm
+weights.
 """
 import numpy as np
 import pytest
@@ -534,6 +536,140 @@ def test_training_step_on_card_reaches_attention(cuda):
     assert fa.flash_attention_backward.launches - b0 == cfg.n_layers
     assert np.isfinite(float(metrics["loss"]))
     assert len(seen) == 4 * cfg.n_layers
+    assert all(np.isfinite(x) and x > 0 for x in seen.values()), seen
+
+
+#: K5's backward against its plain version, as a relative RMS by the
+#: type a gradient is stored in (chip_smoke.SSD_BWD_RMS)
+K5_BWD_RMS = {torch.bfloat16: 5e-4, torch.float32: 2e-4}
+
+
+def _rel_rms(got, want):
+    return float((got.float() - want.float()).norm()
+                 / want.float().norm().clamp_min(1e-30))
+
+
+@pytest.mark.parametrize("S,P,N,chunk", [(64, 16, 16, 64), (100, 16, 16, 32),
+                                         (256, 64, 128, 256),
+                                         (300, 64, 128, 256)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_dh", [False, True])
+def test_ssd_scan_backward_kernel_matches_plain(cuda, S, P, N, chunk, dtype,
+                                                with_dh):
+    """K5's backward (csrc/ssd_scan_bwd.cu) against its plain twin, with
+    and without the final state's gradient, S ragged against the
+    kernel's 64-row chunks, dt on mamba2's scale (log-uniform on [1e-3,
+    0.1]) so that states pass between chunks: each gradient within
+    ``K5_BWD_RMS`` of plain by the type it is stored in (the limits of
+    chip_smoke.SSD_BWD_RMS, with their reasons); a second call gives the
+    same bits (no atomics)."""
+    from repro_torch.kernels.ssd_scan import kernel as ssd_k
+    rng = np.random.default_rng(S + P + with_dh)
+    B, nh = 2, 3
+
+    def t(a, dt=dtype):
+        return torch.from_numpy(a.astype(np.float32)).to(dt).to(cuda)
+
+    x = t(rng.standard_normal((B, S, nh, P)) * 0.5)
+    dt = t(np.exp(rng.uniform(np.log(1e-3), np.log(0.1), (B, S, nh))),
+           torch.float32)
+    A = t(-np.exp(rng.standard_normal(nh) * 0.3), torch.float32)
+    Bm = t(rng.standard_normal((B, S, N)) * 0.5)
+    Cm = t(rng.standard_normal((B, S, N)) * 0.5)
+    dy = t(rng.standard_normal((B, S, nh, P)))
+    dh = t(rng.standard_normal((B, nh, P, N)), torch.float32) \
+        if with_dh else None
+    n0 = ssd_k.ssd_scan_backward.launches
+    got = ssd_k.ssd_scan_backward(x, dt, A, Bm, Cm, dy, dh, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd_k.ssd_scan_backward.launches == n0 + 1
+    again = ssd_k.ssd_scan_backward(x, dt, A, Bm, Cm, dy, dh, chunk=chunk)
+    want = ssd_k.ssd_scan_backward_plain(x, dt, A, Bm, Cm, dy, dh, chunk)
+    for name, g, a, w in zip(("dx", "ddt", "dA", "dB", "dC"), got, again,
+                             want):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        assert torch.equal(g, a), name
+        assert _rel_rms(g, w) <= K5_BWD_RMS[g.dtype], (name, _rel_rms(g, w))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_scan_backward_takes_unaligned_inputs(cuda, dtype):
+    """The kernels read x, dy, B, C and dh as 16-byte vectors: contiguous
+    views that start off a 16-byte boundary give the same bits as their
+    aligned copies."""
+    from repro_torch.kernels.ssd_scan import kernel as ssd_k
+    rng = np.random.default_rng(5)
+    B, S, nh, P, N = 1, 70, 2, 16, 32
+
+    def t(shape, dt=dtype, scale=0.5):
+        a = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)
+                             * scale).to(cuda, dt)
+        flat = torch.empty(a.numel() + 1, dtype=dt, device=cuda)
+        flat[1:] = a.reshape(-1)
+        return flat[1:].view(shape)
+
+    x, Bm, Cm, dy = t((B, S, nh, P)), t((B, S, N)), t((B, S, N)), \
+        t((B, S, nh, P), scale=1.0)
+    dh = t((B, nh, P, N), torch.float32)
+    dt = torch.nn.functional.softplus(torch.from_numpy(
+        rng.standard_normal((B, S, nh)).astype(np.float32)).to(cuda))
+    A = -torch.ones(nh, device=cuda)
+    assert all(a.data_ptr() % 16 for a in (x, Bm, Cm, dy, dh))
+    got = ssd_k.ssd_scan_backward(x, dt, A, Bm, Cm, dy, dh)
+    want = ssd_k.ssd_scan_backward(*(a.clone() for a in (x, dt, A, Bm, Cm,
+                                                         dy, dh)))
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_ssd_scan_backward_rejects_unsupported_shapes(cuda):
+    from repro_torch.kernels.ssd_scan import kernel as ssd_k
+    dt = torch.zeros((1, 8, 1), device=cuda)
+    A = -torch.ones(1, device=cuda)
+    for P, N in ((24, 16), (80, 16), (16, 144)):
+        x = torch.zeros((1, 8, 1, P), device=cuda)
+        Bm = torch.zeros((1, 8, N), device=cuda)
+        with pytest.raises(ValueError, match="multiples of 16"):
+            ssd_k.ssd_scan_backward(x, dt, A, Bm, Bm, x)
+
+
+def test_training_step_on_card_reaches_the_scan(cuda):
+    """One reduced-depth mamba2-1.3b training step on the card (block
+    remat, int8 moments): K5 launches twice per layer, its backward
+    once, and every layer's ssm weights that reach the scan get a
+    finite, non-zero gradient — the output of K5 carries a grad_fn on
+    the card."""
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import ParallelismConfig
+    from repro_torch.kernels.ssd_scan import kernel as ssd_k
+    from repro_torch.models.model import build
+    from repro_torch.train.optimizer import AdamW
+    from repro_torch.train.step import build_train_step
+
+    cfg = registry.get_reduced("mamba2-1.3b")
+    model = build(cfg).init(seed=0, device=cuda)
+    seen = {}
+    names = ("wx", "wB", "wC", "wdt", "A_log", "dt_bias", "conv_x",
+             "conv_B", "conv_C")
+
+    class Capture(AdamW):
+        def update(self, grads, state, params):
+            seen.update({n: float(g.float().norm()) for n, g in
+                         grads.items() if n.split(".")[-1] in names})
+            return super().update(grads, state, params)
+
+    opt = Capture(lr=1e-3, state_dtype="int8")
+    step = build_train_step(model, ParallelismConfig(remat="block"), opt)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 129))).to(cuda)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    f0, b0 = ssd_k.ssd_scan.launches, ssd_k.ssd_scan_backward.launches
+    _, _, metrics = step(model, opt.init(model), batch)
+    torch.cuda.synchronize()
+    assert ssd_k.ssd_scan.launches - f0 == 2 * cfg.n_layers
+    assert ssd_k.ssd_scan_backward.launches - b0 == cfg.n_layers
+    assert np.isfinite(float(metrics["loss"]))
+    assert len(seen) == len(names) * cfg.n_layers
     assert all(np.isfinite(x) and x > 0 for x in seen.values()), seen
 
 

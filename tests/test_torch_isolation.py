@@ -10,7 +10,8 @@ engine, imports the serving path (models, server, CLI), runs one reduced
 qwen3-8b prefill and decode step, imports the simulator, the baselines,
 the training step and the trainer (with the training CLI), runs one
 simulation and two resilient training steps with a checkpoint restore,
-and exits 0.  A static scan of the
+differentiates a reduced mamba2-1.3b loss through K5's backward (its
+plain twin), and exits 0.  A static scan of the
 port's sources backs it up for modules the run does not import.
 """
 import ast
@@ -130,6 +131,12 @@ with tempfile.TemporaryDirectory() as d:
     trainer._restart()
     assert trainer.step == 2 and len(hist) == 2
 assert all(np.isfinite(h["loss"]) for h in hist)
+
+ssm = build(registry.get_reduced("mamba2-1.3b")).init(seed=0, device="cpu")
+ssm.requires_grad_(True)
+loss = ssm.loss({{"tokens": tokens, "labels": tokens}}, remat="block")
+grads = torch.autograd.grad(loss, list(ssm.parameters()))
+assert all(bool(torch.isfinite(g.float()).all()) for g in grads)
 held = sorted(m for m in sys.modules if m.split(".")[0] in {blocked!r})
 assert not held, held
 print("ok")
