@@ -1406,8 +1406,10 @@ def ssd_scan_bwd_row(dev, rng, B, S, nh, P, N, chunk):
     """K5's backward against its plain version: in float32 at a short
     ragged S with the final state's gradient (checked only), then in
     bf16 at mamba2-1.3b's training shape without it, as the model calls
-    it (checked, bitwise repeatable, timed).  Each gradient is held to
-    ``SSD_BWD_RMS`` by the type it is stored in."""
+    it (checked, bitwise repeatable, timed, by pass).  Each gradient is
+    held to ``SSD_BWD_RMS`` by the type it is stored in; the bf16 call
+    must run the six tensor-core passes and none of the CUDA-core
+    design's, and each bf16 pass with products must hold HMMA."""
     from repro_torch.kernels.ssd_scan import kernel as ssd_k
 
     def held(got, want, what):
@@ -1480,13 +1482,23 @@ def ssd_scan_bwd_row(dev, rng, B, S, nh, P, N, chunk):
         f"a second run")
     split = pass_ms(lambda: ssd_k.ssd_scan_backward(*args, chunk=chunk),
                     SSD_BWD_PASSES)
+    # late in a long process the profiler may miss some launches (K4's
+    # backward's passes read 6-7 of 10 in one run), so every tensor-core
+    # pass must be seen and no CUDA-core one
+    check(all(split[k][1] for k in SSD_BWD_TC_PASSES)
+          and not any(split[k][1] for k in SSD_BWD_CUDA_CORE_PASSES),
+          f"K5 backward (bf16): 10 calls did not launch every tensor-core "
+          f"pass and no CUDA-core pass (torch.profiler): {split}")
+    hmma = sass_count("ssd_scan_bwd", "HMMA", SSD_BWD_PRODUCT_PASSES)
+    check(all(n > 0 for n in hmma.values()),
+          f"K5 backward: a bf16 product pass's SASS holds no HMMA: {hmma}")
     print(f"kernel ssd_scan_bwd: bound priced at the float32 CUDA-core rate "
           f"{bound(nbytes, flops)[0]:.4f} ms ({flops / 1e9:.2f} GFLOP); by "
-          f"pass (torch.profiler, 10 calls): " + (
-              "not measured (the profiler saw no device time)"
-              if not any(n for _, n in split.values()) else ", ".join(
-                  f"{k.split('::')[-1]} {ms:.4f} ms (mean of {n})"
-                  for k, (ms, n) in split.items())), flush=True)
+          f"pass (torch.profiler, 10 calls): " + ", ".join(
+              f"{k.split('::')[-1]} {split[k][0]:.4f} ms (mean of "
+              f"{split[k][1]})" for k in SSD_BWD_TC_PASSES)
+          + "; CUDA-core passes launched: 0; HMMA in the SASS (cuobjdump): "
+          + ", ".join(f"{k} {n}" for k, n in hmma.items()), flush=True)
     return row
 
 
@@ -1603,10 +1615,19 @@ def flash_attention_bwd_rows(dev, rng):
 
 #: the bf16 kernels of K4's backward, one per pass (csrc/flash_attention_bwd.cu)
 BWD_PASSES = ("prep_tc_kernel", "dkdv_tc_kernel", "dq_tc_kernel")
-#: the six launches of K5's backward (csrc/ssd_scan_bwd.cu)
-SSD_BWD_PASSES = tuple(f"ssd_bwd::{k}" for k in (
+#: the six launches of each design of K5's backward (csrc/ssd_scan_bwd.cu):
+#: the tensor-core kernels of bf16 inputs, then the CUDA-core kernels of
+#: float32 inputs, which a bf16 call must not reach
+SSD_BWD_TC_PASSES = tuple(f"ssd_bwd::tc::{k}" for k in (
+    "prep_tc_kernel", "pair_tc_kernel", "pass_tc_kernel", "dx_tc_kernel",
+    "finish_tc_kernel", "dbc_tc_kernel"))
+SSD_BWD_CUDA_CORE_PASSES = tuple(f"ssd_bwd::{k}" for k in (
     "prep_kernel", "pair_kernel", "pass_kernel", "dx_kernel", "dbc_kernel",
     "da_kernel"))
+SSD_BWD_PASSES = SSD_BWD_TC_PASSES + SSD_BWD_CUDA_CORE_PASSES
+#: the bf16 passes of K5's backward that hold products (mma.sync: HMMA)
+SSD_BWD_PRODUCT_PASSES = ("prep_tc_kernel", "pair_tc_kernel",
+                          "dx_tc_kernel", "dbc_tc_kernel")
 
 
 def sass_count(stem: str, opcode: str, kernels) -> dict:

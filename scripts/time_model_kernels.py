@@ -26,17 +26,21 @@ beside the committed source on the same inputs, in turns (committed,
 variant, variant, committed); K1-K3
 are called through the port's wrappers with the variant's library in
 place of the committed one, as is K5's backward (in bf16 at K5's shape
-on ``chip_smoke.ssd_bwd_inputs``, without the final state's gradient),
+and mamba2-1.3b's chunk on ``chip_smoke.ssd_bwd_inputs``, without the
+final state's gradient),
 K4, K5 and K4's backward through their C entry points (K4's backward in
 bf16 at qwen3-8b's shape, causal).  A
 variant shows what one design choice costs; it may compute something
-else, so it is timed and not checked.
+else, so it is timed and not checked (a K5-backward variant's relative
+RMS against plain is printed beside its time).
 
 ``--against DIR`` times the K4, K4-backward, K5 and K5-backward sources
 of another checkout (``DIR/src/repro_torch/csrc``, e.g. the parent
 commit unpacked with ``git archive``) beside the committed ones, built
 and called the same way, in turns (there, here, here, there); a source
-the other checkout lacks is reported and skipped.
+the other checkout lacks is reported and skipped.  Through today's
+wrapper a K5-backward library without the chunked C entry (its first,
+CUDA-core design) is called through the entry without the chunk.
 """
 from __future__ import annotations
 
@@ -127,13 +131,29 @@ VARIANTS = {
          "    if (false) {\n      const float* cbt"),
         ("  if (c > 0) {\n    for (int k0 = 0; k0 < N; k0 += 16) {",
          "  if (false) {\n    for (int k0 = 0; k0 < N; k0 += 16) {")]),
-    # K5's backward: dx_kernel's staging and elementwise work alone,
-    # without its four products
-    "k5_bwd_dx_no_products": ("ssd_scan_bwd", [
-        ("  tile_fma<1>(a1, mt_s, kLd, x_s, kMaxP, kL);\n"
-         "  tile_fma<1>(a2, ct_s, kLd, ht_s, kLd, N);\n", ""),
-        ("  tile_fma<1>(a1, m_s, kL, g_s, kMaxP, kL);\n"
-         "  tile_fma<1>(a2, bt_s, kLd, gg_s, kLd, N);\n", "")]),
+    # K5's bf16 backward: every float32 operand as one bf16 part, the lo
+    # products dropped (misses the card check): what the hi + lo split costs
+    # (the third edit also takes dbc's, indented deeper)
+    "k5_bwd_single_bf16": ("ssd_scan_bwd", [
+        ("        mma_tiles(acc, al, bf, nt);\n", ""),
+        ("        mma_tiles(acc, a, bl, nt);\n", ""),
+        ("      mma_tiles(acc, al, bh, nt);\n", ""),
+        ("        mma_tiles(tmp, a, bl, nt);\n", "")]),
+    # the tensor-core kernels over 128-row chunks instead of the forward's
+    # 256 (the scratch sized to match)
+    "k5_bwd_chunk_128": ("ssd_scan_bwd", [
+        ("tc::scratch_layout(batch, seq, heads, P, N, chunk, nullptr",
+         "tc::scratch_layout(batch, seq, heads, P, N, 128, nullptr"),
+        ("batch, seq, heads, P, N, chunk, s);",
+         "batch, seq, heads, P, N, 128, s);")]),
+    # dx over 128-row tiles of 8 warps (one block per SM, half the state
+    # tiles' and slabs' traffic per row) instead of 64-row tiles of 4
+    "k5_bwd_dx_128_rows": ("ssd_scan_bwd", [(
+        "constexpr int kDxRows = 64;", "constexpr int kDxRows = 128;")]),
+    # every pass's staging and elementwise work alone, without products
+    "k5_bwd_no_products": ("ssd_scan_bwd", [(
+        "    if (n < nt) mma_bf16_16816(acc[n], a, bf[n][0], bf[n][1]);",
+        "    if (n < 0) mma_bf16_16816(acc[n], a, bf[n][0], bf[n][1]);")]),
 }
 #: the loader kernels' variants: K3 (``decode``) and K1
 #: (``decode_augment``) in decode.cu, K2 (``augment``) in augment.cu
@@ -338,12 +358,21 @@ def sass_mix(lib: ctypes.CDLL, only: str = "", tag: str = "") -> None:
               f" {top}", flush=True)
 
 
+def mamba2_chunk() -> int:
+    """The chunk mamba2-1.3b passes K5 and its backward (its config's)."""
+    from repro_torch.configs import registry
+    return registry.get("mamba2-1.3b").ssm.chunk
+
+
 def launcher(lib: ctypes.CDLL, stem: str, attn, ssm, ssm_bwd):
     """A no-argument call of the library's K4, K5 or K4-backward entry
-    point, or of K5's backward's wrapper launching from ``lib``."""
+    point, or of K5's backward's wrapper launching from ``lib`` (at
+    mamba2-1.3b's chunk, as the model calls it)."""
     if stem == "ssd_scan_bwd":
         from repro_torch.kernels.ssd_scan.kernel import ssd_scan_backward
-        return swapped(stem, lib, lambda: ssd_scan_backward(*ssm_bwd))
+        chunk = mamba2_chunk()
+        return swapped(stem, lib,
+                       lambda: ssd_scan_backward(*ssm_bwd, chunk=chunk))
     stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
     if stem == "flash_attention":
         q, k, v = attn
@@ -403,6 +432,24 @@ def launcher(lib: ctypes.CDLL, stem: str, attn, ssm, ssm_bwd):
         if err != 0:
             raise RuntimeError(f"{stem} launch failed: {err}")
     return call
+
+
+def k5_bwd_rel(lib: ctypes.CDLL, ssm_bwd) -> str:
+    """The relative RMS of each gradient of K5's backward launched from
+    ``lib`` against the plain version (the card check's measure)."""
+    from repro_torch.kernels import device
+    from repro_torch.kernels.ssd_scan import kernel as ssd_k
+    chunk = mamba2_chunk()
+    committed = device.build_all()["ssd_scan_bwd"]
+    device._libraries["ssd_scan_bwd"] = lib
+    try:
+        got = ssd_k.ssd_scan_backward(*ssm_bwd, chunk=chunk)
+    finally:
+        device._libraries["ssd_scan_bwd"] = committed
+    want = ssd_k.ssd_scan_backward_plain(*ssm_bwd, None, chunk)
+    return ", ".join(
+        f"{n} {float((g.float() - w.float()).norm() / w.float().norm()):.2e}"
+        for n, g, w in zip(("dx", "ddt", "dA", "dB", "dC"), got, want))
 
 
 def k5_split(dev, ssm) -> None:
@@ -488,6 +535,9 @@ def main(argv=None) -> int:
                       f"committed {kernel} in {stem}.cu (turns: "
                       + ", ".join(f"{t:.4f}" for t in times) + ")",
                       flush=True)
+            if kernel == "ssd_scan_bwd":
+                print(f"variant {name}: relative RMS against plain "
+                      f"{k5_bwd_rel(lib, ssm_bwd)} (not checked)", flush=True)
     if args.against and not args.loader:
         csrc = Path(args.against).resolve() / "src" / "repro_torch" / "csrc"
         for stem in ("flash_attention", "flash_attention_bwd", "ssd_scan",

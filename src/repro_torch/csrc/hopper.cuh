@@ -1,9 +1,10 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core kernels: shared
 // memory addresses, mbarriers, TMA tile and bulk loads, wgmma descriptors
 // and instructions, and the mma.sync / ldmatrix fragments of the
-// warp-level tensor-core path (every device helper is a thin wrapper of
-// one PTX instruction); and, on the host, the TMA tensor maps of K4's
-// forward and backward.
+// warp-level tensor-core path (each a thin wrapper of one PTX
+// instruction); the running sums of a scan chunk that K5's forward and
+// backward share; and, on the host, the TMA tensor maps of K4's forward
+// and backward.
 #pragma once
 
 #include <cstdint>
@@ -313,6 +314,47 @@ __device__ __forceinline__ void split_bf16x2(float x0, float x1, uint32_t& hi, u
   const float2 hf = __bfloat1622float2(h);
   hi = bf16x2_bits(h);
   lo = bf16x2_bits(__floats2bfloat162_rn(x0 - hf.x, x1 - hf.y));
+}
+
+// ------------------------------------------------ K5's chunked scans
+// Inclusive running sums cum_j of dA_j = dt_j * a over rows [0, n) of a
+// chunk (n <= 256) into cum_s, and dt into dt_s, by the block's first 128
+// threads (thread t holds rows 2t and 2t + 1): a warp scan of the pair
+// sums, plus the earlier warps' totals.  Rows at or past `valid` have
+// dt = 0.  Ends with __syncthreads().
+__device__ __forceinline__ void chunk_cumsum(const float* dt, int64_t stride, int valid, float a,
+                                             int n, float* dt_s, float* cum_s, float* warp_s) {
+  const int t = threadIdx.x;
+  const int lane = t & 31;
+  float d0 = 0.f, d1 = 0.f, s = 0.f;
+  if (t < 128) {
+    if (2 * t < valid && 2 * t < n) d0 = dt[(2 * t) * stride];
+    if (2 * t + 1 < valid && 2 * t + 1 < n) d1 = dt[(2 * t + 1) * stride];
+    s = d0 * a + d1 * a;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const float u = __shfl_up_sync(0xffffffffu, s, o);
+      if (lane >= o) s += u;
+    }
+    if (lane == 31) warp_s[t >> 5] = s;
+  }
+  __syncthreads();
+  if (t < 128) {
+    float off = 0.f;
+    for (int w = 0; w < (t >> 5); ++w) off += warp_s[w];
+    const float v0 = d0 * a;
+    const float v1 = d1 * a;
+    const float c0 = off + (s - (v0 + v1)) + v0;
+    if (2 * t < n) {
+      cum_s[2 * t] = c0;
+      dt_s[2 * t] = d0;
+    }
+    if (2 * t + 1 < n) {
+      cum_s[2 * t + 1] = c0 + v1;
+      dt_s[2 * t + 1] = d1;
+    }
+  }
+  __syncthreads();
 }
 
 // ------------------------------------------------------ TMA maps (host)

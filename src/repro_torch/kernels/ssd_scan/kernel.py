@@ -267,10 +267,11 @@ def ssd_scan_backward(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     None for 0), all contiguous -> ``(dx, ddt, dA, dB, dC)`` in the
     inputs' types.  A CUDA tensor launches the kernels of
     ``csrc/ssd_scan_bwd.cu`` (or raises); they take P and N multiples of
-    16 with P <= 64 and N <= 128, and walk their own 64-row chunks
-    (``chunk`` sets only the plain version's); a view that starts off a
-    16-byte boundary is copied first.  A CPU tensor takes the plain
-    version."""
+    16 with P <= 64 and N <= 128.  bfloat16 inputs run on the tensor
+    cores over the forward's chunks (:func:`kernel_chunk` of ``chunk``),
+    float32 ones on the CUDA cores over 64-row chunks; a view that starts
+    off a 16-byte boundary is copied first.  A CPU tensor takes the plain
+    version, with ``chunk`` as its chunk length."""
     _check(x, dt, A, Bm, Cm)
     check_tensor("dy", dy, x.dtype, 4, x.device)
     if dy.shape != x.shape:
@@ -299,17 +300,28 @@ def ssd_scan_backward(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                      for t in (x, Bm, Cm, dy))
     if dh is not None and dh.data_ptr() % 16:
         dh = dh.clone()
+    bf16 = int(x.dtype == torch.bfloat16)
     lib = library("ssd_scan_bwd")
-    size = lib.repro_torch_ssd_scan_bwd_scratch
-    size.argtypes, size.restype = [ctypes.c_int] * 5, ctypes.c_longlong
-    scratch = torch.empty(size(Bsz, S, nh, P, N), dtype=torch.uint8,
+    # a library without the chunked entry (another checkout's first
+    # design) takes the entry without the chunk
+    if hasattr(lib, "repro_torch_ssd_scan_bwd_chunked"):
+        size = lib.repro_torch_ssd_scan_bwd_chunked_scratch
+        fn = lib.repro_torch_ssd_scan_bwd_chunked
+        shape = (Bsz, S, nh, P, N, kernel_chunk(chunk, S))
+        size_args = shape + (bf16,)
+    else:
+        size = lib.repro_torch_ssd_scan_bwd_scratch
+        fn = lib.repro_torch_ssd_scan_bwd
+        shape = size_args = (Bsz, S, nh, P, N)
+    size.argtypes = [ctypes.c_int] * len(size_args)
+    size.restype = ctypes.c_longlong
+    scratch = torch.empty(size(*size_args), dtype=torch.uint8,
                           device=x.device)
     dx, dB, dC = (torch.empty_like(t) for t in (x, Bm, Cm))
     ddt = torch.empty_like(dt)
     dA = torch.empty_like(A)
-    fn = lib.repro_torch_ssd_scan_bwd
-    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 6 \
-        + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 13 \
+        + [ctypes.c_int] * (len(shape) + 1) + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(x.device):
         ssd_scan_backward.launches += 1
@@ -317,8 +329,7 @@ def ssd_scan_backward(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
             Cm.data_ptr(), dy.data_ptr(), 0 if dh is None else dh.data_ptr(),
             dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(), dB.data_ptr(),
-            dC.data_ptr(), scratch.data_ptr(), Bsz, S, nh, P, N,
-            int(x.dtype == torch.bfloat16), stream_ptr(x)))
+            dC.data_ptr(), scratch.data_ptr(), *shape, bf16, stream_ptr(x)))
     return dx, ddt, dA, dB, dC
 
 

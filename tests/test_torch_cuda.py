@@ -313,7 +313,10 @@ def test_flash_attention_kernel_matches_plain(cuda, S, H, K, hd, dtype,
 
 @pytest.mark.parametrize("S,P,N,chunk", [(64, 16, 16, 64), (100, 16, 16, 32),
                                          (256, 64, 128, 256),
-                                         (300, 64, 128, 256)])
+                                         (300, 64, 128, 256),
+                                         (1000, 64, 128, 128),
+                                         (600, 64, 128, 256),
+                                         (400, 48, 80, 150)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_ssd_scan_kernel_matches_plain(cuda, S, P, N, chunk, dtype):
     """The reference's tolerances (tests/test_kernels.py:89): 5e-4 in
@@ -551,14 +554,19 @@ def _rel_rms(got, want):
 
 @pytest.mark.parametrize("S,P,N,chunk", [(64, 16, 16, 64), (100, 16, 16, 32),
                                          (256, 64, 128, 256),
-                                         (300, 64, 128, 256)])
+                                         (300, 64, 128, 256),
+                                         (1000, 64, 128, 128),
+                                         (600, 64, 128, 256),
+                                         (400, 48, 80, 150)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("with_dh", [False, True])
 def test_ssd_scan_backward_kernel_matches_plain(cuda, S, P, N, chunk, dtype,
                                                 with_dh):
     """K5's backward (csrc/ssd_scan_bwd.cu) against its plain twin, with
     and without the final state's gradient, S ragged against the
-    kernel's 64-row chunks, dt on mamba2's scale (log-uniform on [1e-3,
+    kernels' chunks (bf16: the forward's, 64 to 256 rows, 192 for chunk
+    150; float32: 64 rows), P and N below 64 and 128 and not powers of
+    two, dt on mamba2's scale (log-uniform on [1e-3,
     0.1]) so that states pass between chunks: each gradient within
     ``K5_BWD_RMS`` of plain by the type it is stored in (the limits of
     chip_smoke.SSD_BWD_RMS, with their reasons); a second call gives the
@@ -590,6 +598,53 @@ def test_ssd_scan_backward_kernel_matches_plain(cuda, S, P, N, chunk, dtype,
         assert g.dtype == w.dtype and g.shape == w.shape, name
         assert torch.equal(g, a), name
         assert _rel_rms(g, w) <= K5_BWD_RMS[g.dtype], (name, _rel_rms(g, w))
+
+
+#: the kernels of each route of K5's backward (csrc/ssd_scan_bwd.cu)
+_SSD_BWD_KERNELS = {
+    torch.bfloat16: ("prep_tc_kernel", "pair_tc_kernel", "pass_tc_kernel",
+                     "dx_tc_kernel", "finish_tc_kernel", "dbc_tc_kernel"),
+    torch.float32: ("prep_kernel", "pair_kernel", "pass_kernel", "dx_kernel",
+                    "dbc_kernel", "da_kernel")}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_ssd_scan_backward_routes_by_type(cuda, dtype):
+    """By the profiler's kernel names: a bf16 call runs the six
+    tensor-core kernels once each and none of the CUDA-core design; a
+    float32 call the CUDA-core design and none of the tensor-core
+    kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels.ssd_scan import kernel as ssd_k
+    rng = np.random.default_rng(9)
+    B, S, nh, P, N = 1, 300, 2, 64, 128
+
+    def t(shape, dt=dtype, scale=0.5):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32) * scale).to(cuda, dt)
+
+    x, Bm, Cm, dy = t((B, S, nh, P)), t((B, S, N)), t((B, S, N)), \
+        t((B, S, nh, P), scale=1.0)
+    dt = t((B, S, nh), torch.float32).abs() * 0.1
+    A = -torch.ones(nh, device=cuda)
+    ssd_k.ssd_scan_backward(x, dt, A, Bm, Cm, dy, chunk=256)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        ssd_k.ssd_scan_backward(x, dt, A, Bm, Cm, dy, chunk=256)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+
+    def launched(kernel):
+        return sum(f"ssd_bwd::{kernel}<" in n or f"::{kernel}(" in n
+                   for n in names)
+
+    other = _SSD_BWD_KERNELS[torch.float32 if dtype == torch.bfloat16
+                             else torch.bfloat16]
+    for kernel in _SSD_BWD_KERNELS[dtype]:
+        assert launched(kernel) == 1, (kernel, names)
+    assert not any(launched(kernel) for kernel in other), names
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -253,12 +253,13 @@ def _k5_bwd_tensor_core_emulation(x, dt, A, Bm, Cm, dy, dh, chunk, rnd):
             rows(dC).to(Cm.dtype))
 
 
-def _k5_bwd_card_rows(dtype):
+def _k5_bwd_card_rows(dtype, chunk=64):
     """The card check's two calls at 8 heads of mamba2-1.3b's widths (P
     64, N 128): bf16 over 512 rows without dh, as the model calls it;
-    float32 over 300 rows with dh.  dt on mamba2's scale.  Returns a
-    function of a rounding's name: the emulation's relative RMS against
-    the plain version and the card check's limit, by gradient."""
+    float32 over 300 rows with dh.  dt on mamba2's scale; chunks of
+    ``chunk`` rows.  Returns a function of a rounding's name: the
+    emulation's relative RMS against the plain version and the card
+    check's limit, by gradient."""
     rng = np.random.default_rng(17)
     S = 512 if dtype == torch.bfloat16 else 300
 
@@ -273,10 +274,10 @@ def _k5_bwd_card_rows(dtype):
     A = t((8,), 0.3, torch.float32).exp().neg()
     dh = t((1, 8, 64, 128), dt=torch.float32) if dtype == torch.float32 \
         else None
-    want = ssd_k.ssd_scan_backward_plain(x, dt, A, Bm, Cm, dy, dh, 64)
+    want = ssd_k.ssd_scan_backward_plain(x, dt, A, Bm, Cm, dy, dh, chunk)
 
     def rel(rounding):
-        got = _k5_bwd_tensor_core_emulation(x, dt, A, Bm, Cm, dy, dh, 64,
+        got = _k5_bwd_tensor_core_emulation(x, dt, A, Bm, Cm, dy, dh, chunk,
                                             _ROUNDINGS[rounding])
         return {name: (float((g.float() - w.float()).norm()
                              / w.float().norm()), K5_BWD_RMS[w.dtype])
@@ -313,3 +314,25 @@ def test_k5_bwd_single_rounding_emulation_misses_the_card_bound(dtype,
     else:
         missed = {n for n, (r, limit) in rel.items() if r > limit}
         assert {"dx", "dA", "dB", "dC"} <= missed, rel
+
+
+@pytest.mark.parametrize("chunk", [128, 256])
+def test_k5_bwd_hi_lo_emulation_holds_the_card_bound_at_forward_chunks(
+        chunk):
+    """The bf16 kernels walk the forward's chunks (128 or 256 rows, 256
+    for mamba2-1.3b): there too hi + lo parts keep every gradient within
+    the card check's limit by 3x or more, so the check admits the longer
+    chunks in the form the kernels take."""
+    rel = _k5_bwd_card_rows(torch.bfloat16, chunk)("hi_lo")
+    for name, (r, limit) in rel.items():
+        assert r <= limit / 3, (name, r, limit)
+
+
+@pytest.mark.parametrize("chunk", [128, 256])
+def test_k5_bwd_single_bf16_emulation_misses_the_card_bound_at_forward_chunks(
+        chunk):
+    """At the forward's chunks one bf16 rounding of each float32 operand
+    still puts every gradient beyond the card check's limit."""
+    rel = _k5_bwd_card_rows(torch.bfloat16, chunk)("bf16")
+    missed = {n for n, (r, limit) in rel.items() if r > limit}
+    assert missed == set(rel), rel

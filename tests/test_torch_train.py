@@ -343,6 +343,21 @@ def test_cli_trains_on_cpu(tmp_path, capsys):
                         "cpu", "--ckpt-dir", str(tmp_path / "vit")])
 
 
+def test_cli_rerun_over_its_checkpoints_trains_no_steps(tmp_path, capsys):
+    """A second run with the same ``--ckpt-dir`` resumes from the first
+    run's last checkpoint, already at ``--steps``: it trains 0 steps,
+    says so, prints no loss and returns.  (The reference's CLI indexes
+    the empty history there and raises IndexError; the port does not.)"""
+    argv = ["--arch", SSM, "--steps", "2", "--batch", "2", "--seq", "16",
+            "--device", "cpu", "--ckpt-dir", str(tmp_path)]
+    train_cli.main(argv)
+    assert "2 steps in" in capsys.readouterr().out
+    train_cli.main(argv)
+    out = capsys.readouterr().out
+    assert "0 steps in" in out and "loss" not in out
+    assert (tmp_path / "LATEST").read_text() == "step_00000002"
+
+
 def test_train_steps_records_each_step():
     pm = build(registry.get_reduced(ARCH)).init(seed=0, device="cpu")
     parallel = ParallelismConfig(remat="block", opt_state_dtype="int8")
