@@ -62,7 +62,9 @@ into ``build/repro_torch/``), then:
    checked, bitwise repeatable and timed beside
    ``scaled_dot_product_attention``'s backward, with each pass's device
    time from ``torch.profiler`` and a check that each bf16 kernel's SASS
-   holds HGMMA, from ``cuobjdump -sass``); K5's backward likewise
+   holds HGMMA, from ``cuobjdump -sass``); K4 and its backward again at
+   vit-huge's training shape, (256, 197, 16 | 16, 80) bf16, non-causal,
+   with the same checks and yardsticks; K5's backward likewise
    (float32 at a ragged S with the final state's gradient, checked; bf16
    at mamba2-1.3b's training shape, each gradient within a relative RMS
    of its plain version, bitwise repeatable, timed, each of its six
@@ -91,8 +93,21 @@ into ``build/repro_torch/``), then:
    every layer's wx, wB, wC, wdt, A_log, dt_bias and conv weights with
    finite non-zero gradients at every step, K5 launched 2 x 48 times
    and its backward 48 times per step;
-9. the kernel JSON line, the card line, and the result line
-   ``{"ok": true, "device": {...}}`` last.
+9. training path, vit-huge at its published widths and full depth: (a)
+   ``TRAIN_STEPS`` steps on one fixed batch, the first batch of the
+   loader's device route (``imagenet_like(N_VIT)``) through
+   ``launch.train.patch_batch``, checked as the other training runs
+   (K4 launched 2 x 32 times and its backward 32 times per step); (b)
+   two epochs of the loader's device route as the augmented main path
+   sets it up (n = ``N_VIT``), each batch through ``patch_batch`` and the
+   train step: every id once per epoch, sampled rows equal to a CPU
+   recomputation, K1 once per batch of the cold epoch, 0 h2d bytes in
+   the all-HBM epoch, the loss finite at every step, K4's launches as in
+   (a); per epoch the loader's and the step's seconds, images/s, the
+   loader's share and the card's idle share over ``VIT_TRACED_STEPS``
+   steps traced by ``torch.profiler``;
+10. the kernel JSON line, the card line, and the result line
+    ``{"ok": true, "device": {...}}`` last.
 
 Float32 products on the card run in full float32: the script sets
 ``torch.backends.cuda.matmul.allow_tf32`` and
@@ -482,7 +497,11 @@ def busy_us(spans) -> float:
     return total
 
 
-def main_path_augmented(dev, n: int, seed: int, card: str):
+def device_route(dev, n: int, seed: int):
+    """The loader's device route over ``imagenet_like(n)``: no ODS,
+    capacity admission, LRU, an HBM tier of 1.2x the augmented set, the
+    device executor at batch ``BATCH``.  Returns (ds, server, session,
+    pipeline)."""
     from repro_torch.api import SenecaServer
     from repro_torch.data.pipeline import DSIPipeline
     from repro_torch.data.storage import RemoteStorage
@@ -496,6 +515,11 @@ def main_path_augmented(dev, n: int, seed: int, card: str):
     sess = server.open_session(batch_size=BATCH)
     pipe = DSIPipeline(sess, RemoteStorage(ds), executor="device",
                        seed=seed)
+    return ds, server, sess, pipe
+
+
+def main_path_augmented(dev, n: int, seed: int, card: str):
+    ds, server, sess, pipe = device_route(dev, n, seed)
     tel = server.service.telemetry
     rng = np.random.default_rng(seed)
     try:
@@ -1235,6 +1259,19 @@ def sharded_phase(dev, seed: int, card: str, unsharded):
 ATTN_B, ATTN_S, ATTN_S_MAX = 4, 1024, 1088
 #: K4's backward in float32: a short S that is not a multiple of 64
 BWD_S_F32 = 200
+#: vit-huge trains on the main path's batch of BATCH images: the samples
+#: of its loader-fed run (two epochs of N_VIT / BATCH steps; the depth
+#: cut from ImageNet-1k's 1.28 M so both fit), and the steps of each
+#: epoch traced for the card's idle share
+N_VIT = 4_096
+VIT_TRACED_STEPS = 4
+#: vit-huge's learning rate.  One AdamW step moves every weight by about
+#: lr, which over 840 M weights fits the fixed batch of 256 at once from
+#: 3e-5 up (loss 7.44 -> 0.46 in two steps at 3e-5, -> 0.0155 in one at
+#: 1e-4, and the gradient norm then falls from 12 to below 1e-4); at 3e-6
+#: the loss falls ~0.2 a step and the gradients keep their first step's
+#: size (scripts/vit_lr_sweep.py on an H100)
+VIT_LR = 3e-6
 #: the training phase: qwen3-8b at its published widths, TRAIN_B x
 #: TRAIN_S tokens, TRAIN_STEPS steps on one fixed batch
 TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_LR = 2, 1024, 4, 3e-4
@@ -1308,54 +1345,22 @@ def model_kernel_phase(dev, seed: int):
     made here are comparisons and do not count."""
     import torch.nn.functional as F
     from repro_torch.configs import registry
-    from repro_torch.kernels.flash_attention import kernel as fa
     from repro_torch.kernels.ssd_scan import kernel as ssd_k
 
     rng = np.random.default_rng(seed)
     rows = {}
-    # ---- K4 at qwen3-8b's prefill: (4, 1024, 32 | 8, 128) bf16, causal
+    # ---- K4 and its backward at qwen3-8b's prefill and training shape,
+    # (4, 1024, 32 | 8, 128) bf16, causal, then at vit-huge's training
+    # shape, (256, 197, 16 | 16, 80) bf16, non-causal
     cfg = registry.get("qwen3-8b")
-    B, S, H, K, hd = ATTN_B, ATTN_S, cfg.n_heads, cfg.n_kv_heads, \
-        cfg.resolved_head_dim
-    q, k, v = (torch.from_numpy(rng.standard_normal(shape, np.float32))
-               .to(dev, torch.bfloat16)
-               for shape in ((B, S, H, hd), (B, S, K, hd), (B, S, K, hd)))
-    out = fa.flash_attention(q, k, v, causal=True)
-    plain = fa.flash_attention_plain(q, k, v, True)
-    torch.cuda.synchronize()
-    # both compute in float32 and round once to bf16 at the end, so they
-    # differ by one bf16 ulp where their float32 sums round apart: at most
-    # 2**-7 of the value (atol covers outputs near 0); one ulp is rare, so
-    # the relative RMS difference stays well below bf16's unit roundoff.
-    # (The reference's 2e-2, tests/test_kernels.py:52, is ~40% of a
-    # typical |output| ~ 0.05 here.)
-    err = max_abs_err(out, plain)
-    rel = float((out.float() - plain.float()).norm() / plain.float().norm())
-    check(torch.allclose(out.float(), plain.float(), atol=1e-3,
-                         rtol=2.0 ** -7) and rel <= BF16_EPS,
-          f"K4 flash_attention differs from its plain version by {err} "
-          f"(relative RMS {rel})")
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    rows["flash_attention"] = dict(
-        name="flash_attention", route="cuda",
-        source="src/repro_torch/csrc/flash_attention.cu",
-        replaces="src/repro/kernels/flash_attention/kernel.py:87",
-        max_abs_err=err,
-        ms=time_ms(lambda: fa.flash_attention(q, k, v, causal=True), 20),
-        plain_ms=time_ms(lambda: fa.flash_attention_plain(q, k, v, True), 5,
-                         warmup=1),
-        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True), 20))
-    # each input read once, the output written once; the causal half of
-    # the two products (query i sees keys 0..i)
-    nbytes = 2 * (q.numel() + k.numel() + v.numel() + out.numel())
-    flops = 4 * B * H * hd * (S * (S + 1) // 2)
-    rows["flash_attention"]["bound_ms"], rows["flash_attention"][
-        "bound_by"] = bound(nbytes, flops, BF16_FLOPS_PER_S)
-    print_row(rows["flash_attention"], f"within 1e-3 + 2**-7 |x| of plain, "
-              f"relative RMS {rel:.2e} <= 2**-8")
-    del q, k, v, qt, kt, vt, out, plain
-    rows["flash_attention_bwd"] = flash_attention_bwd_rows(dev, rng)
+    rows["flash_attention"], rows["flash_attention_bwd"] = k4_rows(
+        dev, rng, "", ATTN_B, ATTN_S, cfg.n_heads, cfg.n_kv_heads,
+        cfg.resolved_head_dim, causal=True)
+    flash_attention_bwd_checks(dev, rng, cfg)
+    cfg = registry.get("vit-huge")
+    rows["flash_attention_vit"], rows["flash_attention_bwd_vit"] = k4_rows(
+        dev, rng, "_vit", BATCH, cfg.frontend_tokens, cfg.n_heads,
+        cfg.n_kv_heads, cfg.resolved_head_dim, causal=False)
 
     # ---- K5 at mamba2-1.3b's forward: x (4, 1024, 64, 64) bf16, N 128
     cfg = registry.get("mamba2-1.3b")
@@ -1519,49 +1524,71 @@ def ssd_bwd_inputs(dev, rng, B, S, nh, P, N, dtype):
             t((B, S, nh, P)))
 
 
-def flash_attention_bwd_rows(dev, rng):
-    """K4's backward against its plain version: in float32 at a short
-    ragged S (checked only), then in bf16 at K4's table shape (checked
-    and timed, with ``scaled_dot_product_attention``'s backward as the
-    yardstick).  Two runs give the same bits (no atomics)."""
+def k4_rows(dev, rng, suffix: str, B: int, S: int, H: int, K: int, hd: int,
+            causal: bool):
+    """K4 and its backward in bf16 at (B, S, H | K, hd): each against its
+    plain version on the same inputs, bitwise repeatable, timed with the
+    L2 flushed beside its bound and beside ``scaled_dot_product_attention``
+    (forward, and its backward) as a yardstick the port never calls; the
+    backward's passes timed by ``torch.profiler``.  Returns the two rows,
+    named ``flash_attention`` and ``flash_attention_bwd`` + ``suffix``."""
     import torch.nn.functional as F
-    from repro_torch.configs import registry
     from repro_torch.kernels.flash_attention import kernel as fa
 
-    cfg = registry.get("qwen3-8b")
-    H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
-
-    def inputs(B, S, dtype):
-        q, k, v, dout = (
-            torch.from_numpy(rng.standard_normal(shape, np.float32))
-            .to(dev, dtype) for shape in ((B, S, H, hd), (B, S, K, hd),
-                                          (B, S, K, hd), (B, S, H, hd)))
-        return q, k, v, fa.flash_attention(q, k, v, causal=True), dout
-
-    args = inputs(2, BWD_S_F32, torch.float32)
-    got = fa.flash_attention_backward(*args, causal=True)
-    want = fa.flash_attention_backward_plain(*args, True)
+    where = f"({B}, {S}, {H} | {K}, {hd}), {'' if causal else 'non-'}causal"
+    q, k, v, dout = (
+        torch.from_numpy(rng.standard_normal(shape, np.float32))
+        .to(dev, torch.bfloat16) for shape in ((B, S, H, hd), (B, S, K, hd),
+                                               (B, S, K, hd), (B, S, H, hd)))
+    out = fa.flash_attention(q, k, v, causal=causal)
+    again = fa.flash_attention(q, k, v, causal=causal)
+    plain = fa.flash_attention_plain(q, k, v, causal)
     torch.cuda.synchronize()
-    # both sum in float32, in other orders: 1e-4 leaves ~50x the
-    # differences seen (~2e-6 at gradients of magnitude ~10)
-    err32 = max(max_abs_err(a, b) for a, b in zip(got, want))
-    check(all(torch.allclose(a, b, atol=1e-4, rtol=1e-4)
-              for a, b in zip(got, want)),
-          f"K4 backward (float32, S={BWD_S_F32}) differs from its plain "
-          f"version by {err32}")
-    print(f"kernel flash_attention_bwd float32 (2, {BWD_S_F32}, {H} | {K}, "
-          f"{hd}): within 1e-4 of plain (max_abs_err {err32})", flush=True)
-    del args, got, want
+    check(torch.equal(out, again), f"K4 at {where} gave other bits on a "
+          f"second run")
+    # both compute in float32 and round once to bf16 at the end, so they
+    # differ by one bf16 ulp where their float32 sums round apart: at most
+    # 2**-7 of the value (atol covers outputs near 0); one ulp is rare, so
+    # the relative RMS difference stays well below bf16's unit roundoff.
+    # (The reference's 2e-2, tests/test_kernels.py:52, is ~40% of a
+    # typical |output| ~ 0.05 at qwen3-8b's shape.)
+    err = max_abs_err(out, plain)
+    rel = float((out.float() - plain.float()).norm() / plain.float().norm())
+    check(torch.allclose(out.float(), plain.float(), atol=1e-3,
+                         rtol=2.0 ** -7) and rel <= BF16_EPS,
+          f"K4 at {where} differs from its plain version by {err} "
+          f"(relative RMS {rel})")
+    del again, plain
+    gqa = dict(enable_gqa=True) if H != K else {}
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    fwd = dict(
+        name="flash_attention" + suffix, route="cuda",
+        source="src/repro_torch/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention/kernel.py:87",
+        max_abs_err=err,
+        ms=time_ms(lambda: fa.flash_attention(q, k, v, causal=causal), 20),
+        plain_ms=time_ms(lambda: fa.flash_attention_plain(q, k, v, causal),
+                         5, warmup=1),
+        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal, **gqa), 20))
+    # each input read once, the output written once; the two products
+    # over the (query, key) pairs the mask keeps (query i sees keys 0..i
+    # under the causal mask, every key without it)
+    pairs = S * (S + 1) // 2 if causal else S * S
+    size = q.element_size()
+    fwd["bound_ms"], fwd["bound_by"] = bound(
+        size * (2 * q.numel() + k.numel() + v.numel()),
+        4 * B * H * hd * pairs, BF16_FLOPS_PER_S)
+    print_row(fwd, f"{where}: within 1e-3 + 2**-7 |x| of plain, relative "
+              f"RMS {rel:.2e} <= 2**-8, bitwise equal on a second run")
 
-    B, S = ATTN_B, ATTN_S
-    args = inputs(B, S, torch.bfloat16)
-    q, k, v, out, dout = args
-    got = fa.flash_attention_backward(*args, causal=True)
-    again = fa.flash_attention_backward(*args, causal=True)
-    want = fa.flash_attention_backward_plain(*args, True)
+    args = (q, k, v, out, dout)
+    got = fa.flash_attention_backward(*args, causal=causal)
+    again = fa.flash_attention_backward(*args, causal=causal)
+    want = fa.flash_attention_backward_plain(*args, causal)
     torch.cuda.synchronize()
     check(all(torch.equal(a, b) for a, b in zip(got, again)),
-          "K4 backward gave other bits on a second run")
+          f"K4 backward at {where} gave other bits on a second run")
     # as K4: both round once from float32 to bf16, so they differ by one
     # bf16 ulp where their float32 sums round apart
     err = max(max_abs_err(a, b) for a, b in zip(got, want))
@@ -1570,47 +1597,72 @@ def flash_attention_bwd_rows(dev, rng):
     check(all(torch.allclose(a.float(), b.float(), atol=1e-3,
                              rtol=2.0 ** -7) for a, b in zip(got, want))
           and rel <= BF16_EPS,
-          f"K4 backward differs from its plain version by {err} (relative "
-          f"RMS {rel})")
+          f"K4 backward at {where} differs from its plain version by {err} "
+          f"(relative RMS {rel})")
     del got, again, want
-    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
-                  for t in (q, k, v))
-    lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                             enable_gqa=True)
+    qt, kt, vt = (t.detach().requires_grad_() for t in (qt, kt, vt))
+    lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                             **gqa)
     lib_dout = dout.transpose(1, 2)
-    row = dict(
-        name="flash_attention_bwd", route="cuda",
+    bwd = dict(
+        name="flash_attention_bwd" + suffix, route="cuda",
         source="src/repro_torch/csrc/flash_attention_bwd.cu",
         replaces="none (XLA autodiff of src/repro/models/layers.py:109 "
                  "_sdpa and :127 blockwise_attention)",
         max_abs_err=err,
-        ms=time_ms(lambda: fa.flash_attention_backward(*args, causal=True),
+        ms=time_ms(lambda: fa.flash_attention_backward(*args, causal=causal),
                    10),
         plain_ms=time_ms(lambda: fa.flash_attention_backward_plain(
-            *args, True), 3, warmup=1),
+            *args, causal), 3, warmup=1),
         library_ms=time_ms(lambda: torch.autograd.grad(
             lib_out, (qt, kt, vt), lib_dout, retain_graph=True), 20))
     # q, k, v, out and dout read once, dq, dk, dv written once; five
-    # products over the causal half (Q K^T, dO V^T, P^T dO, dS^T Q, dS K)
-    nbytes = 2 * (3 * q.numel() + 2 * k.numel() + 2 * v.numel()
-                  + out.numel() + dout.numel())
-    flops = 5 * 2 * B * H * hd * (S * (S + 1) // 2)
-    row["bound_ms"], row["bound_by"] = bound(nbytes, flops, BF16_FLOPS_PER_S)
-    print_row(row, f"within 1e-3 + 2**-7 |x| of plain, relative RMS "
-              f"{rel:.2e} <= 2**-8, bitwise equal on a second run")
+    # products over the kept pairs (Q K^T, dO V^T, P^T dO, dS^T Q, dS K)
+    bwd["bound_ms"], bwd["bound_by"] = bound(
+        size * (4 * q.numel() + 2 * k.numel() + 2 * v.numel()),
+        5 * 2 * B * H * hd * pairs, BF16_FLOPS_PER_S)
+    print_row(bwd, f"{where}: within 1e-3 + 2**-7 |x| of plain, relative "
+              f"RMS {rel:.2e} <= 2**-8, bitwise equal on a second run")
+    split = pass_ms(lambda: fa.flash_attention_backward(*args, causal=causal),
+                    BWD_PASSES)
+    print(f"kernel flash_attention_bwd{suffix} by pass (torch.profiler, 10 "
+          f"calls): " + ("not measured (the profiler saw no device time)"
+                         if not any(n for _, n in split.values()) else
+                         ", ".join(f"{k} {ms:.4f} ms (mean of {n} launches)"
+                                   for k, (ms, n) in split.items())),
+          flush=True)
+    return fwd, bwd
+
+
+def flash_attention_bwd_checks(dev, rng, cfg) -> None:
+    """K4's backward in float32 at a short ragged S (the CUDA-core form,
+    checked against plain), and HGMMA in the SASS of each bf16 kernel."""
+    from repro_torch.kernels.flash_attention import kernel as fa
+
+    H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    B, S = 2, BWD_S_F32
+    q, k, v, dout = (
+        torch.from_numpy(rng.standard_normal(shape, np.float32)).to(dev)
+        for shape in ((B, S, H, hd), (B, S, K, hd), (B, S, K, hd),
+                      (B, S, H, hd)))
+    args = (q, k, v, fa.flash_attention(q, k, v, causal=True), dout)
+    got = fa.flash_attention_backward(*args, causal=True)
+    want = fa.flash_attention_backward_plain(*args, True)
+    torch.cuda.synchronize()
+    # both sum in float32, in other orders: 1e-4 leaves ~50x the
+    # differences seen (~2e-6 at gradients of magnitude ~10)
+    err32 = max(max_abs_err(a, b) for a, b in zip(got, want))
+    check(all(torch.allclose(a, b, atol=1e-4, rtol=1e-4)
+              for a, b in zip(got, want)),
+          f"K4 backward (float32, S={S}) differs from its plain version by "
+          f"{err32}")
+    print(f"kernel flash_attention_bwd float32 ({B}, {S}, {H} | {K}, {hd}): "
+          f"within 1e-4 of plain (max_abs_err {err32})", flush=True)
     hgmma = sass_count("flash_attention_bwd", "HGMMA", BWD_PASSES)
     check(all(n > 0 for n in hgmma.values()),
           f"K4 backward: a bf16 kernel's SASS holds no HGMMA: {hgmma}")
-    split = pass_ms(lambda: fa.flash_attention_backward(*args, causal=True),
-                    BWD_PASSES)
-    print("kernel flash_attention_bwd by pass (torch.profiler, 10 calls): "
-          + ("not measured (the profiler saw no device time)"
-             if not any(n for _, n in split.values()) else ", ".join(
-                 f"{k} {ms:.4f} ms (mean of {n} launches)"
-                 for k, (ms, n) in split.items()))
-          + "; HGMMA in the SASS (cuobjdump): " + ", ".join(
-              f"{k} {n}" for k, n in hgmma.items()), flush=True)
-    return row
+    print("kernel flash_attention_bwd: HGMMA in the SASS (cuobjdump): "
+          + ", ".join(f"{k} {n}" for k, n in hgmma.items()), flush=True)
 
 
 #: the bf16 kernels of K4's backward, one per pass (csrc/flash_attention_bwd.cu)
@@ -1945,25 +1997,31 @@ def ssm_phase(dev, seed: int, card: str) -> int:
     return launches
 
 
-#: per family: the training batch, the scan or attention kernel and its
+#: per family: the training batch and learning rate, the scan or
+#: attention kernel and its
 #: backward (names of ``_wrappers``), and the per-layer weights whose
 #: gradients reach that kernel (a gradient dropped at the kernel would
 #: leave them without one)
 TRAIN_RUNS = {
-    "qwen3-8b": dict(batch=TRAIN_B, kernel="flash_attention",
+    "qwen3-8b": dict(batch=TRAIN_B, lr=TRAIN_LR, kernel="flash_attention",
                      bwd="flash_attention_bwd", scope="attn",
                      weights=("wq", "wk", "wv", "wo")),
-    "mamba2-1.3b": dict(batch=SSM_TRAIN_B, kernel="ssd_scan",
+    "mamba2-1.3b": dict(batch=SSM_TRAIN_B, lr=TRAIN_LR, kernel="ssd_scan",
                         bwd="ssd_scan_bwd", scope="ssm",
                         weights=("wx", "wB", "wC", "wdt", "A_log",
                                  "dt_bias", "conv_x", "conv_B", "conv_C")),
+    "vit-huge": dict(batch=BATCH, lr=VIT_LR, kernel="flash_attention",
+                     bwd="flash_attention_bwd", scope="attn",
+                     weights=("wq", "wk", "wv", "wo")),
 }
 
 
 def train_phase(dev, seed: int, card: str, arch: str = "qwen3-8b") -> int:
     """``arch`` at its published widths and full depth trained through
     ``launch.train.train_steps``: block remat, int8 moments, one fixed
-    batch of ``TRAIN_RUNS[arch]["batch"]`` x ``TRAIN_S`` tokens.  The loss
+    batch of ``TRAIN_RUNS[arch]["batch"]`` x ``TRAIN_S`` tokens (for
+    vit-huge, of as many images: the first batch of the loader's device
+    route through ``launch.train.patch_batch``).  The loss
     falls, every layer's weights that reach the family's kernel get
     finite, non-zero gradients at every step (a gradient dropped at K4 or
     K5 would leave them without one), and the kernel launches twice per
@@ -1979,11 +2037,18 @@ def train_phase(dev, seed: int, card: str, arch: str = "qwen3-8b") -> int:
     torch.cuda.reset_peak_memory_stats()
     model = build_model(arch, dev, seed)
     cfg = model.cfg
-    rng = np.random.default_rng(seed + 2)
-    toks = torch.from_numpy(rng.integers(
-        0, cfg.vocab_size, (run["batch"], TRAIN_S + 1))).to(dev)
-    batch = {"tokens": toks[:, :-1].contiguous(),
-             "labels": toks[:, 1:].contiguous()}
+    if cfg.family == "encoder":
+        batch = first_image_batch(dev, seed, cfg)
+        items, unit = run["batch"], "images"
+        what = f"{items} images"
+    else:
+        rng = np.random.default_rng(seed + 2)
+        toks = torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (run["batch"], TRAIN_S + 1))).to(dev)
+        batch = {"tokens": toks[:, :-1].contiguous(),
+                 "labels": toks[:, 1:].contiguous()}
+        items, unit = run["batch"] * TRAIN_S, "tok"
+        what = f"{run['batch']} x {TRAIN_S} tokens"
     L = cfg.n_layers
     want = {f"blocks.{l}.{run['scope']}.{w}" for l in range(L)
             for w in run["weights"]}
@@ -2004,7 +2069,7 @@ def train_phase(dev, seed: int, card: str, arch: str = "qwen3-8b") -> int:
             return out
 
     parallel = ParallelismConfig(remat="block", opt_state_dtype="int8")
-    opt = Recording(lr=TRAIN_LR, state_dtype=parallel.opt_state_dtype)
+    opt = Recording(lr=run["lr"], state_dtype=parallel.opt_state_dtype)
     reset_counts()
     hist = train_steps(model, opt, parallel, lambda: batch, TRAIN_STEPS)
     counts = read_counts()
@@ -2030,14 +2095,13 @@ def train_phase(dev, seed: int, card: str, arch: str = "qwen3-8b") -> int:
               f"{bad[:4]}")
     secs = [h["seconds"] for h in hist]
     steady = float(np.median(secs[1:]))
-    tokens = run["batch"] * TRAIN_S
     print(f"{arch} training (full depth {L}, published widths, block "
-          f"remat, int8 moments, lr {TRAIN_LR}): {TRAIN_STEPS} steps of "
-          f"{run['batch']} x {TRAIN_S} tokens on one batch; losses "
+          f"remat, int8 moments, lr {run['lr']}): {TRAIN_STEPS} steps of "
+          f"{what} on one batch; losses "
           f"{[round(x, 4) for x in losses]}; grad norms "
           f"{[round(h['grad_norm'], 4) for h in hist]}; step seconds "
           f"{[round(x, 3) for x in secs]}; median of steps 2-{TRAIN_STEPS} "
-          f"{steady:.3f} s = {tokens / steady:.1f} tok/s; peak memory "
+          f"{steady:.3f} s = {items / steady:.1f} {unit}/s; peak memory "
           f"{peak / 1e9:.2f} GB of {torch.cuda.get_device_properties(0).total_memory / 1e9:.1f} GB; "
           f"{run['kernel']} launches {fwd}, backward {bwd}; gradient norms "
           f"of {len(want)} {run['scope']} weights finite and non-zero at "
@@ -2056,6 +2120,163 @@ def train_phase(dev, seed: int, card: str, arch: str = "qwen3-8b") -> int:
     gc.collect()
     torch.cuda.empty_cache()
     return bwd
+
+
+def first_image_batch(dev, seed: int, cfg):
+    """The first batch of the loader's device route over
+    ``imagenet_like(N_VIT)`` through ``launch.train.patch_batch``: (B, T,
+    d) bf16 patch embeddings and labels, on the card."""
+    from repro_torch.launch.train import patch_batch
+    _, server, _, pipe = device_route(dev, N_VIT, seed)
+    try:
+        return patch_batch(pipe.next_batch(), cfg)
+    finally:
+        pipe.stop()
+        server.close()
+
+
+def vit_loader_part(dev, seed: int, card: str):
+    """vit-huge at its published widths trained from the loader's device
+    route: ``device_route(imagenet_like(N_VIT))``, two epochs of N_VIT /
+    BATCH steps, each batch through ``launch.train.patch_batch`` and the
+    train step (block remat, int8 moments).  Every id once per epoch,
+    sampled rows equal to a CPU recomputation, K1 once per batch of the
+    cold epoch, 0 h2d bytes in the all-HBM epoch, the loss finite at
+    every step, K4 twice per layer per step and its backward once.
+    Prints per epoch the loader's and the step's seconds (each ending in
+    a synchronize), images/s of the loop, the loader's share of it and
+    the card's idle share over ``VIT_TRACED_STEPS`` traced steps.
+    Returns the launch counts of the run."""
+    from repro_torch.configs.base import ParallelismConfig
+    from repro_torch.launch.train import patch_batch
+    from repro_torch.train.optimizer import AdamW
+    from repro_torch.train.step import build_train_step
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model("vit-huge", dev, seed + 1)
+    cfg = model.cfg
+    L = cfg.n_layers
+    ds, server, sess, pipe = device_route(dev, N_VIT, seed)
+    tel = server.service.telemetry
+    parallel = ParallelismConfig(remat="block", opt_state_dtype="int8")
+    opt = AdamW(lr=VIT_LR, state_dtype=parallel.opt_state_dtype)
+    step = build_train_step(model, parallel, opt)
+    rng = np.random.default_rng(seed + 3)
+    n_batches = N_VIT // BATCH
+    run = {"state": opt.init(model)}
+    try:
+        reset_counts()
+        for epoch in range(2):
+            h2d_before = tel.channel_total_bytes("h2d")
+            pick_at = set(rng.choice(n_batches, 4, replace=False).tolist())
+            ids, picks, load_s, step_s, losses = [], [], [], [], []
+
+            def one(i):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                raw = pipe.next_batch()
+                batch = patch_batch(raw, cfg)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                _, run["state"], metrics = step(model, run["state"], batch)
+                losses.append(float(metrics["loss"]))
+                torch.cuda.synchronize()
+                step_s.append(time.perf_counter() - t1)
+                load_s.append(t1 - t0)
+                ids.extend(raw["ids"].tolist())
+                if i in pick_at:
+                    slot = int(rng.integers(0, BATCH))
+                    picks.append((raw["images"][slot:slot + 1].clone(), 0,
+                                  int(raw["ids"][slot]), sess.epoch))
+
+            def steps(lo, hi):
+                for i in range(lo, hi):
+                    one(i)
+
+            steps(0, 1)
+            t0 = time.perf_counter()
+            _, spans = traced(lambda: steps(1, 1 + VIT_TRACED_STEPS))
+            window = time.perf_counter() - t0
+            steps(1 + VIT_TRACED_STEPS, n_batches)
+            counts = read_counts()
+            h2d = tel.channel_total_bytes("h2d") - h2d_before
+            check(sorted(ids) == list(range(N_VIT)),
+                  f"vit-huge loader epoch {epoch + 1} did not serve every id "
+                  f"once")
+            check_rows(ds, picks, epoch_seeds=True)
+            check(all(np.isfinite(losses)),
+                  f"vit-huge loader epoch {epoch + 1}: losses {losses}")
+            check(counts["decode_augment"] == n_batches,
+                  f"K1 launched {counts['decode_augment']} times by the end "
+                  f"of epoch {epoch + 1}, expected once per batch of the "
+                  f"cold epoch ({n_batches})")
+            if epoch == 1:
+                check(h2d == 0, f"the all-HBM epoch moved {h2d} h2d bytes")
+            # the profiler adds host time to every launch, which stretches
+            # host-bound work (the update's small kernels, the loader), so
+            # the times below leave the traced steps out
+            plain = [i for i in range(n_batches)
+                     if not 1 <= i < 1 + VIT_TRACED_STEPS]
+            ld = [load_s[i] for i in plain]
+            st = [step_s[i] for i in plain]
+            loop = sum(ld) + sum(st)
+            print(f"vit-huge from the loader, epoch {epoch + 1} "
+                  f"({'cold, K1' if epoch == 0 else 'all HBM'}): "
+                  f"{n_batches} steps of {BATCH} images, the {len(plain)} "
+                  f"untraced ones: loader {1e3 * sum(ld) / len(plain):.1f} "
+                  f"ms per batch (median {1e3 * float(np.median(ld)):.1f}), "
+                  f"step {1e3 * sum(st) / len(plain):.1f} ms per batch "
+                  f"(median {1e3 * float(np.median(st)):.1f}); "
+                  f"{len(plain) * BATCH / loop:.1f} images/s over them, "
+                  f"loader {100 * sum(ld) / loop:.1f}% of it; h2d bytes "
+                  f"{h2d}; losses {losses[0]:.4f} -> {losses[-1]:.4f} "
+                  f"({card})", flush=True)
+            if spans:
+                busy = busy_us(spans)
+                k4 = [hi - lo for name, lo, hi in spans
+                      if "repro_torch::flash" in name]
+                per_step = busy / 1e6 / VIT_TRACED_STEPS
+                print(f"  traced steps 2-{1 + VIT_TRACED_STEPS} "
+                      f"(torch.profiler, loader included): {len(spans)} "
+                      f"kernels and copies, device busy {per_step:.4f} s "
+                      f"per step (K4 and its backward "
+                      f"{sum(k4) / 1e3 / VIT_TRACED_STEPS:.3f} ms), so the "
+                      f"card is idle "
+                      f"{100 * (1 - per_step * len(plain) / loop):.2f}% of "
+                      f"an untraced step's {loop / len(plain):.4f} s; the "
+                      f"traced window itself {window:.3f} s, idle "
+                      f"{100 * (1 - busy / (window * 1e6)):.2f}%", flush=True)
+            else:
+                print("  traced steps: not measured (the profiler saw no "
+                      "device activity)", flush=True)
+        counts = read_counts()
+        steps_run = 2 * n_batches
+        check(counts["flash_attention"] == 2 * L * steps_run,
+              f"K4 launched {counts['flash_attention']} times in "
+              f"{steps_run} steps, expected {2 * L * steps_run}")
+        check(counts["flash_attention_bwd"] == L * steps_run,
+              f"K4 backward launched {counts['flash_attention_bwd']} times "
+              f"in {steps_run} steps, expected {L * steps_run}")
+        print(f"vit-huge from the loader: launches {counts}, peak memory "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB, hbm bytes "
+              f"{server.stats()['hbm_bytes_used']}", flush=True)
+        return counts
+    finally:
+        pipe.stop()
+        server.close()
+        del model, run
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def vit_phase(dev, seed: int, card: str):
+    """vit-huge at published widths and full depth: (a) ``train_phase``
+    on the first batch of the loader's device route, (b)
+    ``vit_loader_part``.  Returns (b)'s launch counts."""
+    train_phase(dev, seed, card, "vit-huge")
+    return vit_loader_part(dev, seed, card)
 
 
 def main(argv=None) -> int:
@@ -2119,6 +2340,11 @@ def main(argv=None) -> int:
     rows["ssd_scan_bwd"]["launches"] = phase(
         "training, mamba2-1.3b", train_phase, dev, args.seed, card,
         "mamba2-1.3b")
+    counts = phase("training, vit-huge", vit_phase, dev, args.seed, card)
+    rows["flash_attention_vit"]["launches"] = counts["flash_attention"]
+    rows["flash_attention_bwd_vit"]["launches"] = \
+        counts["flash_attention_bwd"]
+    rows["decode_augment"]["launches"] += counts["decode_augment"]
 
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -2131,7 +2357,8 @@ def main(argv=None) -> int:
     kernels = [{k: rows[name][k] for k in keys}
                for name in ("decode_augment", "augment", "decode",
                             "flash_attention", "flash_attention_bwd",
-                            "ssd_scan", "ssd_scan_bwd")]
+                            "ssd_scan", "ssd_scan_bwd", "flash_attention_vit",
+                            "flash_attention_bwd_vit")]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

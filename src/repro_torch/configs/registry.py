@@ -2,8 +2,8 @@
 
 ``get(arch_id)`` returns the full ModelConfig and ``get_reduced(arch_id)``
 the smoke-test config, as in the reference.  Every arch the reference
-knows is listed; only the dense and ssm families are ported so far, and
-asking for any other arch raises ``NotImplementedError``.  The
+knows is listed; only the dense, ssm and encoder families are ported so
+far, and asking for any other arch raises ``NotImplementedError``.  The
 reference's layout policy (``default_parallelism``) belongs to the
 distributed layer, which is not ported yet.
 """
@@ -26,7 +26,7 @@ _MODULES: Dict[str, "str | None"] = {
     "internvl2-2b": None,
     "zamba2-1.2b": None,
     "mamba2-1.3b": "repro_torch.configs.mamba2_1_3b",
-    "vit-huge": None,
+    "vit-huge": "repro_torch.configs.vit_huge",
 }
 
 

@@ -96,6 +96,8 @@ class ParamTree(nn.Module):
                 self.add_module(name, ParamTree(d))
 
     def __getitem__(self, name: str):
+        if name not in self.defs:
+            raise KeyError(name)
         return getattr(self, name)
 
     def __contains__(self, name: str) -> bool:

@@ -1,13 +1,21 @@
 """Model assembly: the port's twin of ``repro.models.transformer`` for
-the families ported so far, dense (qwen3) and ssm (mamba2).
+the families ported so far, dense (qwen3), ssm (mamba2) and encoder
+(vit).
 
 The reference scans over stacked per-layer params (``lax.scan``); the
 port loops over the ``nn.ModuleList`` of layers.  ``remat != "none"``
 recomputes each block in the backward
 (``torch.utils.checkpoint.checkpoint(..., use_reentrant=False)`` per
 block, as the reference's ``jax.checkpoint`` of the scan body).  Every other family
-(moe, vlm, encdec/audio, hybrid, encoder) raises ``NotImplementedError``
-until it is ported (ROADMAP.md).
+(moe, vlm, encdec/audio, hybrid) raises ``NotImplementedError`` until it
+is ported (ROADMAP.md).
+
+The encoder family classifies ``patch_embeds`` (B, T, d): a learned
+``pos_embed``, the blocks without causal mask or rotary, and a class
+``head`` on the first token.  It has no decode state, as in the
+reference: ``cache_defs`` raises ``ValueError``, and ``prefill`` and
+``decode_step`` raise ``KeyError`` for the ``embed`` table it does not
+have.
 
 Caches are dicts of stacked tensors with the reference's shapes and
 types.  Two differences of form, neither of result:
@@ -32,7 +40,7 @@ from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.params import ParamDef, padded_vocab, stack_defs
 
 F32 = torch.float32
-PORTED_FAMILIES = ("dense", "ssm")
+PORTED_FAMILIES = ("dense", "ssm", "encoder")
 
 
 def check_family(cfg: ModelConfig) -> None:
@@ -59,13 +67,17 @@ def _block_defs(cfg: ModelConfig, *, ssm: bool = False) -> Dict:
 
 def param_defs(cfg: ModelConfig) -> Dict:
     check_family(cfg)
-    v_pad = padded_vocab(cfg.vocab_size)
-    return {
-        "final_norm": lyr.rmsnorm_def(cfg.d_model),
-        "embed": lyr.embed_defs(cfg, v_pad),
-        "blocks": stack_defs(_block_defs(cfg, ssm=cfg.family == "ssm"),
-                             cfg.n_layers),
-    }
+    defs: Dict = {"final_norm": lyr.rmsnorm_def(cfg.d_model),
+                  "blocks": stack_defs(_block_defs(
+                      cfg, ssm=cfg.family == "ssm"), cfg.n_layers)}
+    if cfg.family == "encoder":
+        defs["pos_embed"] = ParamDef((cfg.frontend_tokens, cfg.d_model),
+                                     (None, "embed"), init="embed")
+        defs["head"] = ParamDef((cfg.d_model, cfg.n_classes),
+                                ("embed", "classes"))
+    else:
+        defs["embed"] = lyr.embed_defs(cfg, padded_vocab(cfg.vocab_size))
+    return defs
 
 
 # ---------------------------------------------------------------------------
@@ -73,10 +85,10 @@ def param_defs(cfg: ModelConfig) -> Dict:
 # ---------------------------------------------------------------------------
 
 def _attn_block(lp, x: torch.Tensor, cfg: ModelConfig, positions, *,
-                causal: bool, return_kv: bool = False):
+                causal: bool, use_rope: bool = True, return_kv: bool = False):
     h = lyr.rmsnorm(x, lp["ln1"], cfg.norm_eps)
     a = lyr.attention(lp["attn"], h, cfg, positions=positions, causal=causal,
-                      return_kv=return_kv)
+                      use_rope=use_rope, return_kv=return_kv)
     if return_kv:
         a, k, v = a
     x = x + a
@@ -94,7 +106,7 @@ def _ssm_block(lp, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 
 def run_decoder(params, x: torch.Tensor, cfg: ModelConfig, positions, *,
-                causal: bool = True,
+                causal: bool = True, use_rope: bool = True,
                 remat: str = "none") -> Tuple[torch.Tensor, torch.Tensor]:
     """Run the main block stack. Returns (x, aux_loss)."""
     check_family(cfg)
@@ -105,7 +117,8 @@ def run_decoder(params, x: torch.Tensor, cfg: ModelConfig, positions, *,
                 return _ssm_block(lp, h, cfg), torch.zeros_like(aux)
         else:
             def body(h, lp=lp):
-                return _attn_block(lp, h, cfg, positions, causal=causal)
+                return _attn_block(lp, h, cfg, positions, causal=causal,
+                                   use_rope=use_rope)
         if remat != "none":
             x, a = checkpoint(body, x, use_reentrant=False)
         else:
@@ -120,9 +133,22 @@ def run_decoder(params, x: torch.Tensor, cfg: ModelConfig, positions, *,
 
 def forward(params, cfg: ModelConfig, batch: Dict, *,
             remat: str = "none") -> Tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence forward. batch: {"tokens": (B, S) int}.  Returns
-    (logits (B, S, V_pad), aux_loss)."""
+    """Full-sequence forward.  Returns (logits, aux_loss).
+
+    batch keys by family:
+      dense/ssm: tokens (B, S) int -> logits (B, S, V_pad)
+      encoder:   patch_embeds (B, T, d) -> class logits (B, n_classes)
+    """
     check_family(cfg)
+    if cfg.family == "encoder":
+        # bf16 embeddings plus the parameter: float32 parameters promote
+        # the stream to float32, as jnp promotes it
+        x = batch["patch_embeds"].to(torch.bfloat16) + params["pos_embed"]
+        positions = torch.arange(x.shape[1], device=x.device)
+        x, aux = run_decoder(params, x, cfg, positions, causal=False,
+                             use_rope=False, remat=remat)
+        x = lyr.rmsnorm(x, params["final_norm"], cfg.norm_eps)
+        return torch.matmul(x[:, 0], params["head"]), aux
     x = lyr.embed(params["embed"], batch["tokens"])
     positions = torch.arange(x.shape[1], device=x.device)
     x, aux = run_decoder(params, x, cfg, positions, causal=True, remat=remat)
@@ -147,9 +173,13 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
 
 def loss_fn(params, cfg: ModelConfig, batch: Dict, *,
             remat: str = "none") -> torch.Tensor:
-    """Next-token CE (batch: tokens and labels, (B, S) int) plus the
-    blocks' auxiliary loss."""
+    """Next-token CE (batch: tokens and labels, (B, S) int), or for the
+    encoder family the class CE (labels (B,) int), plus the blocks'
+    auxiliary loss."""
     logits, aux = forward(params, cfg, batch, remat=remat)
+    if cfg.family == "encoder":
+        return cross_entropy(logits[:, None, :], batch["labels"][:, None],
+                             cfg.n_classes) + aux
     return cross_entropy(logits, batch["labels"], cfg.vocab_size) + aux
 
 
@@ -160,6 +190,8 @@ def loss_fn(params, cfg: ModelConfig, batch: Dict, *,
 def cache_defs(cfg: ModelConfig, B: int, s_max: int) -> Dict:
     """Decode-state ParamDefs (init=zeros), as in the reference."""
     check_family(cfg)
+    if cfg.family == "encoder":
+        raise ValueError(f"no decode cache for family {cfg.family}")
     L = cfg.n_layers
     bf16, f32 = torch.bfloat16, torch.float32
     if cfg.family == "dense":

@@ -288,7 +288,7 @@ def _attn_inputs(B, S, H, K, hd, dtype, dev, seed):
 
 @pytest.mark.parametrize("S,H,K,hd", [(16, 4, 2, 16), (77, 4, 4, 32),
                                       (200, 8, 2, 64), (256, 8, 2, 128),
-                                      (129, 32, 8, 128)])
+                                      (129, 32, 8, 128), (197, 16, 16, 80)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_attention_kernel_matches_plain(cuda, S, H, K, hd, dtype,
@@ -359,12 +359,16 @@ def _k4_within_one_bf16_ulp(out, plain):
     (1024, 128, True),                       # qwen3-8b's prefill
     (1000, 64, True), (1000, 64, False), (1025, 64, True),
     (1025, 64, False), (1000, 128, True), (1000, 128, False),
-    (1025, 128, True), (1025, 128, False)])
+    (1025, 128, True), (1025, 128, False),
+    (197, 80, False), (197, 80, True),       # vit-huge's S and head width
+    (256, 80, False), (256, 80, True)])
 def test_flash_attention_bf16_tensor_cores_at_model_widths(cuda, S, hd,
                                                            causal):
     """The bfloat16 kernel (wgmma, TMA) at qwen3-8b's prefill shape
     (4, 1024, 32 | 8, 128) and at ragged S on both sides of a 128-row
-    query tile, against its plain version within one bf16 ulp."""
+    query tile, against its plain version within one bf16 ulp.  hd 80
+    (vit-huge's) runs in the 128-column instance: its second TMA box
+    covers columns 64-127 of a 160-byte row, 80-127 filled with zeros."""
     from repro_torch.kernels.flash_attention import kernel as fa
     B, H, K = (4, 32, 8) if S == 1024 else (2, 8, 2)
     q, k, v = _attn_inputs(B, S, H, K, hd, torch.bfloat16, cuda, S + hd)
@@ -416,7 +420,8 @@ def test_ssd_scan_bf16_tensor_cores_at_model_width(cuda, S, chunk):
 
 
 @pytest.mark.parametrize("S,H,K,hd", [(70, 4, 4, 16), (200, 8, 2, 64),
-                                      (333, 8, 2, 128), (129, 32, 8, 128)])
+                                      (333, 8, 2, 128), (129, 32, 8, 128),
+                                      (197, 16, 16, 80)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_attention_backward_kernel_matches_plain(cuda, S, H, K, hd,
@@ -449,7 +454,9 @@ def test_flash_attention_backward_kernel_matches_plain(cuda, S, H, K, hd,
     (1024, 128, True), (1024, 128, False),   # qwen3-8b's training shape
     (1000, 64, True), (1000, 64, False), (1025, 64, True),
     (1025, 64, False), (1000, 128, True), (1000, 128, False),
-    (1025, 128, True), (1025, 128, False)])
+    (1025, 128, True), (1025, 128, False),
+    (197, 80, False), (197, 80, True),       # vit-huge's S and head width
+    (256, 80, False), (256, 80, True)])
 def test_flash_attention_backward_bf16_tensor_cores_at_model_widths(
         cuda, S, hd, causal):
     """The bfloat16 backward (wgmma, TMA; P and dS as hi + lo) at
@@ -535,6 +542,57 @@ def test_training_step_on_card_reaches_attention(cuda):
     f0, b0 = fa.flash_attention.launches, fa.flash_attention_backward.launches
     _, _, metrics = step(model, opt.init(model), batch)
     torch.cuda.synchronize()
+    assert fa.flash_attention.launches - f0 == 2 * cfg.n_layers
+    assert fa.flash_attention_backward.launches - b0 == cfg.n_layers
+    assert np.isfinite(float(metrics["loss"]))
+    assert len(seen) == 4 * cfg.n_layers
+    assert all(np.isfinite(x) and x > 0 for x in seen.values()), seen
+
+
+def test_vit_image_path_on_card_takes_the_device_executor(cuda):
+    """Reduced vit-huge on the card through ``image_batch_source``: the
+    pipeline runs the device executor, so the batch's patch embeddings
+    come out on the card (K1 decodes the cold samples there), and one
+    training step launches K4 twice per layer, non-causal, and its
+    backward once, with finite, non-zero attention gradients."""
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import ParallelismConfig
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.launch.train import image_batch_source
+    from repro_torch.models.model import build
+    from repro_torch.train.optimizer import AdamW
+    from repro_torch.train.step import build_train_step
+
+    cfg = registry.get_reduced("vit-huge")
+    model = build(cfg).init(seed=0, device=cuda)
+    source, pipe, server = image_batch_source(model, 16)
+    seen = {}
+
+    class Capture(AdamW):
+        def update(self, grads, state, params):
+            seen.update({n: float(g.float().norm()) for n, g in
+                         grads.items() if ".attn.w" in n})
+            return super().update(grads, state, params)
+
+    try:
+        assert pipe.executor == "device"
+        k1 = decode_k.decode_augment.launches
+        batch = source()
+        assert decode_k.decode_augment.launches > k1
+        assert batch["patch_embeds"].device.type == "cuda"
+        assert batch["patch_embeds"].dtype == torch.bfloat16
+        assert tuple(batch["patch_embeds"].shape) == (
+            16, cfg.frontend_tokens, cfg.d_model)
+        assert batch["labels"].device.type == "cuda"
+        opt = Capture(lr=1e-3, state_dtype="int8")
+        step = build_train_step(model, ParallelismConfig(remat="block"), opt)
+        f0 = fa.flash_attention.launches
+        b0 = fa.flash_attention_backward.launches
+        _, _, metrics = step(model, opt.init(model), batch)
+        torch.cuda.synchronize()
+    finally:
+        pipe.stop()
+        server.close()
     assert fa.flash_attention.launches - f0 == 2 * cfg.n_layers
     assert fa.flash_attention_backward.launches - b0 == cfg.n_layers
     assert np.isfinite(float(metrics["loss"]))

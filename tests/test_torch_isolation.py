@@ -11,7 +11,8 @@ qwen3-8b prefill and decode step, imports the simulator, the baselines,
 the training step and the trainer (with the training CLI), runs one
 simulation and two resilient training steps with a checkpoint restore,
 differentiates a reduced mamba2-1.3b loss through K5's backward (its
-plain twin), and exits 0.  A static scan of the
+plain twin) and a reduced vit-huge loss on a batch of the image path,
+and exits 0.  A static scan of the
 port's sources backs it up for modules the run does not import.
 """
 import ast
@@ -136,6 +137,16 @@ ssm = build(registry.get_reduced("mamba2-1.3b")).init(seed=0, device="cpu")
 ssm.requires_grad_(True)
 loss = ssm.loss({{"tokens": tokens, "labels": tokens}}, remat="block")
 grads = torch.autograd.grad(loss, list(ssm.parameters()))
+assert all(bool(torch.isfinite(g.float()).all()) for g in grads)
+
+from repro_torch.launch.train import image_batch_source
+vit = build(registry.get_reduced("vit-huge")).init(seed=0, device="cpu")
+vit.requires_grad_(True)
+source, pipe, server = image_batch_source(vit, 4)
+loss = vit.loss(source(), remat="block")
+pipe.stop()
+server.close()
+grads = torch.autograd.grad(loss, list(vit.parameters()))
 assert all(bool(torch.isfinite(g.float()).all()) for g in grads)
 held = sorted(m for m in sys.modules if m.split(".")[0] in {blocked!r})
 assert not held, held
