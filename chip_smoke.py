@@ -64,7 +64,8 @@ into ``build/repro_torch/``), then:
    time from ``torch.profiler`` and a check that each bf16 kernel's SASS
    holds HGMMA, from ``cuobjdump -sass``); K4 and its backward again at
    vit-huge's training shape, (256, 197, 16 | 16, 80) bf16, non-causal,
-   with the same checks and yardsticks; K5's backward likewise
+   and at deepseek-moe-16b's prefill shape, (4, 1024, 16 | 16, 128) bf16,
+   causal, with the same checks and yardsticks; K5's backward likewise
    (float32 at a ragged S with the final state's gradient, checked; bf16
    at mamba2-1.3b's training shape, each gradient within a relative RMS
    of its plain version, bitwise repeatable, timed, each of its six
@@ -106,7 +107,23 @@ into ``build/repro_torch/``), then:
    (a); per epoch the loader's and the step's seconds, images/s, the
    loader's share and the card's idle share over ``VIT_TRACED_STEPS``
    steps traced by ``torch.profiler``;
-10. the kernel JSON line, the card line, and the result line
+10. the moe family, deepseek-moe-16b at its published widths (random
+    bf16 weights from ``--seed``): (a) serving at full depth (28 layers,
+    16.88 B parameters): ``Model.prefill`` of 4 x 1024 tokens (K4 once
+    per layer, logits equal to forward's, the assignments the capacity
+    dropped per layer printed), the device split of one prefill; at
+    capacity factor ``MOE_DECODE_FACTOR`` (nothing dropped) decode at
+    index 64 against forward on the extended prefix within
+    ``depth_tolerance``, with forward's experts and with its own (forward
+    given them too), its own router decisions held against forward's
+    on the same hidden states by ``flips_check`` (two planted wrong
+    routers must fail it), and one request alone, served both ways,
+    whose first token is forward's argmax; then the ``Server``
+    defaults; (b) ``train_phase`` at ``MOE_TRAIN_LAYERS`` = 14
+    layers (8.65 B parameters): every layer's attention, router, expert
+    and shared-expert weights with finite non-zero gradients at every
+    step, K4 launched 2 x 14 times and its backward 14 times per step;
+11. the kernel JSON line, the card line, and the result line
     ``{"ok": true, "device": {...}}`` last.
 
 Float32 products on the card run in full float32: the script sets
@@ -120,9 +137,12 @@ beside the script, exits 2 at once with a message.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import dataclasses
 import functools
 import gc
 import json
+import math
 import os
 import re
 import subprocess
@@ -1275,6 +1295,29 @@ VIT_LR = 3e-6
 #: the training phase: qwen3-8b at its published widths, TRAIN_B x
 #: TRAIN_S tokens, TRAIN_STEPS steps on one fixed batch
 TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_LR = 2, 1024, 4, 3e-4
+#: deepseek-moe-16b trains at MOE_TRAIN_LAYERS of its 28 layers: bf16
+#: weights and gradients plus int8 moments take ~6.15 bytes per
+#: parameter, ~104 GB at full depth and ~53 GB at half.  Its decode check
+#: runs on a MOE_PREFIX-token prefix at capacity factor MOE_DECODE_FACTOR,
+#: where forward drops no assignment that decode keeps (the reference's
+#: own check, tests/test_models.py:84)
+MOE_TRAIN_LAYERS = 14
+MOE_PREFIX, MOE_DECODE_FACTOR = 64, 100.0
+#: decode's router decisions with its own experts against forward's, with
+#: forward given decode's experts so that both route the same hidden
+#: states up to rounding (``flips_check``): the router's logits are bf16,
+#: so a decision near the top-k boundary may flip.  A decision may differ
+#: only where forward's logits across the boundary lie within
+#: MOE_FLIP_ULPS bf16 ulps of the row's top logit, and at most a share
+#: MOE_FLIP_SHARE of decisions may differ.  An H100 (seed 0, 28 layers)
+#: read 7 of 112 decode decisions (6.2%) at gaps up to 5.0 ulps, and 17 of
+#: 364 (4.7%) up to 3.5 for one request served alone; a router that takes
+#: a slot-mate's experts, or drops its best expert for the next one,
+#: differed in 112 of 112, at gaps up to 181.25 and 151.0 ulps (the
+#: latter none below 19.0).  Against forward's own decisions, whose
+#: hidden states drift further once a layer flips, the sound readings
+#: were 25% and up to 64 ulps: no limit there parts them from the faults
+MOE_FLIP_ULPS, MOE_FLIP_SHARE = 16, 0.2
 #: mamba2-1.3b forward, and the prefix its decode trajectory checks
 SSM_B, SSM_S, SSM_PREFIX = 4, 1024, 64
 #: mamba2-1.3b's training batch (of TRAIN_S tokens)
@@ -1361,6 +1404,12 @@ def model_kernel_phase(dev, seed: int):
     rows["flash_attention_vit"], rows["flash_attention_bwd_vit"] = k4_rows(
         dev, rng, "_vit", BATCH, cfg.frontend_tokens, cfg.n_heads,
         cfg.n_kv_heads, cfg.resolved_head_dim, causal=False)
+    # deepseek-moe-16b's prefill shape, (4, 1024, 16 | 16, 128) causal
+    # (its training step runs (2, 1024, ...))
+    cfg = registry.get("deepseek-moe-16b")
+    rows["flash_attention_moe"], rows["flash_attention_bwd_moe"] = k4_rows(
+        dev, rng, "_moe", ATTN_B, ATTN_S, cfg.n_heads, cfg.n_kv_heads,
+        cfg.resolved_head_dim, causal=True)
 
     # ---- K5 at mamba2-1.3b's forward: x (4, 1024, 64, 64) bf16, N 128
     cfg = registry.get("mamba2-1.3b")
@@ -1765,13 +1814,18 @@ def ssd_bwd_flops(B: int, S: int, nh: int, P: int, N: int,
     return min(at(c) for c in range(1, S + 1))
 
 
-def build_model(arch: str, dev, seed: int):
+def build_model(arch: str, dev, seed: int, n_layers=None):
+    """``arch`` at its published widths, random bf16 weights from
+    ``seed``, at full depth or ``n_layers``."""
     from repro_torch.configs import registry
     from repro_torch.models.model import build
     t0 = time.perf_counter()
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
-    model = build(registry.get(arch)).init(gen, torch.bfloat16)
+    cfg = registry.get(arch)
+    if n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    model = build(cfg).init(gen, torch.bfloat16)
     torch.cuda.synchronize()
     print(f"{arch}: {model.n_params():,} parameters in bf16 "
           f"({torch.cuda.memory_allocated() / 1e9:.2f} GB on the card), "
@@ -1787,9 +1841,13 @@ def synced_seconds(fn):
     return out, time.perf_counter() - t0
 
 
-def device_split(fn, label: str) -> None:
+def device_split(fn, label: str, dispatch: bool = False) -> None:
     """Device time of one call of ``fn`` by kernel, from
-    ``torch.profiler``, and the busy share of its host-clock span."""
+    ``torch.profiler``, and the busy share of its host-clock span.  With
+    ``dispatch`` (a moe model) the sort, gather, index and scatter
+    kernels form a group of their own, the moe dispatch's with the
+    embedding's gather (whose kernels share their names); without it
+    they stay in "other", as in the splits of the other families."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1812,7 +1870,9 @@ def device_split(fn, label: str) -> None:
     groups = {"flash_attention (K4)": 0.0,
               "flash_attention backward (K4 bwd)": 0.0,
               "ssd_scan (K5)": 0.0, "ssd_scan backward (K5 bwd)": 0.0,
-              "matmul (cuBLAS)": 0.0, "other": 0.0}
+              "matmul (cuBLAS)": 0.0,
+              "sort, gather and scatter (moe dispatch, embedding)": 0.0,
+              "other": 0.0}
     for name, us in by_name.items():
         if "repro_torch::flash_bwd" in name:
             groups["flash_attention backward (K4 bwd)"] += us
@@ -1825,6 +1885,11 @@ def device_split(fn, label: str) -> None:
         elif any(t in name.lower() for t in ("gemm", "cutlass", "xmma",
                                               "cublas", "nvjet")):
             groups["matmul (cuBLAS)"] += us
+        elif dispatch and any(t in name.lower() for t in (
+                "sort", "radix", "gather", "index", "scatter",
+                "searchsorted", "bincount")):
+            groups["sort, gather and scatter (moe dispatch, embedding)"] \
+                += us
         else:
             groups["other"] += us
     print(f"{label} device split (torch.profiler, one call): "
@@ -1847,7 +1912,7 @@ def serve_phase(model, seed: int, card: str) -> None:
     tok = torch.zeros((SERVE["slots"], 1), dtype=torch.int64,
                       device=model.device)
     device_split(lambda: model.decode_step(cache, tok, SERVE["prompt_len"]),
-                 f"{cfg.name} decode step")
+                 f"{cfg.name} decode step", dispatch=cfg.moe is not None)
     del cache
     server = Server(model, n_slots=SERVE["slots"], s_max=SERVE["s_max"])
     pending = make_requests(SERVE["requests"], SERVE["prompt_len"],
@@ -1870,8 +1935,6 @@ def serve_phase(model, seed: int, card: str) -> None:
 
 def dense_phase(dev, seed: int, card: str) -> int:
     """qwen3-8b at full width; returns K4's launches in one prefill."""
-    from repro_torch.kernels.flash_attention import kernel as fa
-    from repro_torch.serve.step import Request, Server
     model = build_model("qwen3-8b", dev, seed)
     cfg = model.cfg
     rng = np.random.default_rng(seed)
@@ -1918,24 +1981,78 @@ def dense_phase(dev, seed: int, card: str) -> int:
     torch.cuda.empty_cache()
 
     serve_phase(model, seed, card)
-    # one request alone: its first token is forward's argmax, or a near
-    # tie (``near_tie``)
-    prompt = rng.integers(0, cfg.vocab_size, SERVE["prompt_len"])
-    server = Server(model, n_slots=1, s_max=SERVE["s_max"])
-    req = Request(0, prompt, max_new=1)
-    server.add_request(req)
-    server.decode_round()
-    lg, _ = model({"tokens": torch.from_numpy(prompt)[None].to(dev)})
-    row = lg[0, -1, :cfg.vocab_size].float()
-    best, got = int(row.argmax()), req.generated[0]
-    gap = float(row[best] - row[got])
-    check(got == best or gap <= float(near_tie(row)),
-          f"served token {got} is not forward's argmax {best} (gap {gap})")
-    print(f"qwen3-8b one request: first token {got}, forward's argmax "
-          f"{best} (logit gap {gap:.4f})", flush=True)
-    del model, server, lg
+    one_request(model, rng)
+    del model
     torch.cuda.empty_cache()
     return launches
+
+
+def served_first_token(model, prompt, forced=None):
+    """One request alone through ``Server`` (``routes(forced)`` around
+    it): its first token and the router's records."""
+    from repro_torch.serve.step import Request, Server
+    server = Server(model, n_slots=1, s_max=SERVE["s_max"])
+    req = Request(0, prompt, max_new=1)
+    with routes(forced) as seen:
+        server.add_request(req)
+        server.decode_round()
+    return req.generated[0], seen
+
+
+def first_token_check(name: str, logits: torch.Tensor, got: int,
+                      how: str) -> None:
+    """``got`` is the argmax of ``logits`` (one row) or a near tie."""
+    row = logits.float()
+    best = int(row.argmax())
+    gap = float(row[best] - row[got])
+    check(got == best or gap <= float(near_tie(row)),
+          f"{name}: served token {got}{how} is not forward's argmax {best} "
+          f"(gap {gap})")
+    print(f"{name} one request{how}: first token {got}, forward's argmax "
+          f"{best} (logit gap {gap:.4f})", flush=True)
+
+
+def one_request(model, rng) -> None:
+    """One request alone through ``Server``: its first token is
+    forward's argmax, or a near tie (``near_tie``), on the sequence the
+    server decoded.  That is the prompt and then its last token again:
+    the server prefills the prompt through the decode step, and its
+    first decode round feeds the prompt's last token at the next position
+    (as the reference's, ``repro/serve/step.py:93``).  A moe model is
+    served twice: with forward's experts at every position and layer,
+    against forward; and with its own, the path users are served, whose
+    router decisions must pass ``flips_hold`` against forward's and
+    whose token is held against forward given the served experts."""
+    cfg = model.cfg
+    prompt = rng.integers(0, cfg.vocab_size, SERVE["prompt_len"])
+    decoded = np.append(prompt, prompt[-1])
+    seq = torch.from_numpy(decoded)[None].to(model.device)
+    with routes() as fwd:
+        lg, _ = model({"tokens": seq})
+    row = lg[0, -1, :cfg.vocab_size]
+    if not fwd:                           # the dense family has no router
+        got, _ = served_first_token(model, prompt)
+        first_token_check(cfg.name, row, got, "")
+        return
+    n, L = len(decoded), len(fwd)
+    # forward's decisions per (position, layer), in the server's call order
+    want = [(te[t:t + 1], lt[t:t + 1]) for t in range(n) for te, lt in fwd]
+    got, _ = served_first_token(model, prompt, [te for te, _ in want])
+    first_token_check(cfg.name, row, got, " with forward's experts")
+    got, served = served_first_token(model, prompt)
+    print(f"{cfg.name} one request with its own experts against forward's "
+          f"(reported): {flips_line(routing_flips(served, want), len(want))}",
+          flush=True)
+    with routes([torch.cat([served[t * L + l][0] for t in range(n)])
+                 for l in range(L)]) as fwd_own:
+        lg_own, _ = model({"tokens": seq})
+    flips_check(served, [(te[t:t + 1], lt[t:t + 1]) for t in range(n)
+                         for te, lt in fwd_own],
+                depth_tolerance(cfg.n_layers),
+                f"{cfg.name} one request with its own experts against "
+                f"forward given them")
+    first_token_check(cfg.name, lg_own[0, -1, :cfg.vocab_size], got,
+                      " with its own experts (forward given them too)")
 
 
 def ssm_trajectory(model, prefix: torch.Tensor):
@@ -1997,27 +2114,37 @@ def ssm_phase(dev, seed: int, card: str) -> int:
     return launches
 
 
-#: per family: the training batch and learning rate, the scan or
-#: attention kernel and its
-#: backward (names of ``_wrappers``), and the per-layer weights whose
-#: gradients reach that kernel (a gradient dropped at the kernel would
-#: leave them without one)
+#: per arch: the training batch and learning rate, the depth (None: the
+#: published one), the scan or attention kernel and its backward (names
+#: of ``_wrappers``), and the per-layer weights (names within a block)
+#: whose gradients reach that kernel (a gradient dropped at the kernel
+#: would leave them without one), for moe also the router's, the
+#: experts' and the shared experts'
+ATTN_WEIGHTS = ("attn.wq", "attn.wk", "attn.wv", "attn.wo")
 TRAIN_RUNS = {
-    "qwen3-8b": dict(batch=TRAIN_B, lr=TRAIN_LR, kernel="flash_attention",
-                     bwd="flash_attention_bwd", scope="attn",
-                     weights=("wq", "wk", "wv", "wo")),
-    "mamba2-1.3b": dict(batch=SSM_TRAIN_B, lr=TRAIN_LR, kernel="ssd_scan",
-                        bwd="ssd_scan_bwd", scope="ssm",
-                        weights=("wx", "wB", "wC", "wdt", "A_log",
-                                 "dt_bias", "conv_x", "conv_B", "conv_C")),
-    "vit-huge": dict(batch=BATCH, lr=VIT_LR, kernel="flash_attention",
-                     bwd="flash_attention_bwd", scope="attn",
-                     weights=("wq", "wk", "wv", "wo")),
+    "qwen3-8b": dict(batch=TRAIN_B, lr=TRAIN_LR, layers=None,
+                     kernel="flash_attention", bwd="flash_attention_bwd",
+                     weights=ATTN_WEIGHTS),
+    "mamba2-1.3b": dict(batch=SSM_TRAIN_B, lr=TRAIN_LR, layers=None,
+                        kernel="ssd_scan", bwd="ssd_scan_bwd",
+                        weights=tuple(f"ssm.{w}" for w in (
+                            "wx", "wB", "wC", "wdt", "A_log", "dt_bias",
+                            "conv_x", "conv_B", "conv_C"))),
+    "vit-huge": dict(batch=BATCH, lr=VIT_LR, layers=None,
+                     kernel="flash_attention", bwd="flash_attention_bwd",
+                     weights=ATTN_WEIGHTS),
+    "deepseek-moe-16b": dict(
+        batch=TRAIN_B, lr=TRAIN_LR, layers=MOE_TRAIN_LAYERS,
+        kernel="flash_attention", bwd="flash_attention_bwd",
+        weights=ATTN_WEIGHTS + tuple(f"moe.{w}" for w in (
+            "router", "we_gate", "we_up", "we_out", "ws_gate", "ws_up",
+            "ws_out"))),
 }
 
 
 def train_phase(dev, seed: int, card: str, arch: str = "qwen3-8b") -> int:
-    """``arch`` at its published widths and full depth trained through
+    """``arch`` at its published widths and full depth (or
+    ``TRAIN_RUNS[arch]["layers"]``) trained through
     ``launch.train.train_steps``: block remat, int8 moments, one fixed
     batch of ``TRAIN_RUNS[arch]["batch"]`` x ``TRAIN_S`` tokens (for
     vit-huge, of as many images: the first batch of the loader's device
@@ -2027,6 +2154,7 @@ def train_phase(dev, seed: int, card: str, arch: str = "qwen3-8b") -> int:
     K5 would leave them without one), and the kernel launches twice per
     layer per step (forward, and again under remat) and its backward
     once.  Returns the backward's launches in the run."""
+    from repro_torch.configs import registry
     from repro_torch.configs.base import ParallelismConfig
     from repro_torch.launch.train import train_steps
     from repro_torch.train.optimizer import AdamW
@@ -2035,7 +2163,7 @@ def train_phase(dev, seed: int, card: str, arch: str = "qwen3-8b") -> int:
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    model = build_model(arch, dev, seed)
+    model = build_model(arch, dev, seed, run["layers"])
     cfg = model.cfg
     if cfg.family == "encoder":
         batch = first_image_batch(dev, seed, cfg)
@@ -2050,8 +2178,7 @@ def train_phase(dev, seed: int, card: str, arch: str = "qwen3-8b") -> int:
         items, unit = run["batch"] * TRAIN_S, "tok"
         what = f"{run['batch']} x {TRAIN_S} tokens"
     L = cfg.n_layers
-    want = {f"blocks.{l}.{run['scope']}.{w}" for l in range(L)
-            for w in run["weights"]}
+    want = {f"blocks.{l}.{w}" for l in range(L) for w in run["weights"]}
     norms = []                         # per step: parameter -> grad norm
     update_s = []                      # per step: the update's seconds
 
@@ -2095,7 +2222,9 @@ def train_phase(dev, seed: int, card: str, arch: str = "qwen3-8b") -> int:
               f"{bad[:4]}")
     secs = [h["seconds"] for h in hist]
     steady = float(np.median(secs[1:]))
-    print(f"{arch} training (full depth {L}, published widths, block "
+    depth = f"full depth {L}" if run["layers"] is None \
+        else f"{L} of {registry.get(arch).n_layers} layers"
+    print(f"{arch} training ({depth}, published widths, block "
           f"remat, int8 moments, lr {run['lr']}): {TRAIN_STEPS} steps of "
           f"{what} on one batch; losses "
           f"{[round(x, 4) for x in losses]}; grad norms "
@@ -2104,8 +2233,9 @@ def train_phase(dev, seed: int, card: str, arch: str = "qwen3-8b") -> int:
           f"{steady:.3f} s = {items / steady:.1f} {unit}/s; peak memory "
           f"{peak / 1e9:.2f} GB of {torch.cuda.get_device_properties(0).total_memory / 1e9:.1f} GB; "
           f"{run['kernel']} launches {fwd}, backward {bwd}; gradient norms "
-          f"of {len(want)} {run['scope']} weights finite and non-zero at "
-          f"every step, last step min {min(norms[-1].values()):.3e} "
+          f"of {len(want)} per-layer weights ({', '.join(run['weights'])}) "
+          f"finite and non-zero at every step, last step min "
+          f"{min(norms[-1].values()):.3e} "
           f"({card})", flush=True)
     print(f"{arch} training step split (host clock, synchronized): "
           f"optimizer update {[round(x, 3) for x in update_s]} s, the rest "
@@ -2115,7 +2245,8 @@ def train_phase(dev, seed: int, card: str, arch: str = "qwen3-8b") -> int:
     params = [p for _, p in model.named_parameters()]
     device_split(lambda: torch.autograd.grad(
         model.loss(batch, remat=parallel.remat), params),
-        f"{arch} forward + backward (block remat)")
+        f"{arch} forward + backward (block remat)",
+        dispatch=model.cfg.moe is not None)
     del model, opt, batch, params
     gc.collect()
     torch.cuda.empty_cache()
@@ -2279,6 +2410,259 @@ def vit_phase(dev, seed: int, card: str):
     return vit_loader_part(dev, seed, card)
 
 
+@contextlib.contextmanager
+def dropped_per_layer():
+    """Inside the block, every call of the moe dispatch appends to the
+    yielded list how many assignments its capacity dropped."""
+    from repro_torch.models import moe as moe_mod
+    plan, dropped = moe_mod.dispatch_plan, []
+
+    def counting(top_e, n_experts, capacity):
+        slot, src = plan(top_e, n_experts, capacity)
+        dropped.append(int((slot == n_experts * capacity).sum()))
+        return slot, src
+
+    moe_mod.dispatch_plan = counting
+    try:
+        yield dropped
+    finally:
+        moe_mod.dispatch_plan = plan
+
+
+@contextlib.contextmanager
+def routes(forced=None):
+    """Inside the block, every call of the moe router appends (its
+    experts, its float32 logits), on the host, to the yielded list; with
+    ``forced`` (one (T, k) tensor of expert ids per call, in call order)
+    the i-th call takes ``forced[i]``'s experts, its gates renormalised
+    from its own probabilities at them."""
+    from repro_torch.models import moe as moe_mod
+    route, seen = moe_mod._route, []
+
+    def recording(x2d, router_w, k):
+        top_e, top_g, aux = route(x2d, router_w, k)
+        logits = torch.matmul(x2d, router_w).float()
+        seen.append((top_e.cpu(), logits.cpu()))
+        if forced is not None:
+            top_e = forced[len(seen) - 1].to(x2d.device)
+            top_g = moe_mod.gates(torch.softmax(logits, dim=-1), top_e,
+                                  x2d.dtype)
+        return top_e, top_g, aux
+
+    moe_mod._route = recording
+    try:
+        yield seen
+    finally:
+        moe_mod._route = route
+
+
+def routing_flips(got, want):
+    """Decisions (row, layer) whose expert set differs between two lists
+    of ``routes`` records of the same rows, and for each the gap in
+    ``want``'s logits across the top-k boundary (its lowest chosen expert
+    that ``got`` left out, minus ``got``'s highest pick that ``want`` left
+    out), in bf16 ulps at the row's largest |logit| (as ``near_tie``)."""
+    gaps = []
+    for (ge, _), (we, wl) in zip(got, want):
+        for row in range(we.shape[0]):
+            g, w = set(ge[row].tolist()), set(we[row].tolist())
+            if g == w:
+                continue
+            out = min(float(wl[row, e]) for e in w - g)
+            into = max(float(wl[row, e]) for e in g - w)
+            gaps.append((out - into) / float(near_tie(wl[row])) *
+                        NEAR_TIE_ULPS)
+    return gaps
+
+
+def flips_hold(gaps, n: int) -> bool:
+    """``routing_flips`` ``gaps`` of ``n`` decisions are rounding's:
+    at most MOE_FLIP_SHARE of them, none across a gap above
+    MOE_FLIP_ULPS."""
+    return len(gaps) <= MOE_FLIP_SHARE * n \
+        and max(gaps, default=0.0) <= MOE_FLIP_ULPS
+
+
+def flips_line(gaps, n: int) -> str:
+    return (f"{len(gaps)} of {n} router decisions differ "
+            f"({100 * len(gaps) / n:.1f}%), gaps across the top-k boundary "
+            f"there up to {max(gaps, default=0.0):.2f} bf16 ulps: "
+            f"{sorted(round(g, 2) for g in gaps)}")
+
+
+def flips_check(got, want, tol: float, label: str) -> None:
+    """``got``'s router decisions against ``want``'s, two lists of
+    ``routes`` records of the same rows whose hidden states agree up to
+    rounding (forward given ``got``'s experts): ``flips_hold``, and every
+    layer's router logits within ``tol`` in relative RMS."""
+    gaps = routing_flips(got, want)
+    n = sum(te.shape[0] for te, _ in want)
+    rel = max(float((gl - wl).norm() / wl.norm())
+              for (_, gl), (_, wl) in zip(got, want))
+    check(flips_hold(gaps, n) and rel <= tol,
+          f"{label}: {len(gaps)} of {n} router decisions differ (limit "
+          f"{MOE_FLIP_SHARE:.0%}), largest gap {max(gaps, default=0.0)} "
+          f"bf16 ulps (limit {MOE_FLIP_ULPS}); router logits' relative RMS "
+          f"up to {rel} (tolerance {tol})")
+    print(f"{label}: router logits within relative RMS {rel:.5f} "
+          f"(tolerance {tol:.5f}); {flips_line(gaps, n)} (limits "
+          f"{MOE_FLIP_SHARE:.0%}, {MOE_FLIP_ULPS} ulps)", flush=True)
+
+
+def planted_routes(own, k: int):
+    """Two wrong routers' decisions at ``own``'s rows: each row takes the
+    next row's experts (a slot-mate's), and each row drops its best
+    expert for its (k+1)-th."""
+    rolled = [(torch.roll(te, 1, 0), lt) for te, lt in own]
+    shifted = [(torch.sort(lt, dim=-1, descending=True,
+                           stable=True).indices[:, 1:k + 1], lt)
+               for _, lt in own]
+    return {"a slot-mate's experts": rolled,
+            "the best expert dropped": shifted}
+
+
+def moe_phase(dev, seed: int, card: str):
+    """deepseek-moe-16b: (a) serving at published widths and full depth,
+    (b) ``train_phase`` at published widths and ``MOE_TRAIN_LAYERS``
+    layers.  Returns (K4's launches in one prefill, K4 backward's in the
+    training run)."""
+    from repro_torch.models import moe as moe_mod
+    arch = "deepseek-moe-16b"
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(arch, dev, seed)
+    cfg = model.cfg
+    e = cfg.moe
+    rng = np.random.default_rng(seed + 3)
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (ATTN_B, ATTN_S))).to(dev)
+    cache = model.init_cache(ATTN_B, ATTN_S_MAX)
+    reset_counts()
+    (logits_pf, cache), secs = synced_seconds(
+        lambda: model.prefill({"tokens": tokens}, cache))
+    launches = read_counts()["flash_attention"]
+    check(launches == cfg.n_layers,
+          f"K4 launched {launches} times in one {arch} prefill, expected "
+          f"{cfg.n_layers}")
+    T = ATTN_B * ATTN_S
+    cap = moe_mod._capacity(T, e.top_k, e.n_experts, e.capacity_factor)
+    _, warm = synced_seconds(lambda: model.prefill(
+        {"tokens": tokens}, model.init_cache(ATTN_B, ATTN_S_MAX)))
+    print(f"{arch} prefill: {ATTN_B} x {ATTN_S} tokens in {secs:.3f} s "
+          f"(first call), {warm:.3f} s = {T / warm:.1f} tok/s (second), K4 "
+          f"launches {launches}, expert capacity {cap} slots ({e.n_experts} "
+          f"x {cap} x {cfg.d_model} buffer per layer) ({card})", flush=True)
+    with dropped_per_layer() as dropped:
+        (full, _), secs = synced_seconds(lambda: model({"tokens": tokens}))
+    check(len(dropped) == cfg.n_layers,
+          f"the moe dispatch ran {len(dropped)} times in one forward")
+    check(torch.equal(logits_pf, full), f"{arch} prefill logits differ from "
+          f"forward")
+    check(bool(torch.isfinite(full).all()), "forward logits are not finite")
+    print(f"{arch} forward (counting drops, a sync a layer): {secs:.3f} s; "
+          f"prefill logits equal forward's "
+          f"(torch.equal); assignments dropped per layer (of "
+          f"{T * e.top_k} at capacity factor {e.capacity_factor}): "
+          f"{dropped}, {100 * sum(dropped) / (T * e.top_k * cfg.n_layers):.3f}"
+          f"% in all", flush=True)
+    del full, logits_pf, cache
+    torch.cuda.empty_cache()
+    device_split(lambda: model.prefill({"tokens": tokens},
+                                       model.init_cache(ATTN_B, ATTN_S_MAX)),
+                 f"{arch} prefill", dispatch=True)
+    # decode at index MOE_PREFIX against forward on the extended prefix,
+    # and one request alone against forward on its prompt, at a capacity
+    # factor where forward drops nothing that decode keeps.  Decode's
+    # 4-row products round apart from forward's 260-row ones, and a
+    # router decision near a tie can then pick another expert: decode
+    # with forward's experts is held against forward; decode with its
+    # own experts, the served path, against forward given the same
+    # experts at the last position, and its decisions against forward's
+    # by ``flips_hold``
+    model.cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        e, capacity_factor=MOE_DECODE_FACTOR))
+    try:
+        prefix = tokens[:, :MOE_PREFIX]
+        _, cache = model.prefill({"tokens": prefix},
+                                 model.init_cache(ATTN_B, MOE_PREFIX + 1))
+        nxt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (ATTN_B, 1))
+                               ).to(dev)
+        seq = torch.cat([prefix, nxt], dim=1)
+        with dropped_per_layer() as dropped, routes() as fwd:
+            ext, _ = model({"tokens": seq})
+        check(not any(dropped), f"forward at capacity factor "
+              f"{MOE_DECODE_FACTOR} dropped {dropped}")
+        last = [(te.reshape(ATTN_B, MOE_PREFIX + 1, -1)[:, -1],
+                 lg.reshape(ATTN_B, MOE_PREFIX + 1, -1)[:, -1])
+                for te, lg in fwd]
+        with routes() as own:
+            dec_own, _ = model.decode_step(cache, nxt, MOE_PREFIX)
+        with routes([te for te, _ in last]):
+            dec, _ = model.decode_step(cache, nxt, MOE_PREFIX)
+        # forward with decode's own experts at the last position
+        mixed = [torch.cat([te.reshape(ATTN_B, -1, e.top_k)[:, :-1],
+                            oe[:, None]], dim=1).reshape(-1, e.top_k)
+                 for (te, _), (oe, _) in zip(fwd, own)]
+        with routes(mixed) as fwd_own:
+            ext_own, _ = model({"tokens": seq})
+        last_own = [(te.reshape(ATTN_B, MOE_PREFIX + 1, -1)[:, -1],
+                     lg.reshape(ATTN_B, MOE_PREFIX + 1, -1)[:, -1])
+                    for te, lg in fwd_own]
+        tol = depth_tolerance(cfg.n_layers)
+        top = float(ext[:, -1].float().abs().amax())
+        for how, got, want in (("forward's experts", dec, ext),
+                               ("its own experts (forward given them too)",
+                                dec_own, ext_own)):
+            rel, err, agree, exact = compare_logits(got[:, 0], want[:, -1])
+            check(rel <= tol and agree == 1.0,
+                  f"{arch} decode at index {MOE_PREFIX} with {how} differs "
+                  f"from forward: relative RMS {rel} (tolerance {tol}), "
+                  f"argmax agreement {agree} (near ties of {NEAR_TIE_ULPS} "
+                  f"bf16 ulps included)")
+            print(f"{arch} decode at index {MOE_PREFIX} with {how} vs "
+                  f"forward on {MOE_PREFIX + 1} tokens (capacity factor "
+                  f"{MOE_DECODE_FACTOR}, nothing dropped): relative RMS "
+                  f"{rel:.5f} (tolerance {tol:.5f}), max abs {err:.4f} "
+                  f"(largest |logit| {top:.4f}), argmax agreement "
+                  f"{agree:.2f} with near ties of {NEAR_TIE_ULPS} ulps, "
+                  f"{exact:.2f} exact", flush=True)
+        rel, err, agree, exact = compare_logits(dec_own[:, 0], ext[:, -1])
+        print(f"{arch} decode with its own experts vs forward with its own "
+              f"(reported): relative RMS {rel:.5f}, max abs {err:.4f}, "
+              f"argmax agreement {agree:.2f} with near ties, {exact:.2f} "
+              f"exact", flush=True)
+        n = ATTN_B * cfg.n_layers
+        print(f"{arch} decode with its own experts against forward's "
+              f"(reported; a flip moves the later layers' inputs): "
+              f"{flips_line(routing_flips(own, last), n)}", flush=True)
+        flips_check(own, last_own, tol, f"{arch} decode with its own "
+                    f"experts against forward given them")
+        for fault, planted in planted_routes(own, e.top_k).items():
+            gaps = routing_flips(planted, last_own)
+            check(not flips_hold(gaps, n), f"a router that takes {fault} "
+                  f"passes the flip check: {len(gaps)} of {n} decisions, "
+                  f"largest gap {max(gaps, default=0.0)} bf16 ulps")
+            print(f"{arch} decode, planted fault ({fault}): {len(gaps)} of "
+                  f"{n} decisions differ, largest gap "
+                  f"{max(gaps, default=0.0):.2f} bf16 ulps, smallest "
+                  f"{min(gaps, default=0.0):.2f}: fails the flip check",
+                  flush=True)
+        del ext_own
+        del cache, dec, dec_own, ext
+        one_request(model, rng)
+    finally:
+        model.cfg = cfg
+    torch.cuda.empty_cache()
+    serve_phase(model, seed, card)
+    print(f"{arch} serving peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB ({card})",
+          flush=True)
+    del model
+    bwd = train_phase(dev, seed, card, arch)
+    return launches, bwd
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2345,6 +2729,10 @@ def main(argv=None) -> int:
     rows["flash_attention_bwd_vit"]["launches"] = \
         counts["flash_attention_bwd"]
     rows["decode_augment"]["launches"] += counts["decode_augment"]
+    rows["flash_attention_moe"]["launches"], \
+        rows["flash_attention_bwd_moe"]["launches"] = phase(
+            "serving and training, deepseek-moe-16b", moe_phase, dev,
+            args.seed, card)
 
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -2358,7 +2746,8 @@ def main(argv=None) -> int:
                for name in ("decode_augment", "augment", "decode",
                             "flash_attention", "flash_attention_bwd",
                             "ssd_scan", "ssd_scan_bwd", "flash_attention_vit",
-                            "flash_attention_bwd_vit")]
+                            "flash_attention_bwd_vit", "flash_attention_moe",
+                            "flash_attention_bwd_moe")]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

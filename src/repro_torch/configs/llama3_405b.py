@@ -1,0 +1,26 @@
+"""llama3-405b [dense] — GQA, 128k vocab [arXiv:2407.21783; unverified].
+
+126L d_model=16384 128H (GQA kv=8) d_ff=53248 vocab=128256, head_dim=128.
+"""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="llama3-405b",
+    family="dense",
+    n_layers=126,
+    d_model=16_384,
+    n_heads=128,
+    n_kv_heads=8,
+    d_ff=53_248,
+    vocab_size=128_256,
+    head_dim=128,
+    rope_theta=500_000.0,
+    source="arXiv:2407.21783; unverified",
+)
+
+
+def reduced() -> ModelConfig:
+    import dataclasses
+    return dataclasses.replace(
+        CONFIG, n_layers=2, d_model=128, n_heads=8, n_kv_heads=2, d_ff=256,
+        vocab_size=512, head_dim=16)

@@ -2,8 +2,9 @@
 
 ``get(arch_id)`` returns the full ModelConfig and ``get_reduced(arch_id)``
 the smoke-test config, as in the reference.  Every arch the reference
-knows is listed; only the dense, ssm and encoder families are ported so
-far, and asking for any other arch raises ``NotImplementedError``.  The
+knows is listed; the dense, moe, ssm and encoder families are ported so
+far, and asking for an arch of another family (vlm, hybrid, encdec)
+raises ``NotImplementedError``.  The
 reference's layout policy (``default_parallelism``) belongs to the
 distributed layer, which is not ported yet.
 """
@@ -17,12 +18,12 @@ from repro_torch.configs.base import ModelConfig
 #: arch id -> module of the port (None: not ported yet)
 _MODULES: Dict[str, "str | None"] = {
     "seamless-m4t-large-v2": None,
-    "qwen1.5-32b": None,
-    "llama3-405b": None,
+    "qwen1.5-32b": "repro_torch.configs.qwen1_5_32b",
+    "llama3-405b": "repro_torch.configs.llama3_405b",
     "qwen3-8b": "repro_torch.configs.qwen3_8b",
-    "deepseek-7b": None,
-    "deepseek-moe-16b": None,
-    "kimi-k2-1t-a32b": None,
+    "deepseek-7b": "repro_torch.configs.deepseek_7b",
+    "deepseek-moe-16b": "repro_torch.configs.deepseek_moe_16b",
+    "kimi-k2-1t-a32b": "repro_torch.configs.kimi_k2_1t_a32b",
     "internvl2-2b": None,
     "zamba2-1.2b": None,
     "mamba2-1.3b": "repro_torch.configs.mamba2_1_3b",

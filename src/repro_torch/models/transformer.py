@@ -1,6 +1,6 @@
 """Model assembly: the port's twin of ``repro.models.transformer`` for
-the families ported so far, dense (qwen3), ssm (mamba2) and encoder
-(vit).
+the families ported so far, dense (qwen3, deepseek-7b, qwen1.5,
+llama3), moe (deepseek-moe, kimi-k2), ssm (mamba2) and encoder (vit).
 
 The reference scans over stacked per-layer params (``lax.scan``); the
 port loops over the ``nn.ModuleList`` of layers.  ``remat != "none"``
@@ -36,11 +36,12 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as lyr
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.params import ParamDef, padded_vocab, stack_defs
 
 F32 = torch.float32
-PORTED_FAMILIES = ("dense", "ssm", "encoder")
+PORTED_FAMILIES = ("dense", "moe", "ssm", "encoder")
 
 
 def check_family(cfg: ModelConfig) -> None:
@@ -61,7 +62,10 @@ def _block_defs(cfg: ModelConfig, *, ssm: bool = False) -> Dict:
         return d
     d["attn"] = lyr.attention_defs(cfg)
     d["ln2"] = lyr.rmsnorm_def(cfg.d_model)
-    d["mlp"] = lyr.mlp_defs(cfg)
+    if cfg.moe is not None:
+        d["moe"] = moe_mod.moe_defs(cfg)
+    else:
+        d["mlp"] = lyr.mlp_defs(cfg)
     return d
 
 
@@ -93,11 +97,18 @@ def _attn_block(lp, x: torch.Tensor, cfg: ModelConfig, positions, *,
         a, k, v = a
     x = x + a
     h = lyr.rmsnorm(x, lp["ln2"], cfg.norm_eps)
-    x = x + lyr.mlp(lp["mlp"], h)
-    aux = torch.zeros((), dtype=F32, device=x.device)
+    f, aux = _ffn(lp, h, cfg)
+    x = x + f
     if return_kv:
         return x, aux, k, v
     return x, aux
+
+
+def _ffn(lp, h: torch.Tensor, cfg: ModelConfig):
+    """The block's feed-forward: (output, aux loss)."""
+    if "moe" in lp:
+        return moe_mod.moe_ffn(lp["moe"], h, cfg)
+    return lyr.mlp(lp["mlp"], h), torch.zeros((), dtype=F32, device=h.device)
 
 
 def _ssm_block(lp, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -136,7 +147,7 @@ def forward(params, cfg: ModelConfig, batch: Dict, *,
     """Full-sequence forward.  Returns (logits, aux_loss).
 
     batch keys by family:
-      dense/ssm: tokens (B, S) int -> logits (B, S, V_pad)
+      dense/moe/ssm: tokens (B, S) int -> logits (B, S, V_pad)
       encoder:   patch_embeds (B, T, d) -> class logits (B, n_classes)
     """
     check_family(cfg)
@@ -194,7 +205,7 @@ def cache_defs(cfg: ModelConfig, B: int, s_max: int) -> Dict:
         raise ValueError(f"no decode cache for family {cfg.family}")
     L = cfg.n_layers
     bf16, f32 = torch.bfloat16, torch.float32
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         hd, K = cfg.resolved_head_dim, cfg.n_kv_heads
         kv_axes = ("layers", "batch", "kv_seq", "act_kv", None)
         return {
@@ -218,15 +229,16 @@ def decode_step(params, cfg: ModelConfig, cache: Dict, tokens: torch.Tensor,
                 index: int) -> Tuple[torch.Tensor, Dict]:
     """One-token decode. tokens: (B, 1) int; index: the position.
 
-    Returns (logits (B, 1, V_pad), new cache).  The dense family updates
-    ``cache`` in place and returns it; the ssm family returns new state
+    Returns (logits (B, 1, V_pad), new cache).  The dense and moe
+    families update ``cache`` in place and return it (moe drops its
+    auxiliary loss); the ssm family returns new state
     tensors (whose conv buffer takes the promoted type, as in the
     reference).
     """
     check_family(cfg)
     index = int(index)
     x = lyr.embed(params["embed"], tokens)
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         for l, lp in enumerate(params["blocks"]):
             h = lyr.rmsnorm(x, lp["ln1"], cfg.norm_eps)
             a, _, _ = lyr.attention_decode(lp["attn"], h, cfg,
@@ -234,7 +246,7 @@ def decode_step(params, cfg: ModelConfig, cache: Dict, tokens: torch.Tensor,
                                            cache_v=cache["v"][l], index=index)
             x = x + a
             h = lyr.rmsnorm(x, lp["ln2"], cfg.norm_eps)
-            x = x + lyr.mlp(lp["mlp"], h)
+            x = x + _ffn(lp, h, cfg)[0]
         new_cache = cache
     else:
         hs, convs = [], []
@@ -253,8 +265,8 @@ def decode_step(params, cfg: ModelConfig, cache: Dict, tokens: torch.Tensor,
 
 def prefill(params, cfg: ModelConfig, batch: Dict,
             cache: Dict) -> Tuple[torch.Tensor, Dict]:
-    """Prefill: one forward pass that also fills the decode cache (dense;
-    positions past S are zero, as the reference pads them)."""
+    """Prefill: one forward pass that also fills the decode cache (dense
+    and moe; positions past S are zero, as the reference pads them)."""
     check_family(cfg)
     if cfg.family == "ssm":
         logits, _ = forward(params, cfg, batch)

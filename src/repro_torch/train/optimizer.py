@@ -19,8 +19,11 @@ reference:
   the per-layer norms (``ln1``, ``q_norm``, ...) are decayed, as in the
   reference, whose comment says otherwise; only ``final_norm`` is not;
 * ``_blocks`` partitions the stacked leaf: when its trailing axis does
-  not divide 256 (qwen3's ``(L, 128)`` ``q_norm``), the blocks span
-  layers, and the port quantizes that leaf whole.
+  not divide 256, the blocks tile the flattened leaf.  Where each layer
+  holds whole blocks (deepseek-moe-16b's ``(L, 64, 2048, 1408)``
+  ``we_gate``) the port walks it layer by layer in pieces as any other
+  leaf; where blocks span layers (qwen3's ``(L, 128)`` ``q_norm``) it
+  quantizes that leaf whole.
 
 Rounding is ``torch.round`` (half to even, as ``jnp.round``) and the
 float32 arithmetic follows the reference's expressions term by term, so
@@ -260,8 +263,21 @@ class AdamW:
         tensors = [named[n] for n in leaf.names]
         gs = [grads[n] for n in leaf.names]
         quant = self.state_dtype == "int8"
+        per_layer = math.prod(leaf.shape[1:] if leaf.stacked else leaf.shape)
+        if quant and not _structured(leaf.shape) and per_layer % QBLOCK == 0:
+            # blocks tile the flattened leaf and each layer holds whole
+            # blocks: a layer is its blocks' rows of the payload
+            nb = per_layer // QBLOCK
+            for i, (t, g) in enumerate(zip(tensors, gs)):
+                rows = slice(i * nb, (i + 1) * nb)
+                self._update_rows(
+                    t.view(-1, QBLOCK), g.reshape(-1, QBLOCK),
+                    Quantized(m.q[rows], m.scale[rows]),
+                    Quantized(v.q[rows], v.scale[rows]), scale, lr, b1c,
+                    b2c, decay)
+            return
         if quant and not _structured(leaf.shape):
-            # blocks span the flattened leaf (and its layers): whole leaf
+            # blocks span the flattened leaf's layers: whole leaf
             p = torch.stack(tensors) if leaf.stacked else tensors[0]
             g = torch.stack(gs) if leaf.stacked else gs[0]
             mf = self._from_state(m, leaf.shape)

@@ -15,7 +15,9 @@ tolerances (``tests/test_kernels.py``); unsupported shapes raise.  K4's
 backward is held to its plain twin like K4, and one reduced training
 step checks that gradients reach the attention weights on the card;
 K5's backward likewise, with one reduced mamba2-1.3b step for the ssm
-weights.
+weights.  The reduced moe models run forward and backward on the card
+against the same parameters on the CPU, and two bf16 prefills on the
+card give the same bits.
 """
 import numpy as np
 import pytest
@@ -598,6 +600,86 @@ def test_vit_image_path_on_card_takes_the_device_executor(cuda):
     assert np.isfinite(float(metrics["loss"]))
     assert len(seen) == 4 * cfg.n_layers
     assert all(np.isfinite(x) and x > 0 for x in seen.values()), seen
+
+
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "kimi-k2-1t-a32b"])
+def test_moe_forward_and_backward_on_card_match_cpu(cuda, arch):
+    """A reduced moe model in float32 with the same parameters on the
+    card and on the CPU: the routing of the first layer equal, logits,
+    aux loss, loss and every gradient within 1e-4 (the card runs K4 and
+    its backward and cuBLAS, the CPU their plain versions and MKL: other
+    summation orders in float32)."""
+    from repro_torch.configs import registry
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.models import moe
+    from repro_torch.models.convert import params_from_jax, params_to_numpy
+    from repro_torch.models.model import build
+
+    cfg = registry.get_reduced(arch)
+    cpu = build(cfg).init(dtype=torch.float32, seed=0, device="cpu")
+    card = params_from_jax(build(cfg), params_to_numpy(cpu), device=cuda)
+    toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 65))
+    batches = [{"tokens": torch.from_numpy(toks[:, :-1]).to(d),
+                "labels": torch.from_numpy(toks[:, 1:]).to(d)}
+               for d in ("cpu", cuda)]
+    x = np.random.default_rng(1).standard_normal((128, cfg.d_model))
+    routes = [moe._route(torch.from_numpy(x).float().to(m.device),
+                         m["blocks"][0]["moe"]["router"], cfg.moe.top_k)[0]
+              for m in (cpu, card)]
+    assert torch.equal(routes[0], routes[1].cpu())
+    (want, want_aux), (got, aux) = (
+        m.forward({"tokens": b["tokens"]}) for m, b in zip((cpu, card),
+                                                           batches))
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(aux.cpu(), want_aux, rtol=1e-4, atol=1e-6)
+    grads = []
+    f0, b0 = fa.flash_attention.launches, fa.flash_attention_backward.launches
+    for m, b in zip((cpu, card), batches):
+        m.requires_grad_(True)
+        names, ps = zip(*m.named_parameters())
+        loss = m.loss(b)
+        grads.append((float(loss), dict(zip(names, torch.autograd.grad(
+            loss, ps)))))
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches - f0 == cfg.n_layers
+    assert fa.flash_attention_backward.launches - b0 == cfg.n_layers
+    (want_loss, want_g), (got_loss, got_g) = grads
+    np.testing.assert_allclose(got_loss, want_loss, rtol=1e-5)
+    for n, w in want_g.items():
+        scale = float(w.abs().max())
+        torch.testing.assert_close(got_g[n].cpu(), w, rtol=1e-4,
+                                   atol=1e-4 * max(scale, 1.0), msg=n)
+        if ".moe." in n:
+            assert scale > 0, n
+
+
+def test_moe_bf16_prefill_is_bitwise_repeatable_on_card(cuda, monkeypatch):
+    """Two bf16 prefills of reduced deepseek-moe-16b on the card (4 x
+    256 tokens, assignments dropped at the published capacity factor)
+    give the same bits, and forward's: the dispatch is a gather and the
+    combine adds each token's rows in a fixed order, with no atomics."""
+    from repro_torch.configs import registry
+    from repro_torch.models import moe
+    from repro_torch.models.model import build
+
+    cfg = registry.get_reduced("deepseek-moe-16b")
+    model = build(cfg).init(seed=0, device=cuda)
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (4, 256))).to(cuda)
+    plan, dropped = moe.dispatch_plan, []
+
+    def counting(top_e, n_experts, capacity):
+        slot, src = plan(top_e, n_experts, capacity)
+        dropped.append(int((slot == n_experts * capacity).sum()))
+        return slot, src
+
+    monkeypatch.setattr(moe, "dispatch_plan", counting)
+    first, _ = model.prefill({"tokens": toks}, model.init_cache(4, 260))
+    second, _ = model.prefill({"tokens": toks}, model.init_cache(4, 260))
+    full, _ = model.forward({"tokens": toks})
+    assert torch.equal(first, second) and torch.equal(first, full)
+    assert bool(torch.isfinite(first.float()).all())
+    assert len(dropped) == 3 * cfg.n_layers and sum(dropped) > 0, dropped
 
 
 #: K5's backward against its plain version, as a relative RMS by the

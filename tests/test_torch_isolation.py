@@ -11,7 +11,8 @@ qwen3-8b prefill and decode step, imports the simulator, the baselines,
 the training step and the trainer (with the training CLI), runs one
 simulation and two resilient training steps with a checkpoint restore,
 differentiates a reduced mamba2-1.3b loss through K5's backward (its
-plain twin) and a reduced vit-huge loss on a batch of the image path,
+plain twin), a reduced deepseek-moe-16b loss (its router included) and
+a reduced vit-huge loss on a batch of the image path,
 and exits 0.  A static scan of the
 port's sources backs it up for modules the run does not import.
 """
@@ -138,6 +139,16 @@ ssm.requires_grad_(True)
 loss = ssm.loss({{"tokens": tokens, "labels": tokens}}, remat="block")
 grads = torch.autograd.grad(loss, list(ssm.parameters()))
 assert all(bool(torch.isfinite(g.float()).all()) for g in grads)
+
+import repro_torch.models.moe
+moe = build(registry.get_reduced("deepseek-moe-16b")).init(seed=0,
+                                                           device="cpu")
+moe.requires_grad_(True)
+loss = moe.loss({{"tokens": tokens, "labels": tokens}}, remat="block")
+names, params = zip(*moe.named_parameters())
+grads = dict(zip(names, torch.autograd.grad(loss, params)))
+assert all(bool(torch.isfinite(g.float()).all()) for g in grads.values())
+assert float(grads["blocks.0.moe.router"].float().abs().max()) > 0
 
 from repro_torch.launch.train import image_batch_source
 vit = build(registry.get_reduced("vit-huge")).init(seed=0, device="cpu")
