@@ -69,7 +69,16 @@ into ``build/repro_torch/``), then:
    (float32 at a ragged S with the final state's gradient, checked; bf16
    at mamba2-1.3b's training shape, each gradient within a relative RMS
    of its plain version, bitwise repeatable, timed, each of its six
-   launches' device time from ``torch.profiler``);
+   launches' device time from ``torch.profiler``); then at
+   zamba2-1.2b's shapes: K4 at its prefill launch (1, 32768, 32 | 32,
+   64), causal with the window 4096, against its plain version over
+   query blocks, timed beside the same launch without the window (it
+   must take less than half that time) and beside SDPA with the window
+   as a boolean mask; K4 and its backward with the window against
+   their plain versions at (1, 8192, 32 | 32, 64) in bf16 and float32;
+   K4 and its backward at its training shape (2, 4096, 32 | 32, 64); K5
+   at (1, 32768) and (2, 4096) with 64 heads, P 64, N 64, and its
+   backward at the latter;
 6. serving path, dense: qwen3-8b at full width (random weights from
    ``--seed``): ``Model.prefill`` of 4 x 1024 tokens (K4 launched once
    per layer; prefill logits equal forward's; decode at index S agrees
@@ -123,7 +132,21 @@ into ``build/repro_torch/``), then:
     layers (8.65 B parameters): every layer's attention, router, expert
     and shared-expert weights with finite non-zero gradients at every
     step, K4 launched 2 x 14 times and its backward 14 times per step;
-11. the kernel JSON line, the card line, and the result line
+11. the hybrid family, zamba2-1.2b at its published widths and full
+    depth (38 mamba2 layers, the shared attention block after every 6,
+    1.17 B parameters; ``hybrid_phase``): (a) ``Model.prefill`` of 1 x
+    32,768 tokens (the reference's prefill_32k sequence, batch cut from
+    32): K4 6 times with the window, K5 38 times, logits equal to
+    forward's and finite, the device split of one prefill; (b) decode
+    from zero state against forward on 4 x 64 tokens (bf16 reported,
+    float32 checked with the ring buffers cast to float32), and the
+    ``Server`` defaults; (c) ``train_phase`` on 2 x 4096 tokens (the
+    reference's train_4k sequence, batch cut from 256): K5 2 x 38 and
+    its backward 38 times per step, K4 and its backward 6 times each
+    (the shared block is not recomputed), every layer's ssm weights and
+    the shared block's attention and MLP weights with finite non-zero
+    gradients at every step;
+12. the kernel JSON line, the card line, and the result line
     ``{"ok": true, "device": {...}}`` last.
 
 Float32 products on the card run in full float32: the script sets
@@ -1318,6 +1341,20 @@ MOE_PREFIX, MOE_DECODE_FACTOR = 64, 100.0
 #: hidden states drift further once a layer flips, the sound readings
 #: were 25% and up to 64 ulps: no limit there parts them from the faults
 MOE_FLIP_ULPS, MOE_FLIP_SHARE = 16, 0.2
+#: zamba2-1.2b (hybrid): prefill of one row at the reference's prefill_32k
+#: sequence (batch cut from 32: the bf16 logits alone take 2.1 GB a row),
+#: its decode trajectory over HYB_PREFIX tokens of HYB_B rows, and
+#: training on HYB_TRAIN_B x HYB_TRAIN_S tokens (the reference's train_4k
+#: sequence, batch cut from 256)
+HYB_PREFILL_S = 32_768
+HYB_B, HYB_PREFIX = 4, 64
+HYB_TRAIN_B, HYB_TRAIN_S = 2, 4_096
+#: K4's windowed forward and backward are held against their plain
+#: versions at HYB_CHECK_S (at HYB_PREFILL_S the plain scores would take
+#: 137 GB; at HYB_CHECK_S they run over HYB_HEAD_PARTS slices of the
+#: heads), and the prefill launch against the plain version taken over
+#: query blocks of HYB_PLAIN_ROWS rows, each with the keys of its window
+HYB_CHECK_S, HYB_HEAD_PARTS, HYB_PLAIN_ROWS = 8_192, 4, 1_024
 #: mamba2-1.3b forward, and the prefix its decode trajectory checks
 SSM_B, SSM_S, SSM_PREFIX = 4, 1024, 64
 #: mamba2-1.3b's training batch (of TRAIN_S tokens)
@@ -1386,9 +1423,7 @@ def model_kernel_phase(dev, seed: int):
     """K4 and K5 against their plain versions at the exact shapes the
     model phases launch them with, timed beside their bounds.  Launches
     made here are comparisons and do not count."""
-    import torch.nn.functional as F
     from repro_torch.configs import registry
-    from repro_torch.kernels.ssd_scan import kernel as ssd_k
 
     rng = np.random.default_rng(seed)
     rows = {}
@@ -1414,8 +1449,203 @@ def model_kernel_phase(dev, seed: int):
     # ---- K5 at mamba2-1.3b's forward: x (4, 1024, 64, 64) bf16, N 128
     cfg = registry.get("mamba2-1.3b")
     s = cfg.ssm
-    B, S, nh, P, N = SSM_B, SSM_S, s.expand * cfg.d_model // s.head_dim, \
-        s.head_dim, s.d_state
+    nh = s.expand * cfg.d_model // s.head_dim
+    rows["ssd_scan"] = k5_row(dev, rng, "", SSM_B, SSM_S, nh, s.head_dim,
+                              s.d_state, s.chunk)
+    rows["ssd_scan_bwd"] = ssd_scan_bwd_row(dev, rng, SSM_B, SSM_S, nh,
+                                            s.head_dim, s.d_state, s.chunk)
+    rows.update(zamba2_kernel_rows(dev, rng))
+    return rows
+
+
+def zamba2_kernel_rows(dev, rng):
+    """K4, K5 and their backwards at the shapes zamba2-1.2b launches them
+    with: K4 at the prefill (1, 32768, 32 | 32, 64) with the window 4096,
+    timed beside the same launch without it (``k4_window_prefill_row``);
+    the windowed forward and backward against plain at ``HYB_CHECK_S``
+    (``k4_window_checks``); K4 and its backward at the training shape (2,
+    4096, 32 | 32, 64) (the window does not bite at S = 4096); K5 at the
+    prefill (1, 32768, 64, 64, 64) and training (2, 4096, ...) shapes and
+    its backward at the latter (P 64, N 64, chunk 256)."""
+    from repro_torch.configs import registry
+
+    cfg = registry.get("zamba2-1.2b")
+    H, K, hd, W = (cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim,
+                   cfg.attn_window)
+    rows = {"flash_attention_zamba2": k4_window_prefill_row(dev, rng, H, K,
+                                                            hd, W)}
+    k4_window_checks(dev, rng, H, K, hd, W)
+    rows["flash_attention_zamba2_train"], \
+        rows["flash_attention_bwd_zamba2_train"] = k4_rows(
+            dev, rng, "_zamba2_train", HYB_TRAIN_B, HYB_TRAIN_S, H, K, hd,
+            causal=True, window=W)
+    s = cfg.ssm
+    nh, P, N = s.expand * cfg.d_model // s.head_dim, s.head_dim, s.d_state
+    rows["ssd_scan_zamba2"] = k5_row(dev, rng, "_zamba2", 1, HYB_PREFILL_S,
+                                     nh, P, N, s.chunk)
+    rows["ssd_scan_zamba2_train"] = k5_row(dev, rng, "_zamba2_train",
+                                           HYB_TRAIN_B, HYB_TRAIN_S, nh, P,
+                                           N, s.chunk)
+    rows["ssd_scan_bwd_zamba2_train"] = ssd_scan_bwd_row(
+        dev, rng, HYB_TRAIN_B, HYB_TRAIN_S, nh, P, N, s.chunk,
+        "_zamba2_train")
+    return rows
+
+
+def windowed_plain(q, k, v, window: int, rows: int = HYB_PLAIN_ROWS):
+    """K4's plain version with ``window`` over query blocks of ``rows``:
+    block [i0, i1) runs ``flash_attention_plain`` on positions [i0 -
+    window + 1, i1), which hold every key its queries see (the mask
+    depends only on i - j), and keeps its last i1 - i0 rows."""
+    from repro_torch.kernels.flash_attention import kernel as fa
+    S = q.shape[1]
+    out = torch.empty_like(q)
+    for i0 in range(0, S, rows):
+        i1, j0 = min(S, i0 + rows), max(0, i0 - window + 1)
+        part = fa.flash_attention_plain(q[:, j0:i1], k[:, j0:i1],
+                                        v[:, j0:i1], True, window)
+        out[:, i0:i1] = part[:, i0 - j0:]
+    return out
+
+
+def by_heads(fn, tensors, parts: int = HYB_HEAD_PARTS):
+    """``fn`` over ``parts`` slices of the head axis of ``tensors`` (H =
+    K: query head h reads kv head h), outputs joined along it: a plain
+    version without all its (S, S) scores in memory at once."""
+    n = tensors[0].shape[2] // parts
+    outs = [fn(*(t[:, :, i * n:(i + 1) * n] for t in tensors))
+            for i in range(parts)]
+    if isinstance(outs[0], tuple):
+        return tuple(torch.cat(o, dim=2) for o in zip(*outs))
+    return torch.cat(outs, dim=2)
+
+
+def within_one_bf16_ulp(pairs):
+    """K4's bf16 card check over (kernel, plain) pairs: every element
+    within 1e-3 + 2**-7 |x| of plain and each relative RMS <= 2**-8.
+    Returns (passed, the largest relative RMS).  Both sides compute in
+    float32 and round once to bf16 at the end, so they differ by one bf16
+    ulp where their float32 sums round apart: at most 2**-7 of the value
+    (atol covers outputs near 0); one ulp is rare, so the relative RMS
+    stays well below bf16's unit roundoff.  (The reference's 2e-2,
+    tests/test_kernels.py:52, is ~40% of a typical |output| ~ 0.05 at
+    qwen3-8b's shape.)"""
+    rel = max(float((a.float() - b.float()).norm() / b.float().norm())
+              for a, b in pairs)
+    close = all(torch.allclose(a.float(), b.float(), atol=1e-3,
+                               rtol=2.0 ** -7) for a, b in pairs)
+    return close and rel <= BF16_EPS, rel
+
+
+def k4_window_prefill_row(dev, rng, H: int, K: int, hd: int, window: int):
+    """K4 at zamba2-1.2b's prefill launch, (1, HYB_PREFILL_S, H | K, hd)
+    bf16, causal with ``window``: bitwise repeatable, within one bf16 ulp
+    of its plain version (taken over query blocks, ``windowed_plain``),
+    timed beside the same launch without the window, which it must beat
+    by more than 2x (the window keeps 4.27x fewer pairs: key tiles wholly
+    below it are skipped, not masked), and beside
+    ``scaled_dot_product_attention`` with the window as a boolean mask
+    (memory-efficient backend)."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from repro_torch.kernels.flash_attention import kernel as fa
+
+    S = HYB_PREFILL_S
+    where = f"(1, {S}, {H} | {K}, {hd}), causal, window {window}"
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape, np.float32))
+               .to(dev, torch.bfloat16)
+               for shape in ((1, S, H, hd), (1, S, K, hd), (1, S, K, hd)))
+    out = fa.flash_attention(q, k, v, causal=True, window=window)
+    again = fa.flash_attention(q, k, v, causal=True, window=window)
+    plain = windowed_plain(q, k, v, window)
+    torch.cuda.synchronize()
+    check(torch.equal(out, again), f"K4 at {where} gave other bits on a "
+          f"second run")
+    err = max_abs_err(out, plain)
+    ok, rel = within_one_bf16_ulp([(out, plain)])
+    check(ok, f"K4 at {where} differs from its plain version by {err} "
+          f"(relative RMS {rel})")
+    del again, plain
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    mask = sdpa_mask(S, window, dev)
+    with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+        library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask), 5)
+    del mask
+    row = dict(
+        name="flash_attention_zamba2", route="cuda",
+        source="src/repro_torch/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention/kernel.py:87",
+        max_abs_err=err,
+        ms=time_ms(lambda: fa.flash_attention(q, k, v, causal=True,
+                                              window=window), 20),
+        plain_ms=time_ms(lambda: windowed_plain(q, k, v, window), 3,
+                         warmup=1),
+        library_ms=library_ms)
+    full_ms = time_ms(lambda: fa.flash_attention(q, k, v, causal=True), 20)
+    check(row["ms"] < 0.5 * full_ms,
+          f"K4 at {where} took {row['ms']} ms against {full_ms} ms without "
+          f"the window: not less than half")
+    pairs = window_pairs(S, True, window)
+    row["bound_ms"], row["bound_by"] = bound(
+        2 * (2 * q.numel() + k.numel() + v.numel()), 4 * H * hd * pairs,
+        BF16_FLOPS_PER_S)
+    print_row(row, f"{where}: within one bf16 ulp of plain (over query "
+              f"blocks of {HYB_PLAIN_ROWS} rows; plain_ms is that), "
+              f"relative RMS {rel:.2e}, bitwise equal on a second run")
+    print(f"kernel flash_attention_zamba2: {row['ms']:.4f} ms with the "
+          f"window against {full_ms:.4f} ms without it "
+          f"({full_ms / row['ms']:.2f}x; pairs "
+          f"{window_pairs(S, True) / pairs:.2f}x), bound without it "
+          f"{bound(0, 4 * H * hd * window_pairs(S, True), BF16_FLOPS_PER_S)[0]:.4f} ms",
+          flush=True)
+    return row
+
+
+def k4_window_checks(dev, rng, H: int, K: int, hd: int, window: int):
+    """K4 and its backward with ``window`` at (1, HYB_CHECK_S, H | K, hd)
+    against their plain versions (over ``HYB_HEAD_PARTS`` slices of the
+    heads), in bf16 within one bf16 ulp and in float32 within 1e-4."""
+    from repro_torch.kernels.flash_attention import kernel as fa
+
+    S = HYB_CHECK_S
+    for dtype in (torch.bfloat16, torch.float32):
+        where = f"{dtype} (1, {S}, {H} | {K}, {hd}), window {window}"
+        q, k, v, dout = (
+            torch.from_numpy(rng.standard_normal(shape, np.float32))
+            .to(dev, dtype) for shape in ((1, S, H, hd), (1, S, K, hd),
+                                          (1, S, K, hd), (1, S, H, hd)))
+        out = fa.flash_attention(q, k, v, causal=True, window=window)
+        got = fa.flash_attention_backward(q, k, v, out, dout, causal=True,
+                                          window=window)
+        plain = by_heads(lambda *t: fa.flash_attention_plain(
+            *t, True, window), (q, k, v))
+        want = by_heads(lambda *t: fa.flash_attention_backward_plain(
+            *t, True, window), (q, k, v, out, dout))
+        torch.cuda.synchronize()
+        pairs = [(out, plain)] + list(zip(got, want))
+        err = max(max_abs_err(a, b) for a, b in pairs)
+        if dtype == torch.bfloat16:
+            ok, tol = within_one_bf16_ulp(pairs)[0], "one bf16 ulp"
+        else:
+            ok = all(torch.allclose(a, b, atol=1e-4, rtol=1e-4)
+                     for a, b in pairs)
+            tol = "1e-4"
+        check(ok, f"K4 or its backward at {where} differs from plain by "
+              f"{err} (tolerance {tol})")
+        print(f"kernel flash_attention (+ backward) {where}: out, dq, dk, dv "
+              f"within {tol} of plain (max_abs_err {err:.3e})", flush=True)
+        del q, k, v, dout, out, got, plain, want, pairs
+        torch.cuda.empty_cache()
+
+
+def k5_row(dev, rng, suffix: str, B, S, nh, P, N, chunk):
+    """K5 in bf16 at (B, S, nh, P, N) against its plain version, timed
+    with the L2 flushed beside its bound; the row ``ssd_scan`` +
+    ``suffix``."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.ssd_scan import kernel as ssd_k
+
     x = torch.from_numpy(rng.standard_normal((B, S, nh, P), np.float32)
                          ).to(dev, torch.bfloat16)
     dt = F.softplus(torch.from_numpy(
@@ -1424,18 +1654,20 @@ def model_kernel_phase(dev, seed: int):
         rng.standard_normal(nh).astype(np.float32) * 0.3).to(dev))
     Bm, Cm = (torch.from_numpy(rng.standard_normal((B, S, N), np.float32))
               .to(dev, torch.bfloat16) for _ in range(2))
-    chunk = s.chunk
     y, h = ssd_k.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk)
     y_p, h_p = ssd_k.ssd_scan_plain(x, dt, A, Bm, Cm, chunk)
     torch.cuda.synchronize()
     # the reference's tolerances (tests/test_kernels.py:89): 5e-2 for
     # the bf16 y, 5e-4 for the float32 state
+    where = f"({B}, {S}, {nh}, {P}, {N}), chunk {chunk}"
     err = max(max_abs_err(y, y_p), max_abs_err(h, h_p))
     check(torch.allclose(y.float(), y_p.float(), atol=5e-2, rtol=5e-2)
           and torch.allclose(h, h_p, atol=5e-4, rtol=5e-4),
-          f"K5 ssd_scan differs from its plain version by {err}")
-    rows["ssd_scan"] = dict(
-        name="ssd_scan", route="cuda", source="src/repro_torch/csrc/ssd_scan.cu",
+          f"K5 ssd_scan at {where} differs from its plain version by {err}")
+    del y_p, h_p
+    row = dict(
+        name="ssd_scan" + suffix, route="cuda",
+        source="src/repro_torch/csrc/ssd_scan.cu",
         replaces="src/repro/kernels/ssd_scan/kernel.py:79", max_abs_err=err,
         ms=time_ms(lambda: ssd_k.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk), 20),
         plain_ms=time_ms(lambda: ssd_k.ssd_scan_plain(x, dt, A, Bm, Cm,
@@ -1445,18 +1677,16 @@ def model_kernel_phase(dev, seed: int):
         + 4 * (dt.numel() + A.numel() + h.numel())
     # float32 accuracy on the bf16 tensor cores: a float32 operand as hi +
     # lo bf16 parts, two products
-    rows["ssd_scan"]["bound_ms"], rows["ssd_scan"]["bound_by"] = bound(
+    row["bound_ms"], row["bound_by"] = bound(
         nbytes, ssd_flops(B, S, nh, P, N, 2), BF16_FLOPS_PER_S)
-    print_row(rows["ssd_scan"], "within 5e-2 (y) / 5e-4 (h) of plain")
-    print(f"kernel ssd_scan: bound priced at the float32 CUDA-core rate "
-          f"(before the tensor-core form) "
+    print_row(row, f"{where}: within 5e-2 (y) / 5e-4 (h) of plain")
+    print(f"kernel ssd_scan{suffix}: bound priced at the float32 CUDA-core "
+          f"rate (before the tensor-core form) "
           f"{bound(nbytes, ssd_flops(B, S, nh, P, N))[0]:.4f} ms", flush=True)
-    del x, dt, A, Bm, Cm, y, h, y_p, h_p
-    rows["ssd_scan_bwd"] = ssd_scan_bwd_row(dev, rng, B, S, nh, P, N, chunk)
-    return rows
+    return row
 
 
-def ssd_scan_bwd_row(dev, rng, B, S, nh, P, N, chunk):
+def ssd_scan_bwd_row(dev, rng, B, S, nh, P, N, chunk, suffix: str = ""):
     """K5's backward against its plain version: in float32 at a short
     ragged S with the final state's gradient (checked only), then in
     bf16 at mamba2-1.3b's training shape without it, as the model calls
@@ -1511,7 +1741,7 @@ def ssd_scan_bwd_row(dev, rng, B, S, nh, P, N, chunk):
     del got, again, want
     x, dt, A, Bm, Cm, dy = args
     row = dict(
-        name="ssd_scan_bwd", route="cuda",
+        name="ssd_scan_bwd" + suffix, route="cuda",
         source="src/repro_torch/csrc/ssd_scan_bwd.cu",
         replaces="none (XLA autodiff of src/repro/models/ssm.py:91 "
                  "_ssd_core)",
@@ -1573,57 +1803,75 @@ def ssd_bwd_inputs(dev, rng, B, S, nh, P, N, dtype):
             t((B, S, nh, P)))
 
 
+def window_pairs(S: int, causal: bool, window: int = 0) -> int:
+    """The (query, key) pairs K4's mask keeps per (batch, head): query i
+    sees keys 0..i under the causal mask, the last ``window`` of them
+    under a window, every key without a mask."""
+    if not causal:
+        return S * S
+    if not window or window >= S:
+        return S * (S + 1) // 2
+    return window * (window + 1) // 2 + (S - window) * window
+
+
+def sdpa_mask(S: int, window: int, dev):
+    """The window as ``scaled_dot_product_attention``'s boolean mask
+    (True = attend): ``i - window < j <= i``."""
+    pos = torch.arange(S, device=dev)
+    return (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None]
+                                            - window)
+
+
 def k4_rows(dev, rng, suffix: str, B: int, S: int, H: int, K: int, hd: int,
-            causal: bool):
-    """K4 and its backward in bf16 at (B, S, H | K, hd): each against its
-    plain version on the same inputs, bitwise repeatable, timed with the
-    L2 flushed beside its bound and beside ``scaled_dot_product_attention``
-    (forward, and its backward) as a yardstick the port never calls; the
-    backward's passes timed by ``torch.profiler``.  Returns the two rows,
-    named ``flash_attention`` and ``flash_attention_bwd`` + ``suffix``."""
+            causal: bool, window: int = 0):
+    """K4 and its backward in bf16 at (B, S, H | K, hd) (with ``window``,
+    causal only): each against its plain version on the same inputs,
+    bitwise repeatable, timed with the L2 flushed beside its bound and
+    beside ``scaled_dot_product_attention`` (forward, and its backward;
+    a window below S as a boolean mask) as a yardstick the port never
+    calls; the backward's passes timed by ``torch.profiler``.  Returns
+    the two rows, named ``flash_attention`` and ``flash_attention_bwd`` +
+    ``suffix``."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import kernel as fa
 
-    where = f"({B}, {S}, {H} | {K}, {hd}), {'' if causal else 'non-'}causal"
+    where = f"({B}, {S}, {H} | {K}, {hd}), {'' if causal else 'non-'}causal" \
+        + (f", window {window}" if window else "")
     q, k, v, dout = (
         torch.from_numpy(rng.standard_normal(shape, np.float32))
         .to(dev, torch.bfloat16) for shape in ((B, S, H, hd), (B, S, K, hd),
                                                (B, S, K, hd), (B, S, H, hd)))
-    out = fa.flash_attention(q, k, v, causal=causal)
-    again = fa.flash_attention(q, k, v, causal=causal)
-    plain = fa.flash_attention_plain(q, k, v, causal)
+    out = fa.flash_attention(q, k, v, causal=causal, window=window)
+    again = fa.flash_attention(q, k, v, causal=causal, window=window)
+    plain = fa.flash_attention_plain(q, k, v, causal, window)
     torch.cuda.synchronize()
     check(torch.equal(out, again), f"K4 at {where} gave other bits on a "
           f"second run")
-    # both compute in float32 and round once to bf16 at the end, so they
-    # differ by one bf16 ulp where their float32 sums round apart: at most
-    # 2**-7 of the value (atol covers outputs near 0); one ulp is rare, so
-    # the relative RMS difference stays well below bf16's unit roundoff.
-    # (The reference's 2e-2, tests/test_kernels.py:52, is ~40% of a
-    # typical |output| ~ 0.05 at qwen3-8b's shape.)
     err = max_abs_err(out, plain)
-    rel = float((out.float() - plain.float()).norm() / plain.float().norm())
-    check(torch.allclose(out.float(), plain.float(), atol=1e-3,
-                         rtol=2.0 ** -7) and rel <= BF16_EPS,
-          f"K4 at {where} differs from its plain version by {err} "
+    ok, rel = within_one_bf16_ulp([(out, plain)])
+    check(ok, f"K4 at {where} differs from its plain version by {err} "
           f"(relative RMS {rel})")
     del again, plain
     gqa = dict(enable_gqa=True) if H != K else {}
+    # SDPA's mask: the causal flag, or the window as a boolean mask
+    lib_mask = dict(attn_mask=sdpa_mask(S, window, dev)) \
+        if window and window < S else dict(is_causal=causal)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     fwd = dict(
         name="flash_attention" + suffix, route="cuda",
         source="src/repro_torch/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention/kernel.py:87",
         max_abs_err=err,
-        ms=time_ms(lambda: fa.flash_attention(q, k, v, causal=causal), 20),
-        plain_ms=time_ms(lambda: fa.flash_attention_plain(q, k, v, causal),
+        ms=time_ms(lambda: fa.flash_attention(q, k, v, causal=causal,
+                                              window=window), 20),
+        plain_ms=time_ms(lambda: fa.flash_attention_plain(q, k, v, causal,
+                                                          window),
                          5, warmup=1),
         library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=causal, **gqa), 20))
+            qt, kt, vt, **lib_mask, **gqa), 20))
     # each input read once, the output written once; the two products
-    # over the (query, key) pairs the mask keeps (query i sees keys 0..i
-    # under the causal mask, every key without it)
-    pairs = S * (S + 1) // 2 if causal else S * S
+    # over the (query, key) pairs the mask keeps
+    pairs = window_pairs(S, causal, window)
     size = q.element_size()
     fwd["bound_ms"], fwd["bound_by"] = bound(
         size * (2 * q.numel() + k.numel() + v.numel()),
@@ -1632,26 +1880,20 @@ def k4_rows(dev, rng, suffix: str, B: int, S: int, H: int, K: int, hd: int,
               f"RMS {rel:.2e} <= 2**-8, bitwise equal on a second run")
 
     args = (q, k, v, out, dout)
-    got = fa.flash_attention_backward(*args, causal=causal)
-    again = fa.flash_attention_backward(*args, causal=causal)
-    want = fa.flash_attention_backward_plain(*args, causal)
+    got = fa.flash_attention_backward(*args, causal=causal, window=window)
+    again = fa.flash_attention_backward(*args, causal=causal, window=window)
+    want = fa.flash_attention_backward_plain(*args, causal, window)
     torch.cuda.synchronize()
     check(all(torch.equal(a, b) for a, b in zip(got, again)),
           f"K4 backward at {where} gave other bits on a second run")
-    # as K4: both round once from float32 to bf16, so they differ by one
-    # bf16 ulp where their float32 sums round apart
+    # as K4: both round once from float32 to bf16
     err = max(max_abs_err(a, b) for a, b in zip(got, want))
-    rel = max(float((a.float() - b.float()).norm() / b.float().norm())
-              for a, b in zip(got, want))
-    check(all(torch.allclose(a.float(), b.float(), atol=1e-3,
-                             rtol=2.0 ** -7) for a, b in zip(got, want))
-          and rel <= BF16_EPS,
-          f"K4 backward at {where} differs from its plain version by {err} "
-          f"(relative RMS {rel})")
+    ok, rel = within_one_bf16_ulp(list(zip(got, want)))
+    check(ok, f"K4 backward at {where} differs from its plain version by "
+          f"{err} (relative RMS {rel})")
     del got, again, want
     qt, kt, vt = (t.detach().requires_grad_() for t in (qt, kt, vt))
-    lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
-                                             **gqa)
+    lib_out = F.scaled_dot_product_attention(qt, kt, vt, **lib_mask, **gqa)
     lib_dout = dout.transpose(1, 2)
     bwd = dict(
         name="flash_attention_bwd" + suffix, route="cuda",
@@ -1659,10 +1901,10 @@ def k4_rows(dev, rng, suffix: str, B: int, S: int, H: int, K: int, hd: int,
         replaces="none (XLA autodiff of src/repro/models/layers.py:109 "
                  "_sdpa and :127 blockwise_attention)",
         max_abs_err=err,
-        ms=time_ms(lambda: fa.flash_attention_backward(*args, causal=causal),
-                   10),
+        ms=time_ms(lambda: fa.flash_attention_backward(
+            *args, causal=causal, window=window), 10),
         plain_ms=time_ms(lambda: fa.flash_attention_backward_plain(
-            *args, causal), 3, warmup=1),
+            *args, causal, window), 3, warmup=1),
         library_ms=time_ms(lambda: torch.autograd.grad(
             lib_out, (qt, kt, vt), lib_dout, retain_graph=True), 20))
     # q, k, v, out and dout read once, dq, dk, dv written once; five
@@ -1672,8 +1914,8 @@ def k4_rows(dev, rng, suffix: str, B: int, S: int, H: int, K: int, hd: int,
         5 * 2 * B * H * hd * pairs, BF16_FLOPS_PER_S)
     print_row(bwd, f"{where}: within 1e-3 + 2**-7 |x| of plain, relative "
               f"RMS {rel:.2e} <= 2**-8, bitwise equal on a second run")
-    split = pass_ms(lambda: fa.flash_attention_backward(*args, causal=causal),
-                    BWD_PASSES)
+    split = pass_ms(lambda: fa.flash_attention_backward(
+        *args, causal=causal, window=window), BWD_PASSES)
     print(f"kernel flash_attention_bwd{suffix} by pass (torch.profiler, 10 "
           f"calls): " + ("not measured (the profiler saw no device time)"
                          if not any(n for _, n in split.values()) else
@@ -2055,11 +2297,15 @@ def one_request(model, rng) -> None:
                       " with its own experts (forward given them too)")
 
 
-def ssm_trajectory(model, prefix: torch.Tensor):
+def ssm_trajectory(model, prefix: torch.Tensor, ring_dtype=None):
     """``compare_logits`` of token-by-token decode from zero state
-    against forward on ``prefix``, plus the plain argmax agreement."""
+    against forward on ``prefix``, plus the plain argmax agreement; a
+    hybrid model's attention ring buffers cast to ``ring_dtype`` when
+    given."""
     full, _ = model({"tokens": prefix})
     cache = model.init_cache(*prefix.shape)
+    if ring_dtype is not None:
+        cache.update((k, cache[k].to(ring_dtype)) for k in ("ak", "av"))
     outs = []
     for t in range(prefix.shape[1]):
         lg, cache = model.decode_step(cache, prefix[:, t:t + 1], t)
@@ -2119,17 +2365,20 @@ def ssm_phase(dev, seed: int, card: str) -> int:
 #: of ``_wrappers``), and the per-layer weights (names within a block)
 #: whose gradients reach that kernel (a gradient dropped at the kernel
 #: would leave them without one), for moe also the router's, the
-#: experts' and the shared experts'
+#: experts' and the shared experts'; for the hybrid family the sequence
+#: (default ``TRAIN_S``) and the weights of the shared attention block
+#: (names within it), whose gradients reach K4
 ATTN_WEIGHTS = ("attn.wq", "attn.wk", "attn.wv", "attn.wo")
+SSM_WEIGHTS = tuple(f"ssm.{w}" for w in (
+    "wx", "wB", "wC", "wdt", "A_log", "dt_bias", "conv_x", "conv_B",
+    "conv_C"))
 TRAIN_RUNS = {
     "qwen3-8b": dict(batch=TRAIN_B, lr=TRAIN_LR, layers=None,
                      kernel="flash_attention", bwd="flash_attention_bwd",
                      weights=ATTN_WEIGHTS),
     "mamba2-1.3b": dict(batch=SSM_TRAIN_B, lr=TRAIN_LR, layers=None,
                         kernel="ssd_scan", bwd="ssd_scan_bwd",
-                        weights=tuple(f"ssm.{w}" for w in (
-                            "wx", "wB", "wC", "wdt", "A_log", "dt_bias",
-                            "conv_x", "conv_B", "conv_C"))),
+                        weights=SSM_WEIGHTS),
     "vit-huge": dict(batch=BATCH, lr=VIT_LR, layers=None,
                      kernel="flash_attention", bwd="flash_attention_bwd",
                      weights=ATTN_WEIGHTS),
@@ -2139,7 +2388,25 @@ TRAIN_RUNS = {
         weights=ATTN_WEIGHTS + tuple(f"moe.{w}" for w in (
             "router", "we_gate", "we_up", "we_out", "ws_gate", "ws_up",
             "ws_out"))),
+    "zamba2-1.2b": dict(
+        batch=HYB_TRAIN_B, seq=HYB_TRAIN_S, lr=TRAIN_LR, layers=None,
+        kernel="ssd_scan", bwd="ssd_scan_bwd", weights=SSM_WEIGHTS,
+        shared=ATTN_WEIGHTS + ("mlp.wi_gate", "mlp.wi_up", "mlp.wo")),
 }
+
+
+def step_launches(run, cfg) -> dict:
+    """Kernel launches per training step under block remat: the run's
+    kernel twice per layer (forward, and again when remat recomputes the
+    layer) and its backward once; the hybrid family's shared attention
+    block, which remat leaves out as the reference does, launches K4 and
+    its backward once per site."""
+    L = cfg.n_layers
+    want = {run["kernel"]: 2 * L, run["bwd"]: L}
+    if cfg.family == "hybrid":
+        sites = L // cfg.hybrid_attn_every
+        want.update(flash_attention=sites, flash_attention_bwd=sites)
+    return want
 
 
 def train_phase(dev, seed: int, card: str, arch: str = "qwen3-8b") -> int:
@@ -2153,7 +2420,9 @@ def train_phase(dev, seed: int, card: str, arch: str = "qwen3-8b") -> int:
     finite, non-zero gradients at every step (a gradient dropped at K4 or
     K5 would leave them without one), and the kernel launches twice per
     layer per step (forward, and again under remat) and its backward
-    once.  Returns the backward's launches in the run."""
+    once (``step_launches``; for zamba2-1.2b also K4 and its backward
+    once per site of the shared block, whose weights must get gradients
+    too).  Returns the launch counts of the run."""
     from repro_torch.configs import registry
     from repro_torch.configs.base import ParallelismConfig
     from repro_torch.launch.train import train_steps
@@ -2170,15 +2439,17 @@ def train_phase(dev, seed: int, card: str, arch: str = "qwen3-8b") -> int:
         items, unit = run["batch"], "images"
         what = f"{items} images"
     else:
+        seq = run.get("seq", TRAIN_S)
         rng = np.random.default_rng(seed + 2)
         toks = torch.from_numpy(rng.integers(
-            0, cfg.vocab_size, (run["batch"], TRAIN_S + 1))).to(dev)
+            0, cfg.vocab_size, (run["batch"], seq + 1))).to(dev)
         batch = {"tokens": toks[:, :-1].contiguous(),
                  "labels": toks[:, 1:].contiguous()}
-        items, unit = run["batch"] * TRAIN_S, "tok"
-        what = f"{run['batch']} x {TRAIN_S} tokens"
+        items, unit = run["batch"] * seq, "tok"
+        what = f"{run['batch']} x {seq} tokens"
     L = cfg.n_layers
-    want = {f"blocks.{l}.{w}" for l in range(L) for w in run["weights"]}
+    want = {f"blocks.{l}.{w}" for l in range(L) for w in run["weights"]} \
+        | {f"shared.{w}" for w in run.get("shared", ())}
     norms = []                         # per step: parameter -> grad norm
     update_s = []                      # per step: the update's seconds
 
@@ -2201,14 +2472,11 @@ def train_phase(dev, seed: int, card: str, arch: str = "qwen3-8b") -> int:
     hist = train_steps(model, opt, parallel, lambda: batch, TRAIN_STEPS)
     counts = read_counts()
     peak = torch.cuda.max_memory_allocated()
-    fwd, bwd = counts[run["kernel"]], counts[run["bwd"]]
-    check(fwd == 2 * L * TRAIN_STEPS,
-          f"{run['kernel']} launched {fwd} times in {TRAIN_STEPS} steps, "
-          f"expected {2 * L * TRAIN_STEPS} (forward and remat, once per "
-          f"layer each)")
-    check(bwd == L * TRAIN_STEPS,
-          f"{run['bwd']} launched {bwd} times in {TRAIN_STEPS} steps, "
-          f"expected {L * TRAIN_STEPS}")
+    expect = {k: n * TRAIN_STEPS for k, n in step_launches(run, cfg).items()}
+    for name, n in expect.items():
+        check(counts[name] == n,
+              f"{name} launched {counts[name]} times in {TRAIN_STEPS} steps, "
+              f"expected {n} (step_launches)")
     losses = [h["loss"] for h in hist]
     check(all(np.isfinite(losses)) and losses[-1] < losses[0],
           f"training losses {losses} are not finite or do not fall")
@@ -2232,8 +2500,9 @@ def train_phase(dev, seed: int, card: str, arch: str = "qwen3-8b") -> int:
           f"{[round(x, 3) for x in secs]}; median of steps 2-{TRAIN_STEPS} "
           f"{steady:.3f} s = {items / steady:.1f} {unit}/s; peak memory "
           f"{peak / 1e9:.2f} GB of {torch.cuda.get_device_properties(0).total_memory / 1e9:.1f} GB; "
-          f"{run['kernel']} launches {fwd}, backward {bwd}; gradient norms "
-          f"of {len(want)} per-layer weights ({', '.join(run['weights'])}) "
+          f"launches " + ", ".join(f"{k} {counts[k]}" for k in expect)
+          + f"; gradient norms of {len(want)} weights "
+          f"({', '.join(run['weights'] + run.get('shared', ()))}) "
           f"finite and non-zero at every step, last step min "
           f"{min(norms[-1].values()):.3e} "
           f"({card})", flush=True)
@@ -2250,7 +2519,7 @@ def train_phase(dev, seed: int, card: str, arch: str = "qwen3-8b") -> int:
     del model, opt, batch, params
     gc.collect()
     torch.cuda.empty_cache()
-    return bwd
+    return {k: counts[k] for k in expect}
 
 
 def first_image_batch(dev, seed: int, cfg):
@@ -2659,8 +2928,84 @@ def moe_phase(dev, seed: int, card: str):
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB ({card})",
           flush=True)
     del model
-    bwd = train_phase(dev, seed, card, arch)
+    bwd = train_phase(dev, seed, card, arch)["flash_attention_bwd"]
     return launches, bwd
+
+
+def hybrid_phase(dev, seed: int, card: str):
+    """zamba2-1.2b at its published widths and full depth (random bf16
+    weights from ``--seed``, 1.17 B parameters): (a) ``Model.prefill`` of
+    1 x ``HYB_PREFILL_S`` tokens: K4 once per site of the shared block
+    (window 4096), K5 once per layer, logits equal to forward's and
+    finite, the cache untouched (the reference's ssm and hybrid prefill
+    returns forward's logits and the cache it was given); the device
+    split of one prefill; (b) token-by-token decode from zero state
+    against forward on ``HYB_B`` x ``HYB_PREFIX`` tokens: bf16 reported
+    (as mamba2's), float32 checked, with the ring buffers cast to
+    float32 (the reference's attention cache is bf16, so its float32
+    decode raises TypeError, and so does the port's); the ``Server``
+    defaults between the two; (c) ``train_phase``.  Returns the
+    prefill's launch counts and the training run's."""
+    model = build_model("zamba2-1.2b", dev, seed)
+    cfg = model.cfg
+    sites = cfg.n_layers // cfg.hybrid_attn_every
+    rng = np.random.default_rng(seed + 3)
+    S = HYB_PREFILL_S
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, S))).to(dev)
+    cache = model.init_cache(1, S)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    (logits_pf, new_cache), secs = synced_seconds(
+        lambda: model.prefill({"tokens": tokens}, cache))
+    counts = read_counts()
+    check(counts["flash_attention"] == sites
+          and counts["ssd_scan"] == cfg.n_layers,
+          f"one prefill launched K4 {counts['flash_attention']} times "
+          f"(expected {sites}) and K5 {counts['ssd_scan']} (expected "
+          f"{cfg.n_layers})")
+    check(new_cache is cache and not any(bool(t.any())
+                                         for t in cache.values()),
+          "the hybrid prefill changed the cache it was given")
+    print(f"zamba2-1.2b prefill: 1 x {S} tokens in {secs:.3f} s = "
+          f"{S / secs:.1f} tok/s, K4 launches {counts['flash_attention']} "
+          f"(window {cfg.attn_window}), K5 launches {counts['ssd_scan']}, "
+          f"peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB "
+          f"({card})", flush=True)
+    (full, _), secs = synced_seconds(lambda: model({"tokens": tokens}))
+    check(torch.equal(logits_pf, full), "zamba2-1.2b prefill logits differ "
+          "from forward's")
+    check(bool(torch.isfinite(full).all()), "forward logits are not finite")
+    print(f"zamba2-1.2b forward: {secs:.3f} s; prefill logits equal "
+          f"forward's (torch.equal), finite", flush=True)
+    del full, logits_pf, cache, new_cache
+    torch.cuda.empty_cache()
+    device_split(lambda: model.prefill({"tokens": tokens},
+                                       model.init_cache(1, S)),
+                 "zamba2-1.2b prefill")
+    del tokens
+    torch.cuda.empty_cache()
+    prefix = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (HYB_B, HYB_PREFIX))).to(dev)
+    rel, err, agree = ssm_trajectory(model, prefix)
+    print(f"zamba2-1.2b bf16 decode trajectory over {HYB_PREFIX} tokens vs "
+          f"forward: relative RMS {rel:.5f}, max abs {err:.4f}, argmax "
+          f"agreement {agree:.3f} (reported, not checked)", flush=True)
+    serve_phase(model, seed, card)
+    model.float()
+    rel, err, agree = ssm_trajectory(model, prefix, torch.float32)
+    # as mamba2's float32 trajectory: 1e-4 and the reference's argmax
+    # criterion
+    check(rel <= 1e-4 and agree >= 0.9,
+          f"zamba2-1.2b float32 decode trajectory differs from forward: "
+          f"relative RMS {rel}, argmax agreement {agree}")
+    print(f"zamba2-1.2b float32 decode trajectory over {HYB_PREFIX} tokens "
+          f"(ring buffers cast to float32) vs forward: relative RMS "
+          f"{rel:.2e} (tolerance 1e-4), max abs {err:.2e}, argmax agreement "
+          f"{agree:.3f}", flush=True)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, train_phase(dev, seed, card, "zamba2-1.2b")
 
 
 def main(argv=None) -> int:
@@ -2720,10 +3065,11 @@ def main(argv=None) -> int:
     rows["ssd_scan"]["launches"] = phase(
         "serving, mamba2-1.3b", ssm_phase, dev, args.seed, card)
     rows["flash_attention_bwd"]["launches"] = phase(
-        "training, qwen3-8b", train_phase, dev, args.seed, card)
+        "training, qwen3-8b", train_phase, dev, args.seed,
+        card)["flash_attention_bwd"]
     rows["ssd_scan_bwd"]["launches"] = phase(
         "training, mamba2-1.3b", train_phase, dev, args.seed, card,
-        "mamba2-1.3b")
+        "mamba2-1.3b")["ssd_scan_bwd"]
     counts = phase("training, vit-huge", vit_phase, dev, args.seed, card)
     rows["flash_attention_vit"]["launches"] = counts["flash_attention"]
     rows["flash_attention_bwd_vit"]["launches"] = \
@@ -2733,6 +3079,13 @@ def main(argv=None) -> int:
         rows["flash_attention_bwd_moe"]["launches"] = phase(
             "serving and training, deepseek-moe-16b", moe_phase, dev,
             args.seed, card)
+    counts, train = phase("serving and training, zamba2-1.2b", hybrid_phase,
+                          dev, args.seed, card)
+    rows["flash_attention_zamba2"]["launches"] = counts["flash_attention"]
+    rows["ssd_scan_zamba2"]["launches"] = counts["ssd_scan"]
+    for kernel in ("flash_attention", "flash_attention_bwd", "ssd_scan",
+                   "ssd_scan_bwd"):
+        rows[f"{kernel}_zamba2_train"]["launches"] = train[kernel]
 
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -2747,7 +3100,11 @@ def main(argv=None) -> int:
                             "flash_attention", "flash_attention_bwd",
                             "ssd_scan", "ssd_scan_bwd", "flash_attention_vit",
                             "flash_attention_bwd_vit", "flash_attention_moe",
-                            "flash_attention_bwd_moe")]
+                            "flash_attention_bwd_moe", "flash_attention_zamba2",
+                            "flash_attention_zamba2_train",
+                            "flash_attention_bwd_zamba2_train",
+                            "ssd_scan_zamba2", "ssd_scan_zamba2_train",
+                            "ssd_scan_bwd_zamba2_train")]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -2,8 +2,8 @@
 
 ``get(arch_id)`` returns the full ModelConfig and ``get_reduced(arch_id)``
 the smoke-test config, as in the reference.  Every arch the reference
-knows is listed; the dense, moe, ssm and encoder families are ported so
-far, and asking for an arch of another family (vlm, hybrid, encdec)
+knows is listed; the dense, moe, ssm, hybrid and encoder families are
+ported so far, and asking for an arch of another family (vlm, encdec)
 raises ``NotImplementedError``.  The
 reference's layout policy (``default_parallelism``) belongs to the
 distributed layer, which is not ported yet.
@@ -25,7 +25,7 @@ _MODULES: Dict[str, "str | None"] = {
     "deepseek-moe-16b": "repro_torch.configs.deepseek_moe_16b",
     "kimi-k2-1t-a32b": "repro_torch.configs.kimi_k2_1t_a32b",
     "internvl2-2b": None,
-    "zamba2-1.2b": None,
+    "zamba2-1.2b": "repro_torch.configs.zamba2_1_2b",
     "mamba2-1.3b": "repro_torch.configs.mamba2_1_3b",
     "vit-huge": "repro_torch.configs.vit_huge",
 }

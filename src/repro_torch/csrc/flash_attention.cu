@@ -7,6 +7,15 @@
 //   float32, key tiles wholly above the causal diagonal skipped, one
 //   division by max(l, 1e-20) and one cast to q's type at the end.
 //
+// Sliding window (window > 0, causal only; the reference's Pallas kernel
+// has none, its XLA paths models/layers.py causal_mask and
+// blockwise_attention do): key j is valid for query i iff
+// i - window < j <= i.  A query tile starting at row q0 begins at key tile
+// max(0, q0 - window + 1) / block: key tiles wholly below the window are
+// never loaded, as tiles wholly above the diagonal are not, and the
+// element mask runs only on the tiles that cross the diagonal, the
+// window's lower edge or S.  window >= S gives the bits of window = 0.
+//
 // Layout: the model's (B, S, H, hd) for q and out, (B, S, K, hd) for k/v;
 // query head h reads kv head h / (H / K), so the reference's jnp.repeat
 // of the kv heads is never materialized.  Any S: rows and keys past S
@@ -42,8 +51,11 @@
 //     with the previous tile's P V were tried and were no faster.)
 //   * S = Q K^T is wgmma m64n64k16 with both operands read from shared
 //     memory through 128-byte-swizzle descriptors; the scores stay in
-//     float32 registers, where the mask (masked keys give p = 0 exactly)
-//     and the online softmax run, in the log2 domain.
+//     float32 registers, where the mask (masked keys give p = 0 exactly;
+//     only on a tile that crosses an edge of the mask or S) and the online
+//     softmax run, in the log2 domain.  Under a window a warpgroup also
+//     waits out and releases the tiles below its own rows' window that
+//     the item's first rows need.
 //   * P V: P goes to the A fragments of wgmma m64n{64,128}k16 in registers
 //     (the float32 accumulator layout of a k16 slice is the A layout), V is
 //     read MN-major from shared memory (transpose flag), so V is never
@@ -107,7 +119,7 @@ template <typename T, int HDP>
 __global__ void __launch_bounds__(kThreadsF)
     flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ out, int S, int H,
-                 int K, int hd, int causal, float scale) {
+                 int K, int hd, int causal, int window, float scale) {
   constexpr int kStride = HDP + 1;
   constexpr int kCols = HDP / 16;  // accumulator columns per thread
   extern __shared__ float smem[];
@@ -140,7 +152,9 @@ __global__ void __launch_bounds__(kThreadsF)
   const int n_tiles_all = (S + kBlockK - 1) / kBlockK;
   const int n_tiles = causal ? min(n_tiles_all, (q0 + kBlockQ - 1) / kBlockK + 1)
                              : n_tiles_all;
-  for (int t = 0; t < n_tiles; ++t) {
+  // key tiles wholly below the window of the tile's first row: skipped
+  const int t0 = window > 0 ? max(0, q0 - window + 1) / kBlockK : 0;
+  for (int t = t0; t < n_tiles; ++t) {
     const int k0 = t * kBlockK;
     load_tile<T, HDP>(kv_s, k, b, k0, kvh, S, K, hd);
     __syncthreads();
@@ -169,7 +183,8 @@ __global__ void __launch_bounds__(kThreadsF)
       for (int j = 0; j < 4; ++j) {
         const int c = tx + 16 * j;
         const int kpos = k0 + c;
-        const bool valid = kpos < S && (!causal || kpos <= q0 + r);
+        const bool valid = kpos < S && (!causal || kpos <= q0 + r) &&
+                           (window <= 0 || kpos > q0 + r - window);
         p_s[r * (kBlockK + 1) + c] = valid ? sc[i][j] * scale : neg_inf();
       }
     }
@@ -252,7 +267,7 @@ inline size_t smem_bytes(int hdp) {
 
 template <int HDP>
 int launch(const void* q, const void* k, const void* v, void* out, int B, int S, int H, int K,
-           int hd, int causal, float scale, cudaStream_t stream) {
+           int hd, int causal, int window, float scale, cudaStream_t stream) {
   const size_t smem = smem_bytes(HDP);
   cudaError_t err = cudaFuncSetAttribute(flash_kernel<float, HDP>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -261,7 +276,8 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int S,
   const dim3 grid((S + kBlockQ - 1) / kBlockQ, B * H);
   flash_kernel<float, HDP><<<grid, kThreadsF, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), S, H, K, hd, causal, scale);
+      static_cast<const float*>(v), static_cast<float*>(out), S, H, K, hd, causal, window,
+      scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -292,12 +308,15 @@ struct Layout {
 };
 
 // Work item w of a persistent CTA: (b*h, 128-row query tile), the highest
-// query tiles (the longest under the causal mask) first.
+// query tiles (the longest under the causal mask; under a window every
+// tile past the first window is as long) first, with key tiles
+// [kt0, n_kt): from the first that holds a key in the window of row q0
+// to the last at or below the diagonal of its last row.
 struct Item {
-  int q0, b, h, n_kt;
+  int q0, b, h, kt0, n_kt;
 };
 
-__device__ __forceinline__ Item item_of(int w, int BH, int H, int S, int causal) {
+__device__ __forceinline__ Item item_of(int w, int BH, int H, int S, int causal, int window) {
   const int n_qt = (S + kBlockM - 1) / kBlockM;
   const int qt = causal ? n_qt - 1 - w / BH : w / BH;
   const int bh = w - (w / BH) * BH;
@@ -307,6 +326,7 @@ __device__ __forceinline__ Item item_of(int w, int BH, int H, int S, int causal)
   it.h = bh - it.b * H;
   const int n_kt_all = (S + kBlockN - 1) / kBlockN;
   it.n_kt = causal ? min(n_kt_all, (it.q0 + kBlockM - 1) / kBlockN + 1) : n_kt_all;
+  it.kt0 = window > 0 ? max(0, it.q0 - window + 1) / kBlockN : 0;
   return it;
 }
 
@@ -316,7 +336,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     flash_tc_kernel(const __grid_constant__ CUtensorMap q_map,
                     const __grid_constant__ CUtensorMap k_map,
                     const __grid_constant__ CUtensorMap v_map, __nv_bfloat16* __restrict__ out,
-                    int B, int S, int H, int K, int hd, int causal, float scale_log2) {
+                    int B, int S, int H, int K, int hd, int causal, int window,
+                    float scale_log2) {
   using L = Layout<HDP>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -350,7 +371,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     if (threadIdx.x == 0) {
       int kv = 0;  // K/V tiles issued so far: the ring's stage and phase
       for (int n = 0, w = blockIdx.x; w < n_items; ++n, w += gridDim.x) {
-        const Item it = item_of(w, BH, H, S, causal);
+        const Item it = item_of(w, BH, H, S, causal, window);
         const int kvh = it.h / (H / K);
         const int qb = n & 1;
         mbar_wait(q_empty(qb), ((n >> 1) & 1) ^ 1);
@@ -359,7 +380,7 @@ __global__ void __launch_bounds__(kThreads, 1)
           tma_load_4d(base + L::kQ + qb * L::kQBytes + c * kBlockM * kRowBytes, &q_map,
                       q_full(qb), c * kBox, it.h, it.q0, it.b);
         }
-        for (int t = 0; t < it.n_kt; ++t, ++kv) {
+        for (int t = it.kt0; t < it.n_kt; ++t, ++kv) {
           const int st = kv % kStages;
           mbar_wait(empty(st), ((kv / kStages) & 1) ^ 1);
           const uint32_t k_dst = base + L::kK + st * L::kKVBytes;
@@ -386,18 +407,24 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int cq = 2 * (lane & 3);
     int kv = 0;
     for (int n = 0, w = blockIdx.x; w < n_items; ++n, w += gridDim.x) {
-      const Item it = item_of(w, BH, H, S, causal);
+      const Item it = item_of(w, BH, H, S, causal, window);
       const int qb = n & 1;
       // accumulator element j sits at row r0 + 8 ((j >> 1) & 1), column
       // 8 (j >> 2) + cq + (j & 1) of the warpgroup's 64-row tile
-      const int r0 = it.q0 + 64 * cw + 16 * warp + (lane >> 2);
-      const int last_row = it.q0 + 64 * cw + 63;
-      // key tiles this warpgroup computes; under the causal mask the item's
-      // last tile can lie wholly above its rows
+      const int first_row = it.q0 + 64 * cw;
+      const int r0 = first_row + 16 * warp + (lane >> 2);
+      const int last_row = first_row + 63;
+      // key tiles [mine0, n_mine) this warpgroup computes: under the causal
+      // mask the item's last tile can lie wholly above its rows, under a
+      // window the item's first tile wholly below their window
       const int n_mine = causal ? min(it.n_kt, last_row / kBlockN + 1) : it.n_kt;
+      const int mine0 = window > 0 ? max(0, first_row - window + 1) / kBlockN : 0;
       const uint32_t q_tile = base + L::kQ + qb * L::kQBytes + cw * 64 * kRowBytes;
-      auto stage = [&](int t) { return (kv + t) % kStages; };
-      auto phase = [&](int t) { return static_cast<uint32_t>(((kv + t) / kStages) & 1); };
+      // the ring position of key tile t of this item
+      auto stage = [&](int t) { return (kv + t - it.kt0) % kStages; };
+      auto phase = [&](int t) {
+        return static_cast<uint32_t>(((kv + t - it.kt0) / kStages) & 1);
+      };
       auto release = [&](int t) {
         __syncwarp();
         if (lane == 0) mbar_arrive(empty(stage(t)));
@@ -409,7 +436,15 @@ __global__ void __launch_bounds__(kThreads, 1)
       float m[2] = {kNegInf, kNegInf};
       float l[2] = {0.f, 0.f};  // this thread's share of the row sums
       mbar_wait(q_full(qb), (n >> 1) & 1);
-      for (int t = 0; t < n_mine; ++t) {
+      for (int t = it.kt0; t < it.n_kt; ++t) {
+        if (t < mine0 || t >= n_mine) {
+          // a tile wholly outside the warpgroup's rows' mask: wait for it,
+          // release it
+          mbar_wait(k_full(stage(t)), phase(t));
+          mbar_wait(v_full(stage(t)), phase(t));
+          release(t);
+          continue;
+        }
         const int k0 = t * kBlockN;
         // ---- S = Q K^T on the tensor cores
         mbar_wait(k_full(stage(t)), phase(t));
@@ -428,15 +463,29 @@ __global__ void __launch_bounds__(kThreads, 1)
         wg_commit();
         wg_wait<0>();
         fence_regs(s);
-        // ---- mask, online softmax (log2 domain)
+        // ---- mask (only a tile that crosses the diagonal, the window's
+        // lower edge or S needs one), online softmax (log2 domain)
         float mx[2] = {m[0], m[1]};
+        const bool edge = k0 + kBlockN > S || (causal && k0 + kBlockN - 1 > first_row) ||
+                          (window > 0 && k0 <= last_row - window);
+        auto scale_and_mask = [&](auto masked) {
 #pragma unroll
-        for (int j = 0; j < kBlockN / 2; ++j) {
-          const int key = k0 + 8 * (j >> 2) + cq + (j & 1);
-          const int row = r0 + 8 * ((j >> 1) & 1);
-          const bool ok = key < S && (!causal || key <= row);
-          s[j] = ok ? s[j] * scale_log2 : neg_inf();
-          mx[(j >> 1) & 1] = fmaxf(mx[(j >> 1) & 1], s[j]);
+          for (int j = 0; j < kBlockN / 2; ++j) {
+            s[j] *= scale_log2;
+            if constexpr (decltype(masked)::value) {
+              const int key = k0 + 8 * (j >> 2) + cq + (j & 1);
+              const int row = r0 + 8 * ((j >> 1) & 1);
+              if (!(key < S && (!causal || key <= row) && (window <= 0 || key > row - window))) {
+                s[j] = neg_inf();
+              }
+            }
+            mx[(j >> 1) & 1] = fmaxf(mx[(j >> 1) & 1], s[j]);
+          }
+        };
+        if (edge) {
+          scale_and_mask(std::true_type{});
+        } else {
+          scale_and_mask(std::false_type{});
         }
         float alpha[2];
 #pragma unroll
@@ -482,13 +531,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         fence_regs(o);
         release(t);
       }
-      // a tile wholly above the warpgroup's rows: wait for it, release it
-      for (int t = n_mine; t < it.n_kt; ++t) {
-        mbar_wait(k_full(stage(t)), phase(t));
-        mbar_wait(v_full(stage(t)), phase(t));
-        release(t);
-      }
-      kv += it.n_kt;
+      kv += it.n_kt - it.kt0;
       __syncwarp();
       if (lane == 0) mbar_arrive(q_empty(qb));  // Q is no longer read
       // ---- epilogue: one division, one cast
@@ -515,7 +558,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 template <int HDP>
 int launch(const void* q, const void* k, const void* v, void* out, int B, int S, int H, int K,
-           int hd, int causal, float scale, cudaStream_t stream) {
+           int hd, int causal, int window, float scale, cudaStream_t stream) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return kErrNoEncode;
   CUtensorMap qm, km, vm;
@@ -537,7 +580,7 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int S,
   const long long n_items = static_cast<long long>((S + kBlockM - 1) / kBlockM) * B * H;
   const int grid = static_cast<int>(n_items < n_sm ? n_items : n_sm);
   flash_tc_kernel<HDP><<<grid, kThreads, smem, stream>>>(
-      qm, km, vm, static_cast<__nv_bfloat16*>(out), B, S, H, K, hd, causal,
+      qm, km, vm, static_cast<__nv_bfloat16*>(out), B, S, H, K, hd, causal, window,
       scale * 1.4426950408889634f);
   return static_cast<int>(cudaGetLastError());
 }
@@ -547,30 +590,43 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int S,
 }  // namespace repro_torch
 
 // q/out (B, S, H, hd), k/v (B, S, K, hd), contiguous, float32 (is_bf16 = 0)
-// or bfloat16 (is_bf16 = 1); 8 <= hd <= 128, hd % 8 == 0, H % K == 0
-// (the wrapper checks).  Returns cudaGetLastError() after the launch, or a
-// negative code when a TMA map could not be made (bf16 only).
-extern "C" int repro_torch_flash_attention(const void* q, const void* k, const void* v,
-                                           void* out, int batch, int seq, int heads,
-                                           int kv_heads, int head_dim, int causal,
-                                           float scale, int is_bf16, void* stream) {
+// or bfloat16 (is_bf16 = 1); 8 <= hd <= 128, hd % 8 == 0, H % K == 0; window
+// > 0 only with causal (the wrapper checks).  Returns cudaGetLastError()
+// after the launch, or a negative code when a TMA map could not be made
+// (bf16 only).
+extern "C" int repro_torch_flash_attention_windowed(const void* q, const void* k, const void* v,
+                                                    void* out, int batch, int seq, int heads,
+                                                    int kv_heads, int head_dim, int causal,
+                                                    int window, float scale, int is_bf16,
+                                                    void* stream) {
   if (batch == 0 || seq == 0 || heads == 0) return 0;
   const auto s = static_cast<cudaStream_t>(stream);
   namespace f = repro_torch::flash;
   if (is_bf16) {
     if (head_dim <= 64) {
       return f::tc::launch<64>(q, k, v, out, batch, seq, heads, kv_heads, head_dim, causal,
-                               scale, s);
+                               window, scale, s);
     }
     return f::tc::launch<128>(q, k, v, out, batch, seq, heads, kv_heads, head_dim, causal,
-                              scale, s);
+                              window, scale, s);
   }
   auto run = [&](auto hdp) {
     return f::launch<decltype(hdp)::value>(q, k, v, out, batch, seq, heads, kv_heads, head_dim,
-                                           causal, scale, s);
+                                           causal, window, scale, s);
   };
   if (head_dim <= 16) return run(std::integral_constant<int, 16>{});
   if (head_dim <= 32) return run(std::integral_constant<int, 32>{});
   if (head_dim <= 64) return run(std::integral_constant<int, 64>{});
   return run(std::integral_constant<int, 128>{});
+}
+
+// The entry without a window (window = 0), as before the window came, so
+// that scripts/time_model_kernels.py --against can time an older checkout
+// and today's sources through one call.
+extern "C" int repro_torch_flash_attention(const void* q, const void* k, const void* v,
+                                           void* out, int batch, int seq, int heads,
+                                           int kv_heads, int head_dim, int causal,
+                                           float scale, int is_bf16, void* stream) {
+  return repro_torch_flash_attention_windowed(q, k, v, out, batch, seq, heads, kv_heads,
+                                              head_dim, causal, 0, scale, is_bf16, stream);
 }

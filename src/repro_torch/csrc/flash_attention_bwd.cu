@@ -5,8 +5,10 @@
 // blockwise_attention) with XLA's autodiff, and its Pallas kernel
 // (kernels/flash_attention/kernel.py::flash_attention) has no backward.
 // It differentiates K4's function exactly as K4 computes it: scores
-// s = q.k / sqrt(hd) in float32, keys above the causal diagonal masked at
-// -1e30 (their probability is exactly 0), p = exp(s - m) / max(l, 1e-20).
+// s = q.k / sqrt(hd) in float32, keys above the causal diagonal and, under
+// a sliding window (window > 0, causal only), keys at or below i - window
+// masked at -1e30 (their probability is exactly 0),
+// p = exp(s - m) / max(l, 1e-20).
 // With lse = m + log(max(l, 1e-20)) per query row and D = rowsum(dO o O),
 //   P = exp(S - lse),  dP = dO V^T,  dS = P o (dP - D),
 //   dV = P^T dO,  dK = dS^T Q / sqrt(hd),  dQ = dS K / sqrt(hd),
@@ -14,6 +16,10 @@
 //
 // Layout: K4's, q/out/dout/dq (B, S, H, hd), k/v/dk/dv (B, S, K, hd), query
 // head h on kv head h / (H / K); any S; hd a multiple of 8 up to 128.
+// Under a window every pass skips the tiles wholly outside it, as it skips
+// tiles wholly above the diagonal: a query tile's key tiles start at
+// max(0, q0 - window + 1) / block, and a key tile's query tiles end at the
+// last that holds a row below k0 + block - 1 + window.
 // Three passes, launched back to back on the caller's stream: prep (lse
 // and D per query row, into (B, H, rows) float32 scratch that the wrapper
 // allocates, rows = S rounded up to 128), dK/dV, dQ.  Each output element
@@ -49,8 +55,8 @@
 //     kernels therefore execute ~2x the function's operations, which caps
 //     them near 50% of the bound.
 //   * the softmax work in float32 registers: each exponential one
-//     ex2.approx.ftz, the causal and S mask only on tiles that cross the
-//     diagonal or S (two forms of the loop), work items in a snake order
+//     ex2.approx.ftz, the mask only on tiles that cross the diagonal, the
+//     window's lower edge or S (two forms of the loop), work items in a snake order
 //     of rounds (longest first, every other round reversed), and the
 //     prep and dQ items' inputs double-buffered;
 //   1. prep, per (b, h, 128-row query tile): S = Q K^T over the key tiles
@@ -143,8 +149,24 @@ __device__ __forceinline__ void patch_product(const float* a_s, const float* b_s
   }
 }
 
-__device__ __forceinline__ bool is_valid(int qpos, int kpos, int S, int causal) {
-  return qpos < S && kpos < S && (!causal || kpos <= qpos);
+__device__ __forceinline__ bool is_valid(int qpos, int kpos, int S, int causal, int window) {
+  return qpos < S && kpos < S && (!causal || kpos <= qpos) &&
+         (window <= 0 || kpos > qpos - window);
+}
+
+// the first 64-row key tile that holds a key in the window of query row0
+__host__ __device__ __forceinline__ int first_key_tile(int row0, int window, int rows) {
+  return window > 0 ? (row0 - window + 1 > 0 ? row0 - window + 1 : 0) / rows : 0;
+}
+
+// one past the last 64-row query tile that holds a query seeing a key of
+// [k0, k0 + krows) under the window (rows below k0 + krows - 1 + window),
+// at most n_qt
+__host__ __device__ __forceinline__ int query_tiles_end(int k0, int krows, int window, int n_qt,
+                                                        int rows) {
+  if (window <= 0) return n_qt;
+  const int end = (k0 + krows - 2 + window) / rows + 1;
+  return end < n_qt ? end : n_qt;
 }
 
 // ---------------------------------------------------------------- 1. prep
@@ -154,7 +176,7 @@ __global__ void __launch_bounds__(kThreads)
     bwd_prep_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ out,
                     const T* __restrict__ dout, float* __restrict__ lse,
                     float* __restrict__ delta, int S, int H, int K, int hd, int causal,
-                    float scale) {
+                    int window, float scale) {
   constexpr int kStride = HDP + 1;
   extern __shared__ float smem[];
   float* q_s = smem;                      // [64][HDP + 1]
@@ -194,7 +216,7 @@ __global__ void __launch_bounds__(kThreads)
   }
   const int n_all = (S + kTile - 1) / kTile;
   const int n_tiles = causal ? min(n_all, qt + 1) : n_all;
-  for (int t = 0; t < n_tiles; ++t) {
+  for (int t = first_key_tile(q0, window, kTile); t < n_tiles; ++t) {
     const int k0 = t * kTile;
     __syncthreads();  // the last tile's readers are done
     load_tile<T, HDP>(k_s, k, b, k0, kvh, S, K, hd);
@@ -208,12 +230,12 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         sc[i][j] *= scale;
-        if (is_valid(qpos, k0 + tx + 16 * j, S, causal)) mt = fmaxf(mt, sc[i][j]);
+        if (is_valid(qpos, k0 + tx + 16 * j, S, causal, window)) mt = fmaxf(mt, sc[i][j]);
       }
       float sum = 0.f;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        if (is_valid(qpos, k0 + tx + 16 * j, S, causal)) sum += expf(sc[i][j] - mt);
+        if (is_valid(qpos, k0 + tx + 16 * j, S, causal, window)) sum += expf(sc[i][j] - mt);
       }
       l[i] = l[i] * expf(m[i] - mt) + sum;
       m[i] = mt;
@@ -244,7 +266,7 @@ __global__ void __launch_bounds__(kThreads)
     bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                     const T* __restrict__ dout, const float* __restrict__ lse,
                     const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
-                    int S, int H, int K, int hd, int causal, float scale) {
+                    int S, int H, int K, int hd, int causal, int window, float scale) {
   constexpr int kStride = HDP + 1;
   constexpr int kCols = HDP / 16;
   extern __shared__ float smem[];
@@ -277,7 +299,9 @@ __global__ void __launch_bounds__(kThreads)
       dv_acc[i][j] = 0.f;
     }
 
-  const int nq = (S + kTile - 1) / kTile;
+  // the query tiles that see this key tile: from the diagonal's to the
+  // window's last
+  const int nq = query_tiles_end(k0, kTile, window, (S + kTile - 1) / kTile, kTile);
   for (int g = 0; g < G; ++g) {
     const int h = kvh * G + g;
     const int64_t row_base = (static_cast<int64_t>(b) * H + h) * S;
@@ -302,7 +326,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           const int c = tx + 16 * j;
-          const float p = is_valid(q0 + r, k0 + c, S, causal)
+          const float p = is_valid(q0 + r, k0 + c, S, causal, window)
                               ? expf(sc[i][j] * scale - lse_s[r]) : 0.f;
           p_s[r * kPStride + c] = p;
           ds_s[r * kPStride + c] = p * (dp[i][j] - d_s[r]);
@@ -357,7 +381,7 @@ __global__ void __launch_bounds__(kThreads)
     bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                   const T* __restrict__ dout, const float* __restrict__ lse,
                   const float* __restrict__ delta, T* __restrict__ dq, int S, int H, int K,
-                  int hd, int causal, float scale) {
+                  int hd, int causal, int window, float scale) {
   constexpr int kStride = HDP + 1;
   constexpr int kCols = HDP / 16;
   extern __shared__ float smem[];
@@ -394,7 +418,7 @@ __global__ void __launch_bounds__(kThreads)
 
   const int n_all = (S + kTile - 1) / kTile;
   const int n_tiles = causal ? min(n_all, qt + 1) : n_all;
-  for (int t = 0; t < n_tiles; ++t) {
+  for (int t = first_key_tile(q0, window, kTile); t < n_tiles; ++t) {
     const int k0 = t * kTile;
     __syncthreads();  // the last tile's readers are done
     load_tile<T, HDP>(k_s, k, b, k0, kvh, S, K, hd);
@@ -409,7 +433,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int c = tx + 16 * j;
-        const float p = is_valid(q0 + r, k0 + c, S, causal)
+        const float p = is_valid(q0 + r, k0 + c, S, causal, window)
                             ? expf(sc[i][j] * scale - lse_s[r]) : 0.f;
         ds_s[r * kPStride + c] = p * (dp[i][j] - d_s[r]);
       }
@@ -449,7 +473,7 @@ inline size_t tile_floats(int hdp) { return static_cast<size_t>(kTile) * (hdp + 
 template <typename T, int HDP>
 int launch(const void* q, const void* k, const void* v, const void* out, const void* dout,
            void* dq, void* dk, void* dv, float* lse, float* delta, int B, int S, int H, int K,
-           int hd, int causal, float scale, cudaStream_t stream) {
+           int hd, int causal, int window, float scale, cudaStream_t stream) {
   const size_t prep_smem = sizeof(float) * 2 * tile_floats(HDP);
   const size_t dkdv_smem =
       sizeof(float) * (4 * tile_floats(HDP) + 2 * kTile * kPStride + 2 * kTile);
@@ -472,26 +496,26 @@ int launch(const void* q, const void* k, const void* v, const void* out, const v
   const T* v_ = static_cast<const T*>(v);
   const T* dout_ = static_cast<const T*>(dout);
   bwd_prep_kernel<T, HDP><<<dim3(n_tiles, B * H), kThreads, prep_smem, stream>>>(
-      q_, k_, static_cast<const T*>(out), dout_, lse, delta, S, H, K, hd, causal, scale);
+      q_, k_, static_cast<const T*>(out), dout_, lse, delta, S, H, K, hd, causal, window, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   bwd_dkdv_kernel<T, HDP><<<dim3(n_tiles, B * K), kThreads, dkdv_smem, stream>>>(
       q_, k_, v_, dout_, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), S, H, K, hd,
-      causal, scale);
+      causal, window, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   bwd_dq_kernel<T, HDP><<<dim3(n_tiles, B * H), kThreads, dq_smem, stream>>>(
-      q_, k_, v_, dout_, lse, delta, static_cast<T*>(dq), S, H, K, hd, causal, scale);
+      q_, k_, v_, dout_, lse, delta, static_cast<T*>(dq), S, H, K, hd, causal, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int dispatch(const void* q, const void* k, const void* v, const void* out, const void* dout,
              void* dq, void* dk, void* dv, float* lse, float* delta, int B, int S, int H, int K,
-             int hd, int causal, float scale, cudaStream_t stream) {
+             int hd, int causal, int window, float scale, cudaStream_t stream) {
   auto run = [&](auto hdp) {
     return launch<T, decltype(hdp)::value>(q, k, v, out, dout, dq, dk, dv, lse, delta, B, S, H,
-                                           K, hd, causal, scale, stream);
+                                           K, hd, causal, window, scale, stream);
   };
   if (hd <= 16) return run(std::integral_constant<int, 16>{});
   if (hd <= 32) return run(std::integral_constant<int, 32>{});
@@ -613,12 +637,13 @@ __device__ __forceinline__ int item_of_round(int r, int n_items) {
 
 // Work item w of the prep and dQ passes: (b*h, 128-row query tile), the
 // highest query tiles (the longest under the causal mask) first, with the
-// 64-key tiles that reach its last row.
+// 64-key tiles [kt0, n_kt): from the first in the window of its first row
+// to the last that reaches its last row.
 struct QItem {
-  int q0, b, h, n_kt;
+  int q0, b, h, kt0, n_kt;
 };
 
-__device__ __forceinline__ QItem q_item(int w, int BH, int H, int S, int causal) {
+__device__ __forceinline__ QItem q_item(int w, int BH, int H, int S, int causal, int window) {
   const int n_qt = (S + kBlock - 1) / kBlock;
   const int qt = causal ? n_qt - 1 - w / BH : w / BH;
   const int bh = w - (w / BH) * BH;
@@ -628,15 +653,23 @@ __device__ __forceinline__ QItem q_item(int w, int BH, int H, int S, int causal)
   it.h = bh - it.b * H;
   const int n_kt_all = (S + kRows - 1) / kRows;
   it.n_kt = causal ? min(n_kt_all, (it.q0 + kBlock - 1) / kRows + 1) : n_kt_all;
+  it.kt0 = first_key_tile(it.q0, window, kRows);
   return it;
 }
 
-// the key tiles that the consumer warpgroup of rows [row_lo, row_lo + 64)
-// computes: none for rows wholly past S; under the causal mask the item's
-// last tile can lie wholly above its rows
-__device__ __forceinline__ int tiles_of(const QItem& it, int row_lo, int S, int causal) {
-  if (row_lo >= S) return 0;
-  return causal ? min(it.n_kt, (row_lo + kRows - 1) / kRows + 1) : it.n_kt;
+// the key tiles [lo, hi) that the consumer warpgroup of rows [row_lo,
+// row_lo + 64) computes: none for rows wholly past S; under the causal
+// mask the item's last tile can lie wholly above its rows, under a window
+// its first wholly below their window
+struct Tiles {
+  int lo, hi;
+};
+
+__device__ __forceinline__ Tiles tiles_of(const QItem& it, int row_lo, int S, int causal,
+                                          int window) {
+  if (row_lo >= S) return {it.kt0, it.kt0};
+  return {first_key_tile(row_lo, window, kRows),
+          causal ? min(it.n_kt, (row_lo + kRows - 1) / kRows + 1) : it.n_kt};
 }
 
 // ---------------------------------------------------------------- 1. prep
@@ -664,7 +697,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                    const __grid_constant__ CUtensorMap o_map,
                    const __grid_constant__ CUtensorMap do_map, float* __restrict__ lse,
                    float* __restrict__ delta, int B, int S, int H, int K, int causal,
-                   float scale_log2) {
+                   int window, float scale_log2) {
   using L = PrepLayout<HDP>;
   constexpr int kStages = L::kStages;
   constexpr int kBuffers = L::kBuffers;
@@ -703,7 +736,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int rd = 0, n = 0; rd * static_cast<int>(gridDim.x) < n_items; ++rd) {
         const int w = item_of_round(rd, n_items);
         if (w < 0) continue;
-        const QItem it = q_item(w, BH, H, S, causal);
+        const QItem it = q_item(w, BH, H, S, causal, window);
         const int qb = n % kBuffers;
         const uint32_t in = base + qb * L::kIn;
         mbar_wait(q_empty(qb), ((n / kBuffers) & 1) ^ 1);
@@ -712,7 +745,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         load_tile<HDP, kBlock>(in + L::kO, &o_map, q_full(qb), it.h, it.q0, it.b);
         load_tile<HDP, kBlock>(in + L::kDO, &do_map, q_full(qb), it.h, it.q0, it.b);
         ++n;
-        for (int t = 0; t < it.n_kt; ++t, ++kv) {
+        for (int t = it.kt0; t < it.n_kt; ++t, ++kv) {
           const int st = kv % kStages;
           mbar_wait(k_empty(st), ((kv / kStages) & 1) ^ 1);
           mbar_expect_tx(k_full(st), tile_bytes(HDP, kRows));
@@ -732,30 +765,32 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int rd = 0, n = 0; rd * static_cast<int>(gridDim.x) < n_items; ++rd) {
       const int w = item_of_round(rd, n_items);
       if (w < 0) continue;
-      const QItem it = q_item(w, BH, H, S, causal);
+      const QItem it = q_item(w, BH, H, S, causal, window);
       const int qb = n % kBuffers;
       const uint32_t in = base + qb * L::kIn;
       const int row_lo = it.q0 + kRows * cw;
       // accumulator element j: row r0 + 8 ((j >> 1) & 1), key
       // 8 (j >> 2) + cq + (j & 1) of the tile
       const int r0 = row_lo + 16 * warp + (lane >> 2);
-      const int n_mine = tiles_of(it, row_lo, S, causal);
+      const Tiles mine = tiles_of(it, row_lo, S, causal, window);
       float m[2] = {kNegInf, kNegInf};
       float l[2] = {0.f, 0.f};  // this thread's share of the row sums
       mbar_wait(q_full(qb), (n / kBuffers) & 1);
-      for (int t = 0; t < it.n_kt; ++t) {
-        const int st = (kv + t) % kStages;
-        mbar_wait(k_full(st), ((kv + t) / kStages) & 1);
-        if (t < n_mine) {
+      for (int t = it.kt0; t < it.n_kt; ++t) {
+        const int st = (kv + t - it.kt0) % kStages;
+        mbar_wait(k_full(st), ((kv + t - it.kt0) / kStages) & 1);
+        if (t >= mine.lo && t < mine.hi) {
           const int k0 = t * kRows;
           float s[32];
           scores<HDP, kBlock>(s, in + L::kQ, kRows * cw,
                               base + L::kK + st * tile_bytes(HDP, kRows));
           wg_wait<0>();
           fence_regs(s);
-          // mask (only a tile that crosses the diagonal or S needs one),
-          // online (m, l) in the log2 domain: K4's forward without P V
-          const bool edge = k0 + kRows > S || (causal && k0 + kRows - 1 > row_lo);
+          // mask (only a tile that crosses the diagonal, the window's lower
+          // edge or S needs one), online (m, l) in the log2 domain: K4's
+          // forward without P V
+          const bool edge = k0 + kRows > S || (causal && k0 + kRows - 1 > row_lo) ||
+                            (window > 0 && k0 <= row_lo + kRows - 1 - window);
           auto scale_and_mask = [&](auto masked) {
 #pragma unroll
             for (int j = 0; j < 32; ++j) {
@@ -763,7 +798,9 @@ __global__ void __launch_bounds__(kThreads, 1)
               if constexpr (decltype(masked)::value) {
                 const int key = k0 + 8 * (j >> 2) + cq + (j & 1);
                 const int row = r0 + 8 * ((j >> 1) & 1);
-                if (!(key < S && (!causal || key <= row))) s[j] = neg_inf();
+                if (!(key < S && (!causal || key <= row) && (window <= 0 || key > row - window))) {
+                  s[j] = neg_inf();
+                }
               }
             }
           };
@@ -788,7 +825,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         }
         release(k_empty(st));
       }
-      kv += it.n_kt;
+      kv += it.n_kt - it.kt0;
       // D = rowsum(dO o O) from the tiles in shared memory: two threads per
       // row, each summing half of its 16-byte chunks.  The 128-byte swizzle
       // permutes the chunks within a row alike in O and dO, so chunks at
@@ -851,12 +888,14 @@ struct DkdvLayout {
 
 // Work item w of the dK/dV pass: (b*K + kv head, 128-key tile), the lowest
 // key tiles (the longest under the causal mask) first; its 64-row query
-// tiles start at t0
+// tiles [t0, t1): from the diagonal's to the last that holds a row in the
+// window of its last key
 struct KItem {
-  int k0, b, kvh, t0;
+  int k0, b, kvh, t0, t1;
 };
 
-__device__ __forceinline__ KItem k_item(int w, int BK, int K, int causal) {
+__device__ __forceinline__ KItem k_item(int w, int BK, int K, int causal, int window,
+                                        int n_qt) {
   const int kt = w / BK;
   const int bk = w - kt * BK;
   KItem it;
@@ -864,6 +903,7 @@ __device__ __forceinline__ KItem k_item(int w, int BK, int K, int causal) {
   it.b = bk / K;
   it.kvh = bk - it.b * K;
   it.t0 = causal ? it.k0 / kRows : 0;
+  it.t1 = query_tiles_end(it.k0, kBlock, window, n_qt, kRows);
   return it;
 }
 
@@ -875,7 +915,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                    const __grid_constant__ CUtensorMap do_map, const float* __restrict__ lse,
                    const float* __restrict__ delta, __nv_bfloat16* __restrict__ dk,
                    __nv_bfloat16* __restrict__ dv, int B, int S, int H, int K, int hd, int causal,
-                   float scale_log2, float scale) {
+                   int window, float scale_log2, float scale) {
   using L = DkdvLayout<HDP>;
   constexpr int kStages = L::kStages;
   extern __shared__ uint8_t smem_raw[];
@@ -912,7 +952,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int rd = 0, n = 0; rd * static_cast<int>(gridDim.x) < n_items; ++rd) {
         const int w = item_of_round(rd, n_items);
         if (w < 0) continue;
-        const KItem it = k_item(w, BK, K, causal);
+        const KItem it = k_item(w, BK, K, causal, window, n_qt);
         mbar_wait(kv_empty, (n++ & 1) ^ 1);
         mbar_expect_tx(kv_full, 2 * tile_bytes(HDP, kBlock));
         load_tile<HDP, kBlock>(base + L::kK, &k_map, kv_full, it.kvh, it.k0, it.b);
@@ -920,7 +960,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         for (int g = 0; g < G; ++g) {
           const int h = it.kvh * G + g;
           const int64_t row_base = static_cast<int64_t>(it.b * H + h) * rows;
-          for (int t = it.t0; t < n_qt; ++t, ++c) {
+          for (int t = it.t0; t < it.t1; ++t, ++c) {
             const int st = c % kStages;
             mbar_wait(q_empty(st), ((c / kStages) & 1) ^ 1);
             mbar_expect_tx(q_full(st), 2 * tile_bytes(HDP, kRows) + 2 * kRowsBytes);
@@ -947,7 +987,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int rd = 0, n = 0; rd * static_cast<int>(gridDim.x) < n_items; ++rd) {
       const int w = item_of_round(rd, n_items);
       if (w < 0) continue;
-      const KItem it = k_item(w, BK, K, causal);
+      const KItem it = k_item(w, BK, K, causal, window, n_qt);
       const int key_lo = it.k0 + kRows * cw;
       // accumulator element j: key key0 + 8 ((j >> 1) & 1), column (a query
       // of the tile in S^T, a column of hd in dK and dV) 8 (j >> 2) + cq +
@@ -961,11 +1001,13 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
       mbar_wait(kv_full, n++ & 1);
       for (int g = 0; g < G; ++g) {
-        for (int t = it.t0; t < n_qt; ++t, ++c) {
+        for (int t = it.t0; t < it.t1; ++t, ++c) {
           const int st = c % kStages;
           mbar_wait(q_full(st), (c / kStages) & 1);
-          // skipped: keys wholly past S, or a query tile wholly above them
-          if (key_lo < S && (!causal || t * kRows + kRows - 1 >= key_lo)) {
+          // skipped: keys wholly past S, a query tile wholly above them, or
+          // one wholly past their window
+          if (key_lo < S && (!causal || t * kRows + kRows - 1 >= key_lo) &&
+              (window <= 0 || t * kRows < key_lo + kRows - 1 + window)) {
             const uint32_t q_tile = base + L::kQ + st * tile_bytes(HDP, kRows);
             const uint32_t do_tile = base + L::kDO + st * tile_bytes(HDP, kRows);
             const float* lse_s =
@@ -979,9 +1021,11 @@ __global__ void __launch_bounds__(kThreads, 1)
             fence_regs(s);
             fence_regs(dp);
             // ---- P^T = exp2(S^T scale - lse), dS^T = P^T o (dP^T - D); the
-            // mask only where the tile crosses the diagonal or S
+            // mask only where the tile crosses the diagonal, the window's
+            // edge or S
             const bool edge = key_lo + kRows > S || t * kRows + kRows > S ||
-                              (causal && key_lo + kRows - 1 > t * kRows);
+                              (causal && key_lo + kRows - 1 > t * kRows) ||
+                              (window > 0 && t * kRows + kRows - 1 >= key_lo + window);
             auto probs = [&](auto masked) {
 #pragma unroll
               for (int cc = 0; cc < 8; ++cc) {
@@ -995,7 +1039,10 @@ __global__ void __launch_bounds__(kThreads, 1)
                     const int key = key0 + 8 * (e >> 1);
                     const int query = t * kRows + 8 * cc + cq + (e & 1);
                     // masked pairs give p = 0 exactly
-                    if (!(key < S && query < S && (!causal || key <= query))) p = 0.f;
+                    if (!(key < S && query < S && (!causal || key <= query) &&
+                          (window <= 0 || key > query - window))) {
+                      p = 0.f;
+                    }
                   }
                   s[j] = p;
                   dp[j] = p * (dp[j] - ((e & 1) ? dq.y : dq.x));
@@ -1063,7 +1110,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                  const __grid_constant__ CUtensorMap v_map,
                  const __grid_constant__ CUtensorMap do_map, const float* __restrict__ lse,
                  const float* __restrict__ delta, __nv_bfloat16* __restrict__ dq, int B, int S,
-                 int H, int K, int hd, int causal, float scale_log2, float scale) {
+                 int H, int K, int hd, int causal, int window, float scale_log2, float scale) {
   using L = DqLayout<HDP>;
   constexpr int kStages = L::kStages;
   constexpr int kBuffers = L::kBuffers;
@@ -1103,7 +1150,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int rd = 0, n = 0; rd * static_cast<int>(gridDim.x) < n_items; ++rd) {
         const int w = item_of_round(rd, n_items);
         if (w < 0) continue;
-        const QItem it = q_item(w, BH, H, S, causal);
+        const QItem it = q_item(w, BH, H, S, causal, window);
         const int kvh = it.h / (H / K);
         const int qb = n % kBuffers;
         const uint32_t in = base + qb * L::kIn;
@@ -1112,7 +1159,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         load_tile<HDP, kBlock>(in + L::kQ, &q_map, q_full(qb), it.h, it.q0, it.b);
         load_tile<HDP, kBlock>(in + L::kDO, &do_map, q_full(qb), it.h, it.q0, it.b);
         ++n;
-        for (int t = 0; t < it.n_kt; ++t, ++kv) {
+        for (int t = it.kt0; t < it.n_kt; ++t, ++kv) {
           const int st = kv % kStages;
           mbar_wait(empty(st), ((kv / kStages) & 1) ^ 1);
           mbar_expect_tx(k_full(st), tile_bytes(HDP, kRows));
@@ -1135,14 +1182,14 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int rd = 0, n = 0; rd * static_cast<int>(gridDim.x) < n_items; ++rd) {
       const int w = item_of_round(rd, n_items);
       if (w < 0) continue;
-      const QItem it = q_item(w, BH, H, S, causal);
+      const QItem it = q_item(w, BH, H, S, causal, window);
       const int qb = n % kBuffers;
       const uint32_t in = base + qb * L::kIn;
       const int row_lo = it.q0 + kRows * cw;
       // accumulator element j: row r0 + 8 ((j >> 1) & 1), column (a key of
       // the tile in S, a column of hd in dQ) 8 (j >> 2) + cq + (j & 1)
       const int r0 = row_lo + 16 * warp + (lane >> 2);
-      const int n_mine = tiles_of(it, row_lo, S, causal);
+      const Tiles mine = tiles_of(it, row_lo, S, causal, window);
       const int64_t row_base = static_cast<int64_t>(it.b * H + it.h) * rows;
       const float lse_r[2] = {lse[row_base + r0], lse[row_base + r0 + 8]};
       const float d_r[2] = {delta[row_base + r0], delta[row_base + r0 + 8]};
@@ -1150,12 +1197,12 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
       for (int j = 0; j < HDP / 2; ++j) dq_acc[j] = 0.f;
       mbar_wait(q_full(qb), (n / kBuffers) & 1);
-      for (int t = 0; t < it.n_kt; ++t) {
-        const int st = (kv + t) % kStages;
-        const uint32_t phase = ((kv + t) / kStages) & 1;
+      for (int t = it.kt0; t < it.n_kt; ++t) {
+        const int st = (kv + t - it.kt0) % kStages;
+        const uint32_t phase = ((kv + t - it.kt0) / kStages) & 1;
         mbar_wait(k_full(st), phase);
         mbar_wait(v_full(st), phase);
-        if (t < n_mine) {
+        if (t >= mine.lo && t < mine.hi) {
           const int k0 = t * kRows;
           const uint32_t k_tile = base + L::kK + st * tile_bytes(HDP, kRows);
           // ---- S = Q K^T and dP = dO V^T on the tensor cores
@@ -1167,9 +1214,10 @@ __global__ void __launch_bounds__(kThreads, 1)
           fence_regs(s);
           fence_regs(dp);
           // ---- dS = P o (dP - D), P = exp2(S scale - lse); the mask only
-          // where the tile crosses the diagonal or S
+          // where the tile crosses the diagonal, the window's lower edge or S
           const bool edge = k0 + kRows > S || row_lo + kRows > S ||
-                            (causal && k0 + kRows - 1 > row_lo);
+                            (causal && k0 + kRows - 1 > row_lo) ||
+                            (window > 0 && k0 <= row_lo + kRows - 1 - window);
           auto probs = [&](auto masked) {
 #pragma unroll
             for (int j = 0; j < 32; ++j) {
@@ -1179,7 +1227,10 @@ __global__ void __launch_bounds__(kThreads, 1)
                 const int key = k0 + 8 * (j >> 2) + cq + (j & 1);
                 const int row = r0 + 8 * r;
                 // masked pairs give p = 0 exactly
-                if (!(key < S && row < S && (!causal || key <= row))) p = 0.f;
+                if (!(key < S && row < S && (!causal || key <= row) &&
+                      (window <= 0 || key > row - window))) {
+                  p = 0.f;
+                }
               }
               dp[j] = p * (dp[j] - d_r[r]);
             }
@@ -1200,7 +1251,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         }
         release(empty(st));
       }
-      kv += it.n_kt;
+      kv += it.n_kt - it.kt0;
       release(q_empty(qb));  // Q and dO are no longer read
       // ---- epilogue: scaled once, one cast
 #pragma unroll
@@ -1221,7 +1272,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 template <int HDP>
 int launch(const void* q, const void* k, const void* v, const void* out, const void* dout,
            void* dq, void* dk, void* dv, float* lse, float* delta, int B, int S, int H, int K,
-           int hd, int causal, float scale, cudaStream_t stream) {
+           int hd, int causal, int window, float scale, cudaStream_t stream) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return kErrNoEncode;
   CUtensorMap qm, km, vm, om, dom;
@@ -1253,15 +1304,15 @@ int launch(const void* q, const void* k, const void* v, const void* out, const v
   };
   const float scale_log2 = scale * 1.4426950408889634f;
   prep_tc_kernel<HDP><<<grid(n_tiles * B * H), kThreads, PrepLayout<HDP>::kBytes, stream>>>(
-      qm, km, om, dom, lse, delta, B, S, H, K, causal, scale_log2);
+      qm, km, om, dom, lse, delta, B, S, H, K, causal, window, scale_log2);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
   dkdv_tc_kernel<HDP><<<grid(n_tiles * B * K), kThreads, DkdvLayout<HDP>::kBytes, stream>>>(
       qm, km, vm, dom, lse, delta, static_cast<__nv_bfloat16*>(dk),
-      static_cast<__nv_bfloat16*>(dv), B, S, H, K, hd, causal, scale_log2, scale);
+      static_cast<__nv_bfloat16*>(dv), B, S, H, K, hd, causal, window, scale_log2, scale);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
   dq_tc_kernel<HDP><<<grid(n_tiles * B * H), kThreads, DqLayout<HDP>::kBytes, stream>>>(
       qm, km, vm, dom, lse, delta, static_cast<__nv_bfloat16*>(dq), B, S, H, K, hd, causal,
-      scale_log2, scale);
+      window, scale_log2, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1278,26 +1329,38 @@ extern "C" int repro_torch_flash_attention_bwd_rows(int seq) {
 
 // q/out/dout/dq (B, S, H, hd), k/v/dk/dv (B, S, K, hd), one type (float32,
 // or bfloat16 when is_bf16); lse and delta: (B, H, rows) float32 scratch,
-// rows from repro_torch_flash_attention_bwd_rows.  Returns cudaGetLastError
-// after the launches (0 = launched), or a negative code when a TMA map
-// could not be made (bf16 only).
-extern "C" int repro_torch_flash_attention_bwd(const void* q, const void* k, const void* v,
-                                               const void* out, const void* dout, void* dq,
-                                               void* dk, void* dv, float* lse, float* delta,
-                                               int batch, int seq, int heads, int kv_heads,
-                                               int head_dim, int causal, float scale,
-                                               int is_bf16, void* stream) {
+// rows from repro_torch_flash_attention_bwd_rows; window > 0 only with
+// causal.  Returns cudaGetLastError after the launches (0 = launched), or
+// a negative code when a TMA map could not be made (bf16 only).
+extern "C" int repro_torch_flash_attention_bwd_windowed(
+    const void* q, const void* k, const void* v, const void* out, const void* dout, void* dq,
+    void* dk, void* dv, float* lse, float* delta, int batch, int seq, int heads, int kv_heads,
+    int head_dim, int causal, int window, float scale, int is_bf16, void* stream) {
   if (batch == 0 || seq == 0 || heads == 0) return 0;
   const auto s = static_cast<cudaStream_t>(stream);
   namespace f = repro_torch::flash_bwd;
   if (is_bf16) {
     if (head_dim <= 64) {
       return f::tc::launch<64>(q, k, v, out, dout, dq, dk, dv, lse, delta, batch, seq, heads,
-                               kv_heads, head_dim, causal, scale, s);
+                               kv_heads, head_dim, causal, window, scale, s);
     }
     return f::tc::launch<128>(q, k, v, out, dout, dq, dk, dv, lse, delta, batch, seq, heads,
-                              kv_heads, head_dim, causal, scale, s);
+                              kv_heads, head_dim, causal, window, scale, s);
   }
   return f::dispatch<float>(q, k, v, out, dout, dq, dk, dv, lse, delta, batch, seq, heads,
-                            kv_heads, head_dim, causal, scale, s);
+                            kv_heads, head_dim, causal, window, scale, s);
+}
+
+// The entry without a window (window = 0), as before the window came, so
+// that scripts/time_model_kernels.py --against can time an older checkout
+// and today's sources through one call.
+extern "C" int repro_torch_flash_attention_bwd(const void* q, const void* k, const void* v,
+                                               const void* out, const void* dout, void* dq,
+                                               void* dk, void* dv, float* lse, float* delta,
+                                               int batch, int seq, int heads, int kv_heads,
+                                               int head_dim, int causal, float scale,
+                                               int is_bf16, void* stream) {
+  return repro_torch_flash_attention_bwd_windowed(q, k, v, out, dout, dq, dk, dv, lse, delta,
+                                                  batch, seq, heads, kv_heads, head_dim, causal,
+                                                  0, scale, is_bf16, stream);
 }

@@ -14,7 +14,14 @@ differ at the reference's 2e-2 tolerance.
 
 Unlike the reference kernel, both take the model's layout, q (B, S, H,
 hd) and k/v (B, S, K, hd) with query head ``h`` reading kv head
-``h // (H // K)`` (grouped-query attention), and any S.
+``h // (H // K)`` (grouped-query attention), and any S.  They also take
+the reference's sliding window (``window > 0``, causal only), which its
+Pallas kernel lacks: key j is valid for query i iff ``j <= i`` and
+``j > i - window``, the mask of the reference's XLA paths
+(``models/layers.py`` ``causal_mask`` and ``blockwise_attention``).  The
+kernels skip key tiles wholly outside the window, as they skip tiles
+above the diagonal, and mask elements only on the tiles that cross
+either edge; ``window >= S`` gives the bits of ``window = 0``.
 
 The backward, :func:`flash_attention_backward`, launches the kernels of
 ``csrc/flash_attention_bwd.cu`` for CUDA tensors and takes
@@ -66,23 +73,46 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
                          f"[8, {MAX_HEAD_DIM}], got {hd}")
 
 
+def _check_window(causal: bool, window: int) -> None:
+    if window < 0:
+        raise ValueError(f"window must be >= 0, got {window}")
+    if window and not causal:
+        raise ValueError("a sliding window needs the causal mask (the "
+                         "reference never asks for one without it)")
+
+
+def _masked(S: int, causal: bool, window: int, device):
+    """(S, S) bool, True where key j is invalid for query i: above the
+    diagonal under the causal mask, at or below ``i - window`` under a
+    window; None without a mask."""
+    if not causal:
+        return None
+    pos = torch.arange(S, device=device)
+    above = pos[None, :] > pos[:, None]
+    if window:
+        above |= pos[None, :] <= pos[:, None] - window
+    return above
+
+
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          causal: bool = True) -> torch.Tensor:
+                          causal: bool = True,
+                          window: int = 0) -> torch.Tensor:
     """Plain twin of K4 in the model layout: float32 scores, softmax as
     ``exp(s - max) / max(sum, 1e-20)`` over float32 ``P·V``, cast at the
     end."""
+    _check_window(causal, window)
     B, S, H, hd = q.shape
     K = k.shape[2]
     G = H // K
     qg = q.float().reshape(B, S, K, G, hd)
     s = torch.einsum("bqkgh,bskh->bkgqs", qg, k.float()) * (1.0 / math.sqrt(hd))
-    if causal:
-        pos = torch.arange(S, device=q.device)
-        s = s.masked_fill(pos[None, :] > pos[:, None], NEG_INF)
+    masked = _masked(S, causal, window, q.device)
+    if masked is not None:
+        s = s.masked_fill(masked, NEG_INF)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
-    if causal:
-        p = p.masked_fill(pos[None, :] > pos[:, None], 0.0)
+    if masked is not None:
+        p = p.masked_fill(masked, 0.0)
     l = p.sum(dim=-1, keepdim=True)
     acc = torch.einsum("bkgqs,bskh->bqkgh", p, v.float())
     out = acc / l.clamp_min(1e-20).permute(0, 3, 1, 2, 4)
@@ -90,28 +120,32 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True) -> torch.Tensor:
+                    causal: bool = True, window: int = 0) -> torch.Tensor:
     """K4: q (B, S, H, hd), k/v (B, S, K, hd), float32 or bfloat16, all
-    contiguous -> (B, S, H, hd) in q's type.  A CUDA tensor launches the
-    kernel (or raises); a CPU tensor takes the plain version."""
+    contiguous -> (B, S, H, hd) in q's type; ``window > 0`` (causal only)
+    limits query i to keys ``i - window < j <= i``.  A CUDA tensor
+    launches the kernel (or raises); a CPU tensor takes the plain
+    version."""
     _check(q, k, v)
+    _check_window(causal, window)
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal)
+        return flash_attention_plain(q, k, v, causal, window)
     if q.device.type != "cuda":
         raise ValueError(f"no flash_attention kernel for device {q.device}")
     B, S, H, hd = q.shape
     if B * H > 65_535:
         raise ValueError(f"B*H = {B * H} exceeds the kernel's grid")
     out = torch.empty_like(q)
-    fn = library("flash_attention").repro_torch_flash_attention
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 \
+    fn = library("flash_attention").repro_torch_flash_attention_windowed
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 \
         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(q.device):
         flash_attention.launches += 1
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B,
-                 S, H, k.shape[2], hd, int(causal), 1.0 / math.sqrt(hd),
-                 int(q.dtype == torch.bfloat16), stream_ptr(q))
+                 S, H, k.shape[2], hd, int(causal), int(window),
+                 1.0 / math.sqrt(hd), int(q.dtype == torch.bfloat16),
+                 stream_ptr(q))
     if err in _TMA_ERRORS:
         raise RuntimeError(f"CUDA kernel flash_attention: {_TMA_ERRORS[err]}")
     check_launch("flash_attention", err)
@@ -123,13 +157,15 @@ flash_attention.launches = 0
 
 def flash_attention_backward_plain(q: torch.Tensor, k: torch.Tensor,
                                    v: torch.Tensor, out: torch.Tensor,
-                                   dout: torch.Tensor, causal: bool = True):
+                                   dout: torch.Tensor, causal: bool = True,
+                                   window: int = 0):
     """Plain twin of K4's backward: the explicit formula in float32, not
     autograd through :func:`flash_attention_plain`.  With P the
     normalized probabilities and ``D = rowsum(dout * out)``,
     ``dS = P * (dout V^T - D)``; returns ``(dS K / sqrt(hd),
     dS^T Q / sqrt(hd), P^T dout)`` in q's, k's and v's types, the G query
     heads of a kv head summed into its dK and dV."""
+    _check_window(causal, window)
     B, S, H, hd = q.shape
     K = k.shape[2]
     G = H // K
@@ -138,13 +174,12 @@ def flash_attention_backward_plain(q: torch.Tensor, k: torch.Tensor,
     dog = dout.float().reshape(B, S, K, G, hd)
     kf, vf = k.float(), v.float()
     s = torch.einsum("bqkgh,bskh->bkgqs", qg, kf) * scale
-    if causal:
-        pos = torch.arange(S, device=q.device)
-        above = pos[None, :] > pos[:, None]
-        s = s.masked_fill(above, NEG_INF)
+    masked = _masked(S, causal, window, q.device)
+    if masked is not None:
+        s = s.masked_fill(masked, NEG_INF)
     p = torch.exp(s - s.amax(dim=-1, keepdim=True))
-    if causal:
-        p = p.masked_fill(above, 0.0)
+    if masked is not None:
+        p = p.masked_fill(masked, 0.0)
     p = p / p.sum(dim=-1, keepdim=True).clamp_min(1e-20)
     delta = (dog * out.float().reshape(B, S, K, G, hd)).sum(-1)
     dp = torch.einsum("bqkgh,bskh->bkgqs", dog, vf)
@@ -158,20 +193,23 @@ def flash_attention_backward_plain(q: torch.Tensor, k: torch.Tensor,
 
 def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, out: torch.Tensor,
-                             dout: torch.Tensor, *, causal: bool = True):
+                             dout: torch.Tensor, *, causal: bool = True,
+                             window: int = 0):
     """K4's backward: K4's arguments plus its output ``out`` and the
     output's gradient ``dout`` (both (B, S, H, hd), q's type, contiguous)
     -> ``(dq, dk, dv)`` in the inputs' types.  A CUDA tensor launches the
     kernels (or raises): bfloat16 the tensor-core ones, float32 the
     CUDA-core ones; a CPU tensor takes the plain version."""
     _check(q, k, v)
+    _check_window(causal, window)
     for name, t in (("out", out), ("dout", dout)):
         check_tensor(name, t, q.dtype, 4, q.device)
         if t.shape != q.shape:
             raise ValueError(f"{name} must have q's shape {tuple(q.shape)}, "
                              f"got {tuple(t.shape)}")
     if q.device.type == "cpu":
-        return flash_attention_backward_plain(q, k, v, out, dout, causal)
+        return flash_attention_backward_plain(q, k, v, out, dout, causal,
+                                              window)
     if q.device.type != "cuda":
         raise ValueError(f"no flash_attention_bwd kernel for device "
                          f"{q.device}")
@@ -187,8 +225,8 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
     lse = torch.empty((B, H, rows_fn(S)), dtype=torch.float32,
                       device=q.device)
     delta = torch.empty_like(lse)
-    fn = lib.repro_torch_flash_attention_bwd
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 \
+    fn = lib.repro_torch_flash_attention_bwd_windowed
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 \
         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(q.device):
@@ -196,7 +234,7 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
                  lse.data_ptr(), delta.data_ptr(), B, S, H, k.shape[2], hd,
-                 int(causal), 1.0 / math.sqrt(hd),
+                 int(causal), int(window), 1.0 / math.sqrt(hd),
                  int(q.dtype == torch.bfloat16), stream_ptr(q))
     if err in _TMA_ERRORS:
         raise RuntimeError(f"CUDA kernel flash_attention_bwd: "
@@ -209,16 +247,16 @@ flash_attention_backward.launches = 0
 
 
 class FlashAttention(torch.autograd.Function):
-    """K4 with its backward: ``FlashAttention.apply(q, k, v, causal)``.
-    Forward and backward each take the kernel for CUDA tensors and the
-    plain version for CPU tensors; the backward keeps q, k, v and the
-    output, and recomputes the probabilities from them."""
+    """K4 with its backward: ``FlashAttention.apply(q, k, v, causal,
+    window)``.  Forward and backward each take the kernel for CUDA tensors
+    and the plain version for CPU tensors; the backward keeps q, k, v and
+    the output, and recomputes the probabilities from them."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal):
-        out = flash_attention(q, k, v, causal=causal)
+    def forward(ctx, q, k, v, causal, window=0):
+        out = flash_attention(q, k, v, causal=causal, window=window)
         ctx.save_for_backward(q, k, v, out)
-        ctx.causal = causal
+        ctx.causal, ctx.window = causal, window
         return out
 
     @staticmethod
@@ -227,5 +265,6 @@ class FlashAttention(torch.autograd.Function):
         # the plain forward's output may be a strided view; K4's is not
         dq, dk, dv = flash_attention_backward(q, k, v, out.contiguous(),
                                               dout.contiguous(),
-                                              causal=ctx.causal)
-        return dq, dk, dv, None
+                                              causal=ctx.causal,
+                                              window=ctx.window)
+        return dq, dk, dv, None, None

@@ -17,7 +17,8 @@ from repro_torch.kernels.flash_attention.kernel import FlashAttention
 
 
 def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-              causal: bool = True) -> torch.Tensor:
-    """q: (B, S, H, hd); k/v: (B, S, K, hd) -> (B, S, H, hd)."""
+              causal: bool = True, window: int = 0) -> torch.Tensor:
+    """q: (B, S, H, hd); k/v: (B, S, K, hd) -> (B, S, H, hd); ``window >
+    0`` (causal only) limits query i to keys ``i - window < j <= i``."""
     return FlashAttention.apply(q.contiguous(), k.contiguous(),
-                                v.contiguous(), causal)
+                                v.contiguous(), causal, window)

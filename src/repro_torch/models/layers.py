@@ -11,11 +11,12 @@ Full-sequence self-attention goes through K4 (``ops.flash_mha``): on a
 CUDA tensor the hand-written kernel, on a CPU tensor its plain twin.
 The reference's XLA paths (``_sdpa`` for short sequences,
 ``blockwise_attention`` for long ones) compute the same function and are
-what the parity tests hold the port to.  Sliding windows
-and cross-attention (hence ``Sq != Sk``) belong to families not ported
-yet and raise ``NotImplementedError``.  One-token decode stays plain torch
-(``_sdpa``): the reference has no kernel for it.  There is no
-sharding: the port runs on one device.
+what the parity tests hold the port to, sliding windows (``window > 0``,
+the hybrid family's) included: K4 takes the window and skips the key
+tiles outside it.  Cross-attention (hence ``Sq != Sk``) belongs to a
+family not ported yet and raises ``NotImplementedError``.  One-token
+decode stays plain torch (``_sdpa``), windowed or not: the reference has
+no kernel for it.  There is no sharding: the port runs on one device.
 """
 from __future__ import annotations
 
@@ -148,23 +149,35 @@ def attention(p, x: torch.Tensor, cfg: ModelConfig, *,
               kv_x: Optional[torch.Tensor] = None,
               kv_positions: Optional[torch.Tensor] = None,
               use_rope: bool = True, return_kv: bool = False):
-    """Full-sequence self-attention (training / prefill) through K4."""
-    if window:
-        raise NotImplementedError(
-            "windowed attention (hybrid family) is not ported yet; see "
-            "ROADMAP.md")
+    """Full-sequence self-attention (training / prefill) through K4;
+    ``window > 0`` (with ``causal``) limits query i to keys
+    ``i - window < j <= i``."""
     if kv_x is not None or kv_positions is not None:
         raise NotImplementedError(
             "cross-attention (encdec family) is not ported yet; see "
             "ROADMAP.md")
     q, k, v = _project_qkv(p, x, x, cfg, positions, positions,
                            use_rope=use_rope)
-    out = flash_mha(q, k, v, causal=causal)
+    out = flash_mha(q, k, v, causal=causal, window=window)
     out = out.reshape(x.shape[0], -1, cfg.n_heads * cfg.resolved_head_dim)
     y = torch.matmul(out, p["wo"])
     if return_kv:
         return y, k, v
     return y
+
+
+def write_kv(cache_k: torch.Tensor, cache_v: torch.Tensor, k: torch.Tensor,
+             v: torch.Tensor, slot: int) -> None:
+    """Write one token's key and value (B, 1, K, hd) at ``slot`` of the
+    caches (B, S, K, hd), in place.  Like the reference's
+    ``dynamic_update_slice``, a key of another type than the cache raises
+    ``TypeError``."""
+    if k.dtype != cache_k.dtype or v.dtype != cache_v.dtype:
+        raise TypeError(
+            f"the KV cache is {cache_k.dtype} and the new key/value "
+            f"{k.dtype}: the cache must have the activations' type")
+    cache_k[:, slot] = k[:, 0]
+    cache_v[:, slot] = v[:, 0]
 
 
 def attention_decode(p, x: torch.Tensor, cfg: ModelConfig, *,
@@ -175,26 +188,20 @@ def attention_decode(p, x: torch.Tensor, cfg: ModelConfig, *,
     x: (B, 1, D); cache_k/v: (B, S_max, K, hd); index: the position.
     Writes the new key and value at ``index`` in place (the reference
     returns updated copies; the caller keeps only the new cache either
-    way) and returns ``(y, cache_k, cache_v)``.  Like the reference's
-    ``dynamic_update_slice``, a key of another type than the cache
-    raises ``TypeError``.
+    way; :func:`write_kv`) and returns ``(y, cache_k, cache_v)``.
+    ``window > 0`` masks the keys at or below ``index - window``, as the
+    reference.
     """
-    if window:
-        raise NotImplementedError(
-            "windowed decode (hybrid family) is not ported yet; see "
-            "ROADMAP.md")
     B = x.shape[0]
     hd = cfg.resolved_head_dim
     pos = torch.full((1,), index, dtype=torch.int32, device=x.device)
     q, k, v = _project_qkv(p, x, x, cfg, pos, pos, use_rope=use_rope)
-    if k.dtype != cache_k.dtype or v.dtype != cache_v.dtype:
-        raise TypeError(
-            f"the KV cache is {cache_k.dtype} and the new key/value "
-            f"{k.dtype}: the cache must have the activations' type")
-    cache_k[:, index] = k[:, 0]
-    cache_v[:, index] = v[:, 0]
+    write_kv(cache_k, cache_v, k, v, index)
     S_max = cache_k.shape[1]
-    valid = torch.arange(S_max, device=x.device) <= index
+    kpos = torch.arange(S_max, device=x.device)
+    valid = kpos <= index
+    if window:
+        valid &= kpos > index - window
     mask = valid[None, None, None, None, :]
     out = _sdpa(q, cache_k, cache_v, mask, cfg)
     out = out.reshape(B, 1, cfg.n_heads * hd)

@@ -1,14 +1,24 @@
 """Model assembly: the port's twin of ``repro.models.transformer`` for
 the families ported so far, dense (qwen3, deepseek-7b, qwen1.5,
-llama3), moe (deepseek-moe, kimi-k2), ssm (mamba2) and encoder (vit).
+llama3), moe (deepseek-moe, kimi-k2), ssm (mamba2), hybrid (zamba2) and
+encoder (vit).
 
 The reference scans over stacked per-layer params (``lax.scan``); the
 port loops over the ``nn.ModuleList`` of layers.  ``remat != "none"``
 recomputes each block in the backward
 (``torch.utils.checkpoint.checkpoint(..., use_reentrant=False)`` per
-block, as the reference's ``jax.checkpoint`` of the scan body).  Every other family
-(moe, vlm, encdec/audio, hybrid) raises ``NotImplementedError`` until it
-is ported (ROADMAP.md).
+block, as the reference's ``jax.checkpoint`` of the scan body).  The
+other families (vlm, encdec/audio) raise ``NotImplementedError`` until
+they are ported (ROADMAP.md).
+
+The hybrid family runs the ssm stack with one weight-tied attention
+block (``shared``, unstacked) applied after every ``hybrid_attn_every``
+ssm layers, causal with the sliding window ``attn_window``; the last
+``n_layers % hybrid_attn_every`` layers follow without it.  As in the
+reference, remat checkpoints the ssm layers and not the shared block,
+whose activations are kept.  Its decode keeps, per site of the shared
+block, a ring buffer of W = min(s_max, attn_window) keys and values
+(slot = index % W).
 
 The encoder family classifies ``patch_embeds`` (B, T, d): a learned
 ``pos_embed``, the blocks without causal mask or rotary, and a class
@@ -20,12 +30,14 @@ have.
 Caches are dicts of stacked tensors with the reference's shapes and
 types.  Two differences of form, neither of result:
 
-* dense ``decode_step`` writes the new key and value into the cache in
-  place and returns the same dict (the reference returns an updated
-  copy; its callers keep only the new cache);
-* ssm ``prefill`` returns forward's logits and the cache it was given,
-  untouched — the reference does exactly this (its recurrent-state
-  prefill lives in the serving loop, which prefills token by token).
+* dense and moe ``decode_step`` write the new key and value into the
+  cache in place and return the same dict, and hybrid ``decode_step``
+  writes its ring buffers in place (the reference returns updated
+  copies; its callers keep only the new cache);
+* ssm and hybrid ``prefill`` return forward's logits and the cache they
+  were given, untouched — the reference does exactly this (its
+  recurrent-state prefill lives in the serving loop, which prefills
+  token by token).
 """
 from __future__ import annotations
 
@@ -41,7 +53,7 @@ from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.params import ParamDef, padded_vocab, stack_defs
 
 F32 = torch.float32
-PORTED_FAMILIES = ("dense", "moe", "ssm", "encoder")
+PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "encoder")
 
 
 def check_family(cfg: ModelConfig) -> None:
@@ -73,7 +85,10 @@ def param_defs(cfg: ModelConfig) -> Dict:
     check_family(cfg)
     defs: Dict = {"final_norm": lyr.rmsnorm_def(cfg.d_model),
                   "blocks": stack_defs(_block_defs(
-                      cfg, ssm=cfg.family == "ssm"), cfg.n_layers)}
+                      cfg, ssm=cfg.family in ("ssm", "hybrid")),
+                      cfg.n_layers)}
+    if cfg.family == "hybrid":
+        defs["shared"] = _block_defs(cfg)          # weight-tied attn block
     if cfg.family == "encoder":
         defs["pos_embed"] = ParamDef((cfg.frontend_tokens, cfg.d_model),
                                      (None, "embed"), init="embed")
@@ -89,10 +104,11 @@ def param_defs(cfg: ModelConfig) -> Dict:
 # ---------------------------------------------------------------------------
 
 def _attn_block(lp, x: torch.Tensor, cfg: ModelConfig, positions, *,
-                causal: bool, use_rope: bool = True, return_kv: bool = False):
+                causal: bool, window: int = 0, use_rope: bool = True,
+                return_kv: bool = False):
     h = lyr.rmsnorm(x, lp["ln1"], cfg.norm_eps)
     a = lyr.attention(lp["attn"], h, cfg, positions=positions, causal=causal,
-                      use_rope=use_rope, return_kv=return_kv)
+                      window=window, use_rope=use_rope, return_kv=return_kv)
     if return_kv:
         a, k, v = a
     x = x + a
@@ -122,8 +138,9 @@ def run_decoder(params, x: torch.Tensor, cfg: ModelConfig, positions, *,
     """Run the main block stack. Returns (x, aux_loss)."""
     check_family(cfg)
     aux = torch.zeros((), dtype=F32, device=x.device)
-    for lp in params["blocks"]:
-        if cfg.family == "ssm":
+    every = cfg.hybrid_attn_every if cfg.family == "hybrid" else 0
+    for l, lp in enumerate(params["blocks"]):
+        if cfg.family in ("ssm", "hybrid"):
             def body(h, lp=lp):
                 return _ssm_block(lp, h, cfg), torch.zeros_like(aux)
         else:
@@ -135,6 +152,12 @@ def run_decoder(params, x: torch.Tensor, cfg: ModelConfig, positions, *,
         else:
             x, a = body(x)
         aux = aux + a
+        if every and (l + 1) % every == 0:
+            # the weight-tied block, outside the checkpoint as in the
+            # reference: its activations are kept
+            x, a = _attn_block(params["shared"], x, cfg, positions,
+                               causal=True, window=cfg.attn_window)
+            aux = aux + a
     return x, aux
 
 
@@ -147,7 +170,7 @@ def forward(params, cfg: ModelConfig, batch: Dict, *,
     """Full-sequence forward.  Returns (logits, aux_loss).
 
     batch keys by family:
-      dense/moe/ssm: tokens (B, S) int -> logits (B, S, V_pad)
+      dense/moe/ssm/hybrid: tokens (B, S) int -> logits (B, S, V_pad)
       encoder:   patch_embeds (B, T, d) -> class logits (B, n_classes)
     """
     check_family(cfg)
@@ -215,7 +238,7 @@ def cache_defs(cfg: ModelConfig, B: int, s_max: int) -> Dict:
     s = cfg.ssm
     d_in = s.expand * cfg.d_model
     nh = d_in // s.head_dim
-    return {
+    defs = {
         "h": ParamDef((L, B, nh, s.head_dim, s.d_state),
                       ("layers", "batch", "act_inner", None, None),
                       "zeros", dtype=f32),
@@ -223,6 +246,34 @@ def cache_defs(cfg: ModelConfig, B: int, s_max: int) -> Dict:
                          ("layers", "batch", None, None), "zeros",
                          dtype=bf16),
     }
+    if cfg.family == "hybrid":
+        hd, K = cfg.resolved_head_dim, cfg.n_kv_heads
+        kv_axes = ("layers", "batch", "kv_seq", "act_kv", None)
+        sites = cfg.n_layers // cfg.hybrid_attn_every
+        W = min(s_max, cfg.attn_window or s_max)
+        defs["ak"] = ParamDef((sites, B, W, K, hd), kv_axes, "zeros",
+                              dtype=bf16)
+        defs["av"] = ParamDef((sites, B, W, K, hd), kv_axes, "zeros",
+                              dtype=bf16)
+    return defs
+
+
+def _attention_decode_window(p, x: torch.Tensor, cfg: ModelConfig,
+                             ck: torch.Tensor, cv: torch.Tensor, index: int):
+    """Ring-buffer windowed decode: the new key and value go to slot
+    ``index % W`` of ck/cv (B, W, K, hd), in place; slot j holds position
+    ``index - (index - j) % W``, valid where that is >= 0."""
+    B = x.shape[0]
+    pos = torch.full((1,), index, dtype=torch.int32, device=x.device)
+    q, k, v = lyr._project_qkv(p, x, x, cfg, pos, pos)
+    W = ck.shape[1]
+    lyr.write_kv(ck, cv, k, v, index % W)
+    j = torch.arange(W, device=x.device)
+    slot_pos = index - torch.remainder(index - j, W)
+    mask = (slot_pos >= 0)[None, None, None, None, :]
+    out = lyr._sdpa(q, ck, cv, mask, cfg)
+    out = out.reshape(B, 1, cfg.n_heads * cfg.resolved_head_dim)
+    return torch.matmul(out, p["wo"])
 
 
 def decode_step(params, cfg: ModelConfig, cache: Dict, tokens: torch.Tensor,
@@ -233,7 +284,9 @@ def decode_step(params, cfg: ModelConfig, cache: Dict, tokens: torch.Tensor,
     families update ``cache`` in place and return it (moe drops its
     auxiliary loss); the ssm family returns new state
     tensors (whose conv buffer takes the promoted type, as in the
-    reference).
+    reference), and so does the hybrid family, whose ring buffers ``ak``
+    and ``av`` it updates in place.  As in the reference, float32
+    parameters raise ``TypeError`` on the bf16 attention cache.
     """
     check_family(cfg)
     index = int(index)
@@ -249,6 +302,7 @@ def decode_step(params, cfg: ModelConfig, cache: Dict, tokens: torch.Tensor,
             x = x + _ffn(lp, h, cfg)[0]
         new_cache = cache
     else:
+        every = cfg.hybrid_attn_every if cfg.family == "hybrid" else 0
         hs, convs = [], []
         for l, lp in enumerate(params["blocks"]):
             hh = lyr.rmsnorm(x, lp["ln1"], cfg.norm_eps)
@@ -258,7 +312,17 @@ def decode_step(params, cfg: ModelConfig, cache: Dict, tokens: torch.Tensor,
             x = x + y
             hs.append(h)
             convs.append(conv)
+            if every and (l + 1) % every == 0:
+                site, sp = (l + 1) // every - 1, params["shared"]
+                h = lyr.rmsnorm(x, sp["ln1"], cfg.norm_eps)
+                x = x + _attention_decode_window(
+                    sp["attn"], h, cfg, cache["ak"][site],
+                    cache["av"][site], index)
+                h = lyr.rmsnorm(x, sp["ln2"], cfg.norm_eps)
+                x = x + lyr.mlp(sp["mlp"], h)
         new_cache = {"h": torch.stack(hs), "conv": torch.stack(convs)}
+        if every:
+            new_cache["ak"], new_cache["av"] = cache["ak"], cache["av"]
     x = lyr.rmsnorm(x, params["final_norm"], cfg.norm_eps)
     return lyr.logits(params["embed"], x), new_cache
 
@@ -268,7 +332,7 @@ def prefill(params, cfg: ModelConfig, batch: Dict,
     """Prefill: one forward pass that also fills the decode cache (dense
     and moe; positions past S are zero, as the reference pads them)."""
     check_family(cfg)
-    if cfg.family == "ssm":
+    if cfg.family in ("ssm", "hybrid"):
         logits, _ = forward(params, cfg, batch)
         return logits, cache
 

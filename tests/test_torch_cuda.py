@@ -318,7 +318,10 @@ def test_flash_attention_kernel_matches_plain(cuda, S, H, K, hd, dtype,
                                          (300, 64, 128, 256),
                                          (1000, 64, 128, 128),
                                          (600, 64, 128, 256),
-                                         (400, 48, 80, 150)])
+                                         (400, 48, 80, 150),
+                                         # zamba2-1.2b's P 64, N 64
+                                         (300, 64, 64, 256),
+                                         (1000, 64, 64, 256)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_ssd_scan_kernel_matches_plain(cuda, S, P, N, chunk, dtype):
     """The reference's tolerances (tests/test_kernels.py:89): 5e-4 in
@@ -480,6 +483,110 @@ def test_flash_attention_backward_bf16_tensor_cores_at_model_widths(
         assert g.dtype == torch.bfloat16 and g.shape == w.shape
         assert torch.equal(g, a)
         _k4_within_one_bf16_ulp(g, w)
+
+
+#: the sliding windows of the card tests: 1 (each query its own key),
+#: sizes that are not multiples of the 64-key tiles or the 128-row items,
+#: and one past every S (the causal mask alone)
+_WINDOWS = [1, 37, 64, 100, 129, 2000]
+
+
+@pytest.mark.parametrize("S,hd", [(200, 64), (1000, 128), (1025, 64)])
+@pytest.mark.parametrize("window", _WINDOWS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_window_matches_plain(cuda, S, hd, window, dtype):
+    """K4 and its backward with a sliding window (the hybrid family's)
+    against their plain versions, GQA (8 | 2), S ragged against the
+    tiles: float32 at K4's 2e-5 and the backward's 1e-4, bf16 within one
+    bf16 ulp.  Under window 1 the softmax has one key, so dq and dk are 0
+    by construction: the plain version's are float32 rounding (~1e-7),
+    no scale for a relative measure, and both are held to 1e-5 (the
+    gradients are of order 1).  Two
+    backward calls give the same bits; a window past S gives the bits of
+    no window, forward and backward."""
+    from repro_torch.kernels.flash_attention import kernel as fa
+    q, k, v = _attn_inputs(2, S, 8, 2, hd, dtype, cuda, S + window)
+    dout = _attn_inputs(2, S, 8, 2, hd, dtype, cuda, S + 3)[0]
+    f0, b0 = fa.flash_attention.launches, fa.flash_attention_backward.launches
+    out = fa.flash_attention(q, k, v, causal=True, window=window)
+    got = fa.flash_attention_backward(q, k, v, out, dout, causal=True,
+                                      window=window)
+    again = fa.flash_attention_backward(q, k, v, out, dout, causal=True,
+                                        window=window)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == f0 + 1
+    assert fa.flash_attention_backward.launches == b0 + 2
+    plain = fa.flash_attention_plain(q, k, v, True, window)
+    want = fa.flash_attention_backward_plain(q, k, v, out, dout, True,
+                                             window)
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, plain, atol=2e-5, rtol=2e-5)
+    else:
+        _k4_within_one_bf16_ulp(out, plain)
+    for name, g, a, w in zip(("dq", "dk", "dv"), got, again, want):
+        assert g.dtype == dtype and g.shape == w.shape
+        assert torch.equal(g, a)
+        if window == 1 and name != "dv":
+            assert float(g.abs().max()) <= 1e-5
+            assert float(w.abs().max()) <= 1e-5
+        elif dtype == torch.float32:
+            torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-4)
+        else:
+            _k4_within_one_bf16_ulp(g, w)
+    if window >= S:
+        assert torch.equal(out, fa.flash_attention(q, k, v, causal=True))
+        assert all(torch.equal(a, b) for a, b in zip(
+            got, fa.flash_attention_backward(q, k, v, out, dout,
+                                             causal=True)))
+
+
+def test_flash_attention_window_is_deterministic(cuda):
+    """Two windowed bf16 forwards on the same inputs give the same bits."""
+    from repro_torch.kernels.flash_attention import kernel as fa
+    q, k, v = _attn_inputs(1, 2000, 8, 8, 64, torch.bfloat16, cuda, 11)
+    a = fa.flash_attention(q, k, v, causal=True, window=300)
+    b = fa.flash_attention(q, k, v, causal=True, window=300)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_hybrid_decode_on_card_wraps_the_ring(cuda, dtype):
+    """A reduced-width zamba2 (4 layers, the shared block after every 2)
+    with attn_window 16, so that both K4's window (forward) and the
+    decode ring (W = 16 slots) act within 40 tokens: decode from zero
+    state against forward.  float32 (the ring buffers cast to float32;
+    the reference's bf16 cache makes float32 decode raise): relative RMS
+    1e-4; bf16: the reference's ssm criteria (tests/test_models.py:126).
+    The forward launches K4 once per site, with the window."""
+    import dataclasses
+    from repro_torch.configs import registry
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.models.model import build
+
+    cfg = dataclasses.replace(registry.get_reduced("zamba2-1.2b"),
+                              attn_window=16)
+    model = build(cfg).init(dtype=dtype, seed=0, device=cuda)
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (2, 40))).to(cuda)
+    f0 = fa.flash_attention.launches
+    full = model({"tokens": toks})[0].float()
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches - f0 == 2
+    cache = {k: v.to(dtype) if k in ("ak", "av") else v
+             for k, v in model.init_cache(2, 40).items()}
+    assert cache["ak"].shape[2] == 16
+    outs = []
+    for t in range(40):
+        logits, cache = model.decode_step(cache, toks[:, t:t + 1], t)
+        outs.append(logits[:, 0].float())
+    dec = torch.stack(outs, dim=1)
+    agree = float((dec.argmax(-1) == full.argmax(-1)).float().mean())
+    if dtype == torch.float32:
+        assert _rel_rms(dec, full) <= 1e-4 and agree >= 0.9
+    else:
+        torch.testing.assert_close(dec, full, atol=1.5e-1, rtol=5e-2)
+        assert agree >= 0.9
 
 
 #: the kernels of each route of K4's backward (csrc/flash_attention_bwd.cu)
@@ -697,7 +804,10 @@ def _rel_rms(got, want):
                                          (300, 64, 128, 256),
                                          (1000, 64, 128, 128),
                                          (600, 64, 128, 256),
-                                         (400, 48, 80, 150)])
+                                         (400, 48, 80, 150),
+                                         # zamba2-1.2b's P 64, N 64
+                                         (300, 64, 64, 256),
+                                         (1000, 64, 64, 256)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("with_dh", [False, True])
 def test_ssd_scan_backward_kernel_matches_plain(cuda, S, P, N, chunk, dtype,

@@ -339,8 +339,8 @@ def test_cli_trains_on_cpu(tmp_path, capsys):
     assert "3 steps in" in out and "loss" in out
     assert (tmp_path / "LATEST").read_text() == "step_00000003"
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        train_cli.main(["--arch", "zamba2-1.2b", "--steps", "1", "--device",
-                        "cpu", "--ckpt-dir", str(tmp_path / "zamba2")])
+        train_cli.main(["--arch", "internvl2-2b", "--steps", "1", "--device",
+                        "cpu", "--ckpt-dir", str(tmp_path / "internvl2")])
 
 
 def test_cli_rerun_over_its_checkpoints_trains_no_steps(tmp_path, capsys):

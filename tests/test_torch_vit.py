@@ -152,18 +152,18 @@ def test_forward_matches_reference_bfloat16():
 
 def test_attention_runs_k4_non_causal_through_its_backward(monkeypatch):
     """Every layer's attention reaches K4's autograd route once, with
-    ``causal=False`` in the forward and the backward."""
+    ``causal=False`` and no window in the forward and the backward."""
     _, _, pm = _pair("float32")
     seen = {"fwd": [], "bwd": []}
     fwd, bwd = fa.flash_attention, fa.flash_attention_backward
 
-    def spy_fwd(*args, causal=True):
-        seen["fwd"].append(causal)
-        return fwd(*args, causal=causal)
+    def spy_fwd(*args, causal=True, window=0):
+        seen["fwd"].append(causal or window)
+        return fwd(*args, causal=causal, window=window)
 
-    def spy_bwd(*args, causal=True):
-        seen["bwd"].append(causal)
-        return bwd(*args, causal=causal)
+    def spy_bwd(*args, causal=True, window=0):
+        seen["bwd"].append(causal or window)
+        return bwd(*args, causal=causal, window=window)
 
     monkeypatch.setattr(fa, "flash_attention", spy_fwd)
     monkeypatch.setattr(fa, "flash_attention_backward", spy_bwd)
