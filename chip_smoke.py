@@ -78,7 +78,15 @@ into ``build/repro_torch/``), then:
    their plain versions at (1, 8192, 32 | 32, 64) in bf16 and float32;
    K4 and its backward at its training shape (2, 4096, 32 | 32, 64); K5
    at (1, 32768) and (2, 4096) with 64 heads, P 64, N 64, and its
-   backward at the latter;
+   backward at the latter; then K4 at internvl2-2b's prefill (4, 1024,
+   16 | 8, 128) causal and its backward at (2, 1024); K4 at each of
+   seamless-m4t-large-v2's three shapes, its encoder's (4, 128, 16 |
+   16, 64) non-causal, its decoder's self-attention (4, 1024, 16 | 16,
+   64) causal and its cross-attention (4, 1024 | 128, 16 | 16, 64)
+   non-causal with the key length of its own, each with its backward at
+   the training batch of 2, with the same checks and yardsticks; K4 and
+   its backward non-causal at Sq in ``CROSS_SQ`` x Sk in ``CROSS_SK``,
+   bf16 and float32, against plain, two backward calls bitwise equal;
 6. serving path, dense: qwen3-8b at full width (random weights from
    ``--seed``): ``Model.prefill`` of 4 x 1024 tokens (K4 launched once
    per layer; prefill logits equal forward's; decode at index S agrees
@@ -146,7 +154,28 @@ into ``build/repro_torch/``), then:
     (the shared block is not recomputed), every layer's ssm weights and
     the shared block's attention and MLP weights with finite non-zero
     gradients at every step;
-12. the kernel JSON line, the card line, and the result line
+12. the vlm family, internvl2-2b at its published widths and full depth
+    (24 layers, 1.90 B parameters; ``vlm_encdec_phase``): (a)
+    ``Model.prefill`` of 4 x 1024 positions, 256 patch embeddings and
+    768 tokens (K4 24 times, logits equal to forward's and finite), the
+    device split of one prefill, decode at index 1024 against forward on
+    the extended sequence within ``depth_tolerance(24)``; (b) the
+    ``Server`` defaults; (c) ``train_phase`` on 2 x 1024 positions: K4
+    2 x 24 and its backward 24 times per step, every layer's attention
+    weights with finite non-zero gradients at every step;
+13. the encdec family, seamless-m4t-large-v2 likewise (24 encoder and 24
+    decoder layers, 2.04 B parameters): 1024 tokens over
+    ``encdec_src_len(1024)`` = 128 frames, K4 72 times a prefill, 24 at
+    each of its three shapes (encoder, self, cross at Sq 1024 | Sk 128;
+    ``k4_shapes``), prefill's 128 cross rows replacing the cache's 136,
+    decode at index 1024 reading them; the ``Server`` (which decodes
+    against the zero cross cache, as the reference's) reported; training
+    with K4 2 x 72 and its backward 72 times per step, 2 x 24 and 24 at
+    each shape, gradients checked on the encoder's and the decoder's
+    attention weights and every layer's ``cross.{wq,wk,wv,wo}``, at the
+    rate ``SEAMLESS_LR``; every training phase's last loss must lie
+    below ln V, a uniform prediction's;
+14. the kernel JSON line, the card line, and the result line
     ``{"ok": true, "device": {...}}`` last.
 
 Float32 products on the card run in full float32: the script sets
@@ -450,6 +479,47 @@ def reset_counts():
 
 def read_counts():
     return {name: fn.launches for name, fn in _wrappers().items()}
+
+
+@contextlib.contextmanager
+def k4_shapes():
+    """Within the block, K4's and its backward's launches by shape:
+    yields a Counter of ``(wrapper, Sq, Sk, causal)`` (wrapper
+    ``flash_attention`` or ``flash_attention_bwd``) that each call adds
+    its wrapper's own count's rise to, so a launch counts where the
+    wrapper counts it and nowhere else.  The model reaches both wrappers
+    through the kernel module's globals (``FlashAttention``), where each
+    is swapped for a spy for the block's length.  A wrapper counts on
+    the module's global of its name (``flash_attention.launches += 1``),
+    so within the block it counts on its spy, which starts from the
+    wrapper's count and hands it back after the block."""
+    import collections
+    from repro_torch.kernels.flash_attention import kernel as fa
+
+    seen = collections.Counter()
+    real = {"flash_attention": fa.flash_attention,
+            "flash_attention_backward": fa.flash_attention_backward}
+
+    def spy(name, fn):
+        def call(q, k, *args, causal=True, **kwargs):
+            before = call.launches
+            try:
+                return fn(q, k, *args, causal=causal, **kwargs)
+            finally:
+                seen[(name, q.shape[1], k.shape[1], causal)] += \
+                    call.launches - before
+        call.launches = fn.launches
+        return call
+
+    for attr, name in (("flash_attention", "flash_attention"),
+                       ("flash_attention_backward", "flash_attention_bwd")):
+        setattr(fa, attr, spy(name, real[attr]))
+    try:
+        yield seen
+    finally:
+        for attr, fn in real.items():
+            fn.launches = getattr(fa, attr).launches
+            setattr(fa, attr, fn)
 
 
 def expected_row(ds, sid: int, seed: int) -> np.ndarray:
@@ -1315,6 +1385,14 @@ VIT_TRACED_STEPS = 4
 #: the loss falls ~0.2 a step and the gradients keep their first step's
 #: size (scripts/vit_lr_sweep.py on an H100)
 VIT_LR = 3e-6
+#: seamless-m4t-large-v2's learning rate.  At TRAIN_LR the loss over
+#: its first 8 steps on the fixed batch reads 12.96, 12.58, 12.02, 12.52,
+#: 11.71, ... 10.48: step 4 overshoots above ln V = 12.4537 before it
+#: falls, and so it does with K4's plain versions, float32 parameters or
+#: float32 moments (an AdamW step moves every weight by about lr; the
+#: 258,048-row head included).  At 3e-5 the four steps fall 12.96 ->
+#: 11.97 (scripts/check_training.py on an H100)
+SEAMLESS_LR = 3e-5
 #: the training phase: qwen3-8b at its published widths, TRAIN_B x
 #: TRAIN_S tokens, TRAIN_STEPS steps on one fixed batch
 TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_LR = 2, 1024, 4, 3e-4
@@ -1355,6 +1433,11 @@ HYB_TRAIN_B, HYB_TRAIN_S = 2, 4_096
 #: heads), and the prefill launch against the plain version taken over
 #: query blocks of HYB_PLAIN_ROWS rows, each with the keys of its window
 HYB_CHECK_S, HYB_HEAD_PARTS, HYB_PLAIN_ROWS = 8_192, 4, 1_024
+#: K4 and its backward with a key length of their own (seamless's
+#: cross-attention) are held against plain at these query and key
+#: lengths: queries on both sides of a 128-row item, keys short of one
+#: 64-key tile, ragged past one and two, and one past 1024
+CROSS_SQ, CROSS_SK = (37, 1000), (16, 100, 130, 1025)
 #: mamba2-1.3b forward, and the prefix its decode trajectory checks
 SSM_B, SSM_S, SSM_PREFIX = 4, 1024, 64
 #: mamba2-1.3b's training batch (of TRAIN_S tokens)
@@ -1455,7 +1538,105 @@ def model_kernel_phase(dev, seed: int):
     rows["ssd_scan_bwd"] = ssd_scan_bwd_row(dev, rng, SSM_B, SSM_S, nh,
                                             s.head_dim, s.d_state, s.chunk)
     rows.update(zamba2_kernel_rows(dev, rng))
+    rows.update(vlm_encdec_kernel_rows(dev, rng))
     return rows
+
+
+def seamless_shapes(S: int = None):
+    """seamless-m4t-large-v2's K4 launches over S tokens (default
+    ``ATTN_S``) by row suffix: (Sq, Sk, causal) of its encoder over
+    ``encdec_src_len(S)`` frames (128 at 1024), its decoder's
+    self-attention over the S tokens, and its cross-attention from those
+    tokens to the frames."""
+    from repro_torch.models.transformer import encdec_src_len
+    S = S or ATTN_S
+    src = encdec_src_len(S)
+    return {"_seamless_enc": (src, src, False),
+            "_seamless_self": (S, S, True),
+            "_seamless_cross": (S, src, False)}
+
+
+def vlm_encdec_kernel_rows(dev, rng):
+    """K4 and its backward at the shapes internvl2-2b and
+    seamless-m4t-large-v2 launch them with: internvl2's prefill (4, 1024,
+    16 | 8, 128) causal; each of seamless's three (``seamless_shapes``:
+    the encoder's (4, 128, 16 | 16, 64) non-causal, the decoder's
+    self-attention (4, 1024, ...) causal, and the cross-attention (4,
+    1024 | 128, ...) non-causal, 1024 decoder rows over 128 encoder
+    rows); each backward at the training batch of 2; then
+    ``k4_cross_checks``."""
+    from repro_torch.configs import registry
+
+    rows = {}
+    cfg = registry.get("internvl2-2b")
+    rows["flash_attention_internvl2"], \
+        rows["flash_attention_bwd_internvl2"] = k4_rows(
+            dev, rng, "_internvl2", ATTN_B, ATTN_S, cfg.n_heads,
+            cfg.n_kv_heads, cfg.resolved_head_dim, causal=True,
+            bwd_batch=TRAIN_B)
+    cfg = registry.get("seamless-m4t-large-v2")
+    for suffix, (Sq, Sk, causal) in seamless_shapes().items():
+        rows["flash_attention" + suffix], \
+            rows["flash_attention_bwd" + suffix] = k4_rows(
+                dev, rng, suffix, ATTN_B, Sq, cfg.n_heads, cfg.n_kv_heads,
+                cfg.resolved_head_dim, causal=causal, Sk=Sk,
+                bwd_batch=TRAIN_B)
+    k4_cross_checks(dev, rng, cfg.n_heads, cfg.n_kv_heads,
+                    cfg.resolved_head_dim)
+    return rows
+
+
+def k4_cross_checks(dev, rng, H: int, K: int, hd: int):
+    """K4 and its backward non-causal with a key length of their own,
+    at Sq in ``CROSS_SQ`` and Sk in ``CROSS_SK`` (B 2, seamless's heads),
+    in bf16 and float32, against their plain versions (bf16 within one
+    bf16 ulp, float32 2e-5 forward and 1e-4 gradients), two backward
+    calls bitwise equal."""
+    from repro_torch.kernels.flash_attention import kernel as fa
+
+    worst = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for Sq in CROSS_SQ:
+            for Sk in CROSS_SK:
+                where = f"{dtype} (2, {Sq} | {Sk}, {H} | {K}, {hd})"
+                q, k, v, dout = (
+                    torch.from_numpy(rng.standard_normal(shape, np.float32))
+                    .to(dev, dtype) for shape in (
+                        (2, Sq, H, hd), (2, Sk, K, hd), (2, Sk, K, hd),
+                        (2, Sq, H, hd)))
+                out = fa.flash_attention(q, k, v, causal=False)
+                got = fa.flash_attention_backward(q, k, v, out, dout,
+                                                  causal=False)
+                again = fa.flash_attention_backward(q, k, v, out, dout,
+                                                    causal=False)
+                plain = fa.flash_attention_plain(q, k, v, False)
+                want = fa.flash_attention_backward_plain(q, k, v, out, dout,
+                                                         False)
+                torch.cuda.synchronize()
+                check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                      f"K4 backward at {where} gave other bits on a second "
+                      f"run")
+                check(all(g.shape == t.shape for g, t in zip(got, (q, k, v))),
+                      f"K4 backward at {where}: gradient shapes "
+                      f"{[tuple(g.shape) for g in got]}")
+                if dtype == torch.bfloat16:
+                    ok = within_one_bf16_ulp([(out, plain)])[0] and \
+                        within_one_bf16_ulp(list(zip(got, want)))[0]
+                else:
+                    ok = torch.allclose(out, plain, atol=2e-5, rtol=2e-5) \
+                        and all(torch.allclose(a, b, atol=1e-4, rtol=1e-4)
+                                for a, b in zip(got, want))
+                err = max(max_abs_err(a, b) for a, b in
+                          [(out, plain)] + list(zip(got, want)))
+                check(ok, f"K4 or its backward at {where} differs from plain "
+                      f"by {err}")
+                worst[dtype] = max(worst.get(dtype, 0.0), err)
+    print(f"kernel flash_attention (+ backward) non-causal at Sq "
+          f"{list(CROSS_SQ)} x Sk {list(CROSS_SK)}, (2, Sq | Sk, {H} | {K}, "
+          f"{hd}): within one bf16 ulp of plain in bf16 (max_abs_err "
+          f"{worst[torch.bfloat16]:.3e}), within 2e-5 / 1e-4 in float32 "
+          f"(max_abs_err {worst[torch.float32]:.3e}); two backward calls "
+          f"bitwise equal", flush=True)
 
 
 def zamba2_kernel_rows(dev, rng):
@@ -1803,12 +1984,13 @@ def ssd_bwd_inputs(dev, rng, B, S, nh, P, N, dtype):
             t((B, S, nh, P)))
 
 
-def window_pairs(S: int, causal: bool, window: int = 0) -> int:
+def window_pairs(S: int, causal: bool, window: int = 0, Sk=None) -> int:
     """The (query, key) pairs K4's mask keeps per (batch, head): query i
     sees keys 0..i under the causal mask, the last ``window`` of them
-    under a window, every key without a mask."""
+    under a window, every one of the ``Sk`` keys (default S) without a
+    mask."""
     if not causal:
-        return S * S
+        return S * (Sk or S)
     if not window or window >= S:
         return S * (S + 1) // 2
     return window * (window + 1) // 2 + (S - window) * window
@@ -1823,24 +2005,29 @@ def sdpa_mask(S: int, window: int, dev):
 
 
 def k4_rows(dev, rng, suffix: str, B: int, S: int, H: int, K: int, hd: int,
-            causal: bool, window: int = 0):
+            causal: bool, window: int = 0, Sk=None, bwd_batch=None):
     """K4 and its backward in bf16 at (B, S, H | K, hd) (with ``window``,
-    causal only): each against its plain version on the same inputs,
-    bitwise repeatable, timed with the L2 flushed beside its bound and
-    beside ``scaled_dot_product_attention`` (forward, and its backward;
-    a window below S as a boolean mask) as a yardstick the port never
-    calls; the backward's passes timed by ``torch.profiler``.  Returns
-    the two rows, named ``flash_attention`` and ``flash_attention_bwd`` +
-    ``suffix``."""
+    causal only; with ``Sk`` keys, default S, non-causal where Sk != S):
+    each against its plain version on the same inputs, bitwise
+    repeatable, timed with the L2 flushed beside its bound and beside
+    ``scaled_dot_product_attention`` (forward, and its backward; a window
+    below S as a boolean mask) as a yardstick the port never calls; the
+    backward's passes timed by ``torch.profiler``.  The backward runs on
+    the first ``bwd_batch`` rows of the batch when given (the training
+    shape beside the prefill's).  Returns the two rows, named
+    ``flash_attention`` and ``flash_attention_bwd`` + ``suffix``."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import kernel as fa
 
-    where = f"({B}, {S}, {H} | {K}, {hd}), {'' if causal else 'non-'}causal" \
+    Sk = Sk or S
+    lengths = f"{S}" if Sk == S else f"{S} | {Sk}"
+    mask = f"{'' if causal else 'non-'}causal" \
         + (f", window {window}" if window else "")
+    where = f"({B}, {lengths}, {H} | {K}, {hd}), {mask}"
     q, k, v, dout = (
         torch.from_numpy(rng.standard_normal(shape, np.float32))
-        .to(dev, torch.bfloat16) for shape in ((B, S, H, hd), (B, S, K, hd),
-                                               (B, S, K, hd), (B, S, H, hd)))
+        .to(dev, torch.bfloat16) for shape in ((B, S, H, hd), (B, Sk, K, hd),
+                                               (B, Sk, K, hd), (B, S, H, hd)))
     out = fa.flash_attention(q, k, v, causal=causal, window=window)
     again = fa.flash_attention(q, k, v, causal=causal, window=window)
     plain = fa.flash_attention_plain(q, k, v, causal, window)
@@ -1871,7 +2058,7 @@ def k4_rows(dev, rng, suffix: str, B: int, S: int, H: int, K: int, hd: int,
             qt, kt, vt, **lib_mask, **gqa), 20))
     # each input read once, the output written once; the two products
     # over the (query, key) pairs the mask keeps
-    pairs = window_pairs(S, causal, window)
+    pairs = window_pairs(S, causal, window, Sk)
     size = q.element_size()
     fwd["bound_ms"], fwd["bound_by"] = bound(
         size * (2 * q.numel() + k.numel() + v.numel()),
@@ -1879,6 +2066,11 @@ def k4_rows(dev, rng, suffix: str, B: int, S: int, H: int, K: int, hd: int,
     print_row(fwd, f"{where}: within 1e-3 + 2**-7 |x| of plain, relative "
               f"RMS {rel:.2e} <= 2**-8, bitwise equal on a second run")
 
+    if bwd_batch:
+        B = bwd_batch
+        q, k, v, out, dout = (t[:B] for t in (q, k, v, out, dout))
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        where = f"({B}, {lengths}, {H} | {K}, {hd}), {mask}"
     args = (q, k, v, out, dout)
     got = fa.flash_attention_backward(*args, causal=causal, window=window)
     again = fa.flash_attention_backward(*args, causal=causal, window=window)
@@ -2367,7 +2559,8 @@ def ssm_phase(dev, seed: int, card: str) -> int:
 #: would leave them without one), for moe also the router's, the
 #: experts' and the shared experts'; for the hybrid family the sequence
 #: (default ``TRAIN_S``) and the weights of the shared attention block
-#: (names within it), whose gradients reach K4
+#: (names within it), whose gradients reach K4; for the encdec family the
+#: encoder blocks' weights (names within a block of ``enc_blocks``) too
 ATTN_WEIGHTS = ("attn.wq", "attn.wk", "attn.wv", "attn.wo")
 SSM_WEIGHTS = tuple(f"ssm.{w}" for w in (
     "wx", "wB", "wC", "wdt", "A_log", "dt_bias", "conv_x", "conv_B",
@@ -2392,16 +2585,29 @@ TRAIN_RUNS = {
         batch=HYB_TRAIN_B, seq=HYB_TRAIN_S, lr=TRAIN_LR, layers=None,
         kernel="ssd_scan", bwd="ssd_scan_bwd", weights=SSM_WEIGHTS,
         shared=ATTN_WEIGHTS + ("mlp.wi_gate", "mlp.wi_up", "mlp.wo")),
+    "internvl2-2b": dict(batch=TRAIN_B, lr=TRAIN_LR, layers=None,
+                         kernel="flash_attention", bwd="flash_attention_bwd",
+                         weights=ATTN_WEIGHTS),
+    "seamless-m4t-large-v2": dict(
+        batch=TRAIN_B, lr=SEAMLESS_LR, layers=None, kernel="flash_attention",
+        bwd="flash_attention_bwd",
+        weights=ATTN_WEIGHTS + ("cross.wq", "cross.wk", "cross.wv",
+                                "cross.wo"),
+        encoder=ATTN_WEIGHTS),
 }
 
 
 def step_launches(run, cfg) -> dict:
     """Kernel launches per training step under block remat: the run's
     kernel twice per layer (forward, and again when remat recomputes the
-    layer) and its backward once; the hybrid family's shared attention
+    layer) and its backward once; the encdec family's layers are the
+    encoder's and the decoder's, and a decoder layer launches K4 twice
+    (self- and cross-attention); the hybrid family's shared attention
     block, which remat leaves out as the reference does, launches K4 and
     its backward once per site."""
     L = cfg.n_layers
+    if cfg.family in ("encdec", "audio"):
+        L = 2 * L + cfg.n_encoder_layers
     want = {run["kernel"]: 2 * L, run["bwd"]: L}
     if cfg.family == "hybrid":
         sites = L // cfg.hybrid_attn_every
@@ -2415,17 +2621,23 @@ def train_phase(dev, seed: int, card: str, arch: str = "qwen3-8b") -> int:
     ``launch.train.train_steps``: block remat, int8 moments, one fixed
     batch of ``TRAIN_RUNS[arch]["batch"]`` x ``TRAIN_S`` tokens (for
     vit-huge, of as many images: the first batch of the loader's device
-    route through ``launch.train.patch_batch``).  The loss
-    falls, every layer's weights that reach the family's kernel get
-    finite, non-zero gradients at every step (a gradient dropped at K4 or
-    K5 would leave them without one), and the kernel launches twice per
-    layer per step (forward, and again under remat) and its backward
+    route through ``launch.train.patch_batch``).  The loss falls and
+    ends below ln V (a uniform prediction's), every layer's weights that
+    reach the family's kernel get finite, non-zero gradients at every
+    step (a gradient dropped at K4 or K5 would leave them without one),
+    and the kernel launches twice per layer per step (forward, and again
+    under remat) and its backward
     once (``step_launches``; for zamba2-1.2b also K4 and its backward
     once per site of the shared block, whose weights must get gradients
-    too).  Returns the launch counts of the run."""
+    too; for seamless-m4t-large-v2 the encoder's layers and the decoder's
+    cross-attention too).  The token batch is ``launch.train.
+    lm_batch_source``'s first (with internvl2-2b's patch embeddings and
+    seamless-m4t-large-v2's frame embeddings).  Returns the launch counts
+    of the run, and under ``by_shape`` K4's and its backward's by shape
+    (``k4_shapes``)."""
     from repro_torch.configs import registry
     from repro_torch.configs.base import ParallelismConfig
-    from repro_torch.launch.train import train_steps
+    from repro_torch.launch.train import lm_batch_source, train_steps
     from repro_torch.train.optimizer import AdamW
 
     run = TRAIN_RUNS[arch]
@@ -2440,16 +2652,14 @@ def train_phase(dev, seed: int, card: str, arch: str = "qwen3-8b") -> int:
         what = f"{items} images"
     else:
         seq = run.get("seq", TRAIN_S)
-        rng = np.random.default_rng(seed + 2)
-        toks = torch.from_numpy(rng.integers(
-            0, cfg.vocab_size, (run["batch"], seq + 1))).to(dev)
-        batch = {"tokens": toks[:, :-1].contiguous(),
-                 "labels": toks[:, 1:].contiguous()}
+        batch = lm_batch_source(model, run["batch"], seq, seed + 2)()
         items, unit = run["batch"] * seq, "tok"
         what = f"{run['batch']} x {seq} tokens"
     L = cfg.n_layers
     want = {f"blocks.{l}.{w}" for l in range(L) for w in run["weights"]} \
-        | {f"shared.{w}" for w in run.get("shared", ())}
+        | {f"shared.{w}" for w in run.get("shared", ())} \
+        | {f"enc_blocks.{l}.{w}" for l in range(cfg.n_encoder_layers)
+           for w in run.get("encoder", ())}
     norms = []                         # per step: parameter -> grad norm
     update_s = []                      # per step: the update's seconds
 
@@ -2469,7 +2679,8 @@ def train_phase(dev, seed: int, card: str, arch: str = "qwen3-8b") -> int:
     parallel = ParallelismConfig(remat="block", opt_state_dtype="int8")
     opt = Recording(lr=run["lr"], state_dtype=parallel.opt_state_dtype)
     reset_counts()
-    hist = train_steps(model, opt, parallel, lambda: batch, TRAIN_STEPS)
+    with k4_shapes() as shapes:
+        hist = train_steps(model, opt, parallel, lambda: batch, TRAIN_STEPS)
     counts = read_counts()
     peak = torch.cuda.max_memory_allocated()
     expect = {k: n * TRAIN_STEPS for k, n in step_launches(run, cfg).items()}
@@ -2480,6 +2691,11 @@ def train_phase(dev, seed: int, card: str, arch: str = "qwen3-8b") -> int:
     losses = [h["loss"] for h in hist]
     check(all(np.isfinite(losses)) and losses[-1] < losses[0],
           f"training losses {losses} are not finite or do not fall")
+    # a uniform prediction's loss: a model that fits its batch ends below
+    uniform = math.log(cfg.n_classes if cfg.family == "encoder"
+                       else cfg.vocab_size)
+    check(losses[-1] < uniform, f"training losses {losses} end at or above "
+          f"ln V = {uniform:.4f}, a uniform prediction's loss")
     check(all(np.isfinite(h["grad_norm"]) and h["grad_norm"] > 0
               for h in hist), f"grad norms {[h['grad_norm'] for h in hist]}")
     for i, seen in enumerate(norms):
@@ -2495,14 +2711,16 @@ def train_phase(dev, seed: int, card: str, arch: str = "qwen3-8b") -> int:
     print(f"{arch} training ({depth}, published widths, block "
           f"remat, int8 moments, lr {run['lr']}): {TRAIN_STEPS} steps of "
           f"{what} on one batch; losses "
-          f"{[round(x, 4) for x in losses]}; grad norms "
+          f"{[round(x, 4) for x in losses]} (ln V {uniform:.4f}); grad norms "
           f"{[round(h['grad_norm'], 4) for h in hist]}; step seconds "
           f"{[round(x, 3) for x in secs]}; median of steps 2-{TRAIN_STEPS} "
           f"{steady:.3f} s = {items / steady:.1f} {unit}/s; peak memory "
           f"{peak / 1e9:.2f} GB of {torch.cuda.get_device_properties(0).total_memory / 1e9:.1f} GB; "
           f"launches " + ", ".join(f"{k} {counts[k]}" for k in expect)
           + f"; gradient norms of {len(want)} weights "
-          f"({', '.join(run['weights'] + run.get('shared', ()))}) "
+          f"({', '.join(run['weights'] + run.get('shared', ()))}"
+          + (f"; encoder {', '.join(run['encoder'])}" if "encoder" in run
+             else "") + ") "
           f"finite and non-zero at every step, last step min "
           f"{min(norms[-1].values()):.3e} "
           f"({card})", flush=True)
@@ -2519,7 +2737,7 @@ def train_phase(dev, seed: int, card: str, arch: str = "qwen3-8b") -> int:
     del model, opt, batch, params
     gc.collect()
     torch.cuda.empty_cache()
-    return {k: counts[k] for k in expect}
+    return dict({k: counts[k] for k in expect}, by_shape=shapes)
 
 
 def first_image_batch(dev, seed: int, cfg):
@@ -3008,6 +3226,137 @@ def hybrid_phase(dev, seed: int, card: str):
     return counts, train_phase(dev, seed, card, "zamba2-1.2b")
 
 
+def vlm_encdec_phase(dev, seed: int, card: str, arch: str):
+    """internvl2-2b or seamless-m4t-large-v2 at its published widths and
+    full depth (random bf16 weights from ``--seed``): (a)
+    ``Model.prefill`` of ``ATTN_B`` x ``ATTN_S`` positions from
+    ``launch.train.lm_batch_source`` (internvl2: 256 patch embeddings and
+    768 tokens; seamless: 1024 tokens over ``encdec_src_len(1024)`` = 128
+    frames) into a cache of ``ATTN_S_MAX``: K4 once per attention (24;
+    seamless 72: 24 encoder, 24 self, 24 cross), logits equal to
+    forward's and finite, seamless's cross keys and values *replacing*
+    the cache's 136 rows with prefill's 128, as the reference's; the
+    device split of one prefill; decode at index ``ATTN_S`` (seamless
+    reading prefill's cross rows) against forward on the extended
+    sequence within ``depth_tolerance`` of the decoder's depth, with the
+    argmax check of qwen3-8b's phase; (b) the ``Server`` defaults
+    (seamless's decodes against the zero cross cache of ``init_cache``,
+    as the reference's ``Server``: reported); (c) ``train_phase``.
+    Returns, by the suffix of K4's rows (internvl2's one shape,
+    seamless's three: ``seamless_shapes``), K4's launches at that shape
+    in one prefill and its backward's in the training run."""
+    from repro_torch.launch.train import lm_batch_source
+    from repro_torch.models.transformer import encdec_src_len
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(arch, dev, seed)
+    cfg = model.cfg
+    cross = cfg.family in ("encdec", "audio")
+    batch = lm_batch_source(model, ATTN_B, ATTN_S, seed + 4)()
+    del batch["labels"]
+    if cross:
+        what = (f"{ATTN_B} x {ATTN_S} tokens over "
+                f"{batch['src_embeds'].shape[1]} frames")
+        expect = 2 * cfg.n_layers + cfg.n_encoder_layers
+    else:
+        P = cfg.frontend_tokens
+        what = (f"{ATTN_B} x {ATTN_S} positions ({P} patches + "
+                f"{ATTN_S - P} tokens)")
+        expect = cfg.n_layers
+    cache = model.init_cache(ATTN_B, ATTN_S_MAX)
+    reset_counts()
+    with k4_shapes() as shapes:
+        (logits_pf, new_cache), secs = synced_seconds(
+            lambda: model.prefill(batch, cache))
+    launches = read_counts()["flash_attention"]
+    check(launches == expect, f"K4 launched {launches} times in one {arch} "
+          f"prefill, expected {expect}")
+    if cross:
+        # each of the three shapes once per layer
+        by_row = {suffix: shapes[("flash_attention", *shape)]
+                  for suffix, shape in seamless_shapes().items()}
+        check(set(by_row.values()) == {cfg.n_layers},
+              f"K4's launches in one {arch} prefill by shape {dict(shapes)},"
+              f" expected {cfg.n_layers} at each of {seamless_shapes()}")
+    else:
+        by_row = {"_internvl2": launches}
+    _, warm = synced_seconds(lambda: model.prefill(
+        batch, model.init_cache(ATTN_B, ATTN_S_MAX)))
+    print(f"{arch} prefill: {what} in {secs:.3f} s (first call), "
+          f"{warm:.3f} s = {ATTN_B * ATTN_S / warm:.1f} positions/s "
+          f"(second), K4 launches {launches} ("
+          + ", ".join(f"{suffix[1:]} {n}" for suffix, n in by_row.items())
+          + f"), peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB ({card})",
+          flush=True)
+    if cross:
+        rows = (cache["ck"].shape[2], new_cache["ck"].shape[2])
+        check(rows == (encdec_src_len(ATTN_S_MAX), encdec_src_len(ATTN_S))
+              and new_cache["cv"].shape == new_cache["ck"].shape,
+              f"{arch} prefill's cross cache has {rows[1]} rows (the "
+              f"cache's {rows[0]}), expected {encdec_src_len(ATTN_S)}")
+        print(f"{arch} prefill: the cross keys and values replace the "
+              f"cache's {rows[0]} rows (encdec_src_len({ATTN_S_MAX})) with "
+              f"{rows[1]} (encdec_src_len({ATTN_S})), as the reference's",
+              flush=True)
+    (full, _), secs = synced_seconds(lambda: model(batch))
+    check(torch.equal(logits_pf, full), f"{arch} prefill logits differ from "
+          f"forward's")
+    check(bool(torch.isfinite(full).all()), f"{arch} forward logits are not "
+          f"finite")
+    print(f"{arch} forward: {secs:.3f} s; prefill logits equal forward's "
+          f"(torch.equal), finite", flush=True)
+    del full, logits_pf
+    torch.cuda.empty_cache()
+    device_split(lambda: model.prefill(batch, model.init_cache(
+        ATTN_B, ATTN_S_MAX)), f"{arch} prefill")
+    rng = np.random.default_rng(seed + 5)
+    nxt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (ATTN_B, 1))
+                           ).to(dev)
+    dec, _ = model.decode_step(new_cache, nxt, ATTN_S)
+    ext, _ = model(dict(batch, tokens=torch.cat([batch["tokens"], nxt], 1)))
+    tol = depth_tolerance(cfg.n_layers)
+    rel, err, agree, exact = compare_logits(dec[:, 0], ext[:, -1])
+    check(rel <= tol and agree == 1.0,
+          f"{arch} decode at index {ATTN_S} differs from forward: relative "
+          f"RMS {rel} (tolerance {tol}), argmax agreement {agree} (near "
+          f"ties of {NEAR_TIE_ULPS} bf16 ulps included)")
+    reads = " (prefill's cross rows)" if cross else ""
+    print(f"{arch} decode at index {ATTN_S} vs forward on {ATTN_S + 1} "
+          f"positions{reads}: "
+          f"relative RMS {rel:.5f} (tolerance {tol:.5f}), max abs {err:.4f}, "
+          f"argmax agreement {agree:.2f} with near ties of {NEAR_TIE_ULPS} "
+          f"ulps, {exact:.2f} exact", flush=True)
+    del cache, new_cache, dec, ext, batch
+    torch.cuda.empty_cache()
+    serve_phase(model, seed, card)
+    if cross:
+        print(f"{arch} serving: the Server prefills through the decode step "
+              f"and decodes against init_cache's zero cross keys and values "
+              f"(the encoder never runs), as the reference's Server "
+              f"(reported, not checked against forward)", flush=True)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    train = train_phase(dev, seed, card, arch)
+    if cross:
+        shapes = seamless_shapes(TRAIN_S)
+        bwd = {suffix: train["by_shape"][("flash_attention_bwd", *shape)]
+               for suffix, shape in shapes.items()}
+        fwd = {suffix: train["by_shape"][("flash_attention", *shape)]
+               for suffix, shape in shapes.items()}
+        check(set(bwd.values()) == {cfg.n_layers * TRAIN_STEPS}
+              and set(fwd.values()) == {2 * cfg.n_layers * TRAIN_STEPS},
+              f"{arch} training: K4 by shape {fwd}, its backward {bwd}, "
+              f"expected {2 * cfg.n_layers} and {cfg.n_layers} per step at "
+              f"each of {shapes}")
+    else:
+        bwd = {"_internvl2": train["flash_attention_bwd"]}
+    return {suffix: (by_row[suffix], bwd[suffix]) for suffix in by_row}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3086,6 +3435,12 @@ def main(argv=None) -> int:
     for kernel in ("flash_attention", "flash_attention_bwd", "ssd_scan",
                    "ssd_scan_bwd"):
         rows[f"{kernel}_zamba2_train"]["launches"] = train[kernel]
+    for arch in ("internvl2-2b", "seamless-m4t-large-v2"):
+        for suffix, (fwd, bwd) in phase(
+                f"serving and training, {arch}", vlm_encdec_phase, dev,
+                args.seed, card, arch).items():
+            rows["flash_attention" + suffix]["launches"] = fwd
+            rows["flash_attention_bwd" + suffix]["launches"] = bwd
 
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -3104,7 +3459,15 @@ def main(argv=None) -> int:
                             "flash_attention_zamba2_train",
                             "flash_attention_bwd_zamba2_train",
                             "ssd_scan_zamba2", "ssd_scan_zamba2_train",
-                            "ssd_scan_bwd_zamba2_train")]
+                            "ssd_scan_bwd_zamba2_train",
+                            "flash_attention_internvl2",
+                            "flash_attention_bwd_internvl2",
+                            "flash_attention_seamless_enc",
+                            "flash_attention_bwd_seamless_enc",
+                            "flash_attention_seamless_self",
+                            "flash_attention_bwd_seamless_self",
+                            "flash_attention_seamless_cross",
+                            "flash_attention_bwd_seamless_cross")]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -37,8 +37,15 @@ RMS against plain is printed beside its time).
 ``--against DIR`` times the K4, K4-backward, K5 and K5-backward sources
 of another checkout (``DIR/src/repro_torch/csrc``, e.g. the parent
 commit unpacked with ``git archive``) beside the committed ones, built
-and called the same way, in turns (there, here, here, there); a source
-the other checkout lacks is reported and skipped.  Through today's
+and called the same way, in turns (there, here, here, there), and says
+whether the two give the same bits (K4, K4's backward and K5 through
+their C entries on one set of inputs); a source the other checkout lacks
+is reported and skipped.  It then holds K4 and its backward of the two
+checkouts bitwise through the C entries without a key length
+(``repro_torch_flash_attention{,_bwd}`` and their ``_windowed`` forms,
+which every checkout since the window has) over ``AGAINST_CASES``:
+bf16 and float32, causal and not, and causal with a window, at
+qwen3-8b's and seamless-m4t-large-v2's heads (``k4_entries_bitwise``).  Through today's
 wrapper a K5-backward library without the chunked C entry (its first,
 CUDA-core design) is called through the entry without the chunk.
 """
@@ -383,7 +390,7 @@ def launcher(lib: ctypes.CDLL, stem: str, attn, ssm, ssm_bwd):
         B, S, H, hd = q.shape
         args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B,
                 S, H, k.shape[2], hd, 1, 1 / math.sqrt(hd), 1, stream)
-        tensors = (out,)
+        tensors = outputs = (out,)
     elif stem == "flash_attention_bwd":
         from repro_torch.kernels.flash_attention.kernel import \
             flash_attention
@@ -405,7 +412,7 @@ def launcher(lib: ctypes.CDLL, stem: str, attn, ssm, ssm_bwd):
         args = tuple(t.data_ptr() for t in (q, k, v, out, dout, *grads, lse,
                                             delta)) \
             + (B, S, H, k.shape[2], hd, 1, 1 / math.sqrt(hd), 1, stream)
-        tensors = (out, dout, *grads, lse, delta)
+        tensors, outputs = (out, dout, *grads, lse, delta), grads
     else:
         from repro_torch.kernels.ssd_scan.kernel import kernel_chunk
         x, dt, A, Bm, Cm = ssm
@@ -424,14 +431,109 @@ def launcher(lib: ctypes.CDLL, stem: str, attn, ssm, ssm_bwd):
         args = (x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
                 Cm.data_ptr(), y.data_ptr(), h.data_ptr(),
                 scratch.data_ptr(), B, S, nh, P, N, L, 1, stream)
-        tensors = (scratch, y, h)
+        tensors, outputs = (scratch, y, h), (y, h)
     fn.restype = ctypes.c_int
 
     def call(_alive=tensors):  # the outputs live as long as the call
         err = fn(*args)
         if err != 0:
             raise RuntimeError(f"{stem} launch failed: {err}")
+    call.outputs = outputs
     return call
+
+
+#: (B, S, H, K, hd) of the bitwise comparison with another checkout:
+#: qwen3-8b's heads at a ragged S, seamless-m4t-large-v2's at its
+#: encoder's 128 frames and at a ragged S; each in bf16 and float32,
+#: causal, non-causal, and causal with the window 37
+AGAINST_SHAPES = ((2, 1000, 32, 8, 128), (2, 128, 16, 16, 64),
+                  (2, 1000, 16, 16, 64))
+AGAINST_CASES = tuple((shape, dtype, causal, window)
+                      for shape in AGAINST_SHAPES
+                      for dtype in (torch.bfloat16, torch.float32)
+                      for causal, window in ((True, 0), (False, 0),
+                                             (True, 37)))
+
+
+def k4_entry(lib: ctypes.CDLL, q, k, v, causal: bool, window: int):
+    """K4 of ``lib`` through its C entry without the key length (the
+    ``_windowed`` one for a window): its output."""
+    B, S, H, hd = q.shape
+    out = torch.empty_like(q)
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    head = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S,
+            H, k.shape[2], hd, int(causal))
+    tail = (1 / math.sqrt(hd), int(q.dtype == torch.bfloat16), stream)
+    if window:
+        fn, args = lib.repro_torch_flash_attention_windowed, \
+            head + (window,) + tail
+    else:
+        fn, args = lib.repro_torch_flash_attention, head + tail
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * (len(head) - 4
+                                                           + bool(window)) \
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    if fn(*args) != 0:
+        raise RuntimeError("flash_attention entry failed")
+    return out
+
+
+def k4_bwd_entry(lib: ctypes.CDLL, q, k, v, out, dout, causal: bool,
+                 window: int):
+    """K4's backward of ``lib`` through its C entry without the key
+    length (the ``_windowed`` one for a window): (dq, dk, dv)."""
+    B, S, H, hd = q.shape
+    lib.repro_torch_flash_attention_bwd_rows.argtypes = [ctypes.c_int]
+    rows = lib.repro_torch_flash_attention_bwd_rows(S)
+    lse, delta = (torch.empty((B, H, rows), device=q.device)
+                  for _ in range(2))
+    grads = [torch.empty_like(t) for t in (q, k, v)]
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    ints = (B, S, H, k.shape[2], hd, int(causal)) + ((window,) if window
+                                                     else ())
+    fn = lib.repro_torch_flash_attention_bwd_windowed if window \
+        else lib.repro_torch_flash_attention_bwd
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * len(ints) \
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    if fn(*(t.data_ptr() for t in (q, k, v, out, dout, *grads, lse, delta)),
+          *ints, 1 / math.sqrt(hd), int(q.dtype == torch.bfloat16),
+          stream) != 0:
+        raise RuntimeError("flash_attention_bwd entry failed")
+    return grads
+
+
+def k4_entries_bitwise(there: dict, here: dict, dev, seed: int) -> None:
+    """K4 and its backward of two checkouts (their libraries by stem) on
+    the same inputs over ``AGAINST_CASES``, each output compared bit for
+    bit; the backward of both is fed this checkout's forward output.
+    Prints one line per case that differs and a count."""
+    rng = np.random.default_rng(seed)
+    same = 0
+    for (B, S, H, K, hd), dtype, causal, window in AGAINST_CASES:
+        q, k, v, dout = (
+            torch.from_numpy(rng.standard_normal(shape, np.float32))
+            .to(dev, dtype) for shape in ((B, S, H, hd), (B, S, K, hd),
+                                          (B, S, K, hd), (B, S, H, hd)))
+        out = k4_entry(here["flash_attention"], q, k, v, causal, window)
+        old = k4_entry(there["flash_attention"], q, k, v, causal, window)
+        grads = k4_bwd_entry(here["flash_attention_bwd"], q, k, v, out, dout,
+                             causal, window)
+        old_grads = k4_bwd_entry(there["flash_attention_bwd"], q, k, v, out,
+                                 dout, causal, window)
+        torch.cuda.synchronize()
+        equal = [torch.equal(out, old)] + [
+            torch.equal(a, b) for a, b in zip(grads, old_grads)]
+        same += all(equal)
+        if not all(equal):
+            print(f"K4 entries at ({B}, {S}, {H} | {K}, {hd}) {dtype}, "
+                  f"causal {causal}, window {window}: bitwise equal "
+                  f"(out, dq, dk, dv) {equal}", flush=True)
+    print(f"K4 and its backward, this checkout's C entries without the key "
+          f"length against the other's: bitwise equal in {same} of "
+          f"{len(AGAINST_CASES)} cases ((B, S, H, K, hd) in "
+          f"{list(AGAINST_SHAPES)}, bf16 and float32, causal, non-causal, "
+          f"causal with the window 37)", flush=True)
 
 
 def k5_bwd_rel(lib: ctypes.CDLL, ssm_bwd) -> str:
@@ -540,21 +642,34 @@ def main(argv=None) -> int:
                       f"{k5_bwd_rel(lib, ssm_bwd)} (not checked)", flush=True)
     if args.against and not args.loader:
         csrc = Path(args.against).resolve() / "src" / "repro_torch" / "csrc"
+        built = {}
         for stem in ("flash_attention", "flash_attention_bwd", "ssd_scan",
                      "ssd_scan_bwd"):
             if not (csrc / f"{stem}.cu").exists():
                 print(f"against {args.against}: no {stem}.cu there",
                       flush=True)
                 continue
-            there = make(build_source(f"against_{stem}", csrc, stem), stem,
-                         None)
+            built[stem] = build_source(f"against_{stem}", csrc, stem)
+            there = make(built[stem], stem, None)
             here = make(libs[stem], stem, None)
             times = [chip_smoke.time_ms(fn, 10)
                      for fn in (there, here, here, there)]
+            same = ""
+            if hasattr(there, "outputs"):
+                there()
+                here()
+                torch.cuda.synchronize()
+                same = "; outputs bitwise equal: " + str(all(
+                    torch.equal(a, b)
+                    for a, b in zip(there.outputs, here.outputs)))
             print(f"against {args.against}: {stem} "
                   f"{(times[0] + times[3]) / 2:.4f} ms there, "
                   f"{(times[1] + times[2]) / 2:.4f} ms here (turns: "
-                  + ", ".join(f"{t:.4f}" for t in times) + ")", flush=True)
+                  + ", ".join(f"{t:.4f}" for t in times) + ")" + same,
+                  flush=True)
+        if {"flash_attention", "flash_attention_bwd"} <= set(built):
+            print(f"against {args.against}:", end=" ", flush=True)
+            k4_entries_bitwise(built, libs, dev, args.seed)
     return 0
 
 

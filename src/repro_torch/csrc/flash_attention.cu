@@ -16,11 +16,14 @@
 // element mask runs only on the tiles that cross the diagonal, the
 // window's lower edge or S.  window >= S gives the bits of window = 0.
 //
-// Layout: the model's (B, S, H, hd) for q and out, (B, S, K, hd) for k/v;
-// query head h reads kv head h / (H / K), so the reference's jnp.repeat
-// of the kv heads is never materialized.  Any S: rows and keys past S
-// are masked (the reference asserts S % block == 0).  hd is a multiple
-// of 8 up to 128.
+// Layout: the model's (B, S, H, hd) for q and out, (B, Sk, K, hd) for
+// k/v; query head h reads kv head h / (H / K), so the reference's
+// jnp.repeat of the kv heads is never materialized.  Any S and Sk: rows
+// past S and keys past Sk are masked (the reference asserts S % block ==
+// 0).  Sk differs from S only without the causal mask (the encdec
+// family's cross-attention: S decoder rows over Sk encoder rows; the
+// wrapper refuses a causal call with Sk != S); then every query tile
+// walks the ceil(Sk / 64) key tiles.  hd is a multiple of 8 up to 128.
 //
 // Bound on an H100: at the model's shapes (B=4, S=1024, H=32, K=8,
 // hd=128, causal) the function moves ~84 MB (25 us at 3.35 TB/s) and
@@ -41,7 +44,7 @@
 //     passed as __grid_constant__ parameters.  A box is 64 columns (128
 //     bytes, the 128-byte swizzle) by 128 query or 64 key rows; hd = 128
 //     takes two boxes, hd <= 64 one, and columns past hd and rows past S
-//     arrive as zeros.  The 4-D map keeps a tile past S from reading the
+//     (Sk for the K and V maps) arrive as zeros.  The 4-D map keeps a tile past S from reading the
 //     next batch row.
 //   * Q is double-buffered (full and empty mbarriers), so the next item's
 //     Q loads while the consumers finish the current one; 64-key tiles of
@@ -97,7 +100,8 @@ __device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); 
 __device__ __forceinline__ float load_f32(const float* p) { return *p; }
 
 // rows [row0, row0 + 64) of a (B, S, heads, hd) tensor at head `head`
-// -> smem[64][HDP + 1] float32, zero past S and past hd
+// (S: the tensor's own rows, Sk for k and v) -> smem[64][HDP + 1]
+// float32, zero past S and past hd
 template <typename T, int HDP>
 __device__ __forceinline__ void load_tile(float* smem, const T* __restrict__ src,
                                           int b, int row0, int head, int S,
@@ -118,8 +122,8 @@ __device__ __forceinline__ void load_tile(float* smem, const T* __restrict__ src
 template <typename T, int HDP>
 __global__ void __launch_bounds__(kThreadsF)
     flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ out, int S, int H,
-                 int K, int hd, int causal, int window, float scale) {
+                 const T* __restrict__ v, T* __restrict__ out, int S, int Sk,
+                 int H, int K, int hd, int causal, int window, float scale) {
   constexpr int kStride = HDP + 1;
   constexpr int kCols = HDP / 16;  // accumulator columns per thread
   extern __shared__ float smem[];
@@ -149,14 +153,14 @@ __global__ void __launch_bounds__(kThreadsF)
 #pragma unroll
     for (int j = 0; j < kCols; ++j) acc[i][j] = 0.f;
 
-  const int n_tiles_all = (S + kBlockK - 1) / kBlockK;
+  const int n_tiles_all = (Sk + kBlockK - 1) / kBlockK;
   const int n_tiles = causal ? min(n_tiles_all, (q0 + kBlockQ - 1) / kBlockK + 1)
                              : n_tiles_all;
   // key tiles wholly below the window of the tile's first row: skipped
   const int t0 = window > 0 ? max(0, q0 - window + 1) / kBlockK : 0;
   for (int t = t0; t < n_tiles; ++t) {
     const int k0 = t * kBlockK;
-    load_tile<T, HDP>(kv_s, k, b, k0, kvh, S, K, hd);
+    load_tile<T, HDP>(kv_s, k, b, k0, kvh, Sk, K, hd);
     __syncthreads();
     // scores of this thread's 4x4 patch: rows ty + 16 i, keys tx + 16 j
     float sc[4][4];
@@ -183,14 +187,14 @@ __global__ void __launch_bounds__(kThreadsF)
       for (int j = 0; j < 4; ++j) {
         const int c = tx + 16 * j;
         const int kpos = k0 + c;
-        const bool valid = kpos < S && (!causal || kpos <= q0 + r) &&
+        const bool valid = kpos < Sk && (!causal || kpos <= q0 + r) &&
                            (window <= 0 || kpos > q0 + r - window);
         p_s[r * (kBlockK + 1) + c] = valid ? sc[i][j] * scale : neg_inf();
       }
     }
     __syncthreads();
     // V tile into the shared buffer; row owners run the online softmax
-    load_tile<T, HDP>(kv_s, v, b, k0, kvh, S, K, hd);
+    load_tile<T, HDP>(kv_s, v, b, k0, kvh, Sk, K, hd);
     {
       // four threads per row (neighbouring lanes), 16 keys each
       const int r = threadIdx.x >> 2;
@@ -266,8 +270,8 @@ inline size_t smem_bytes(int hdp) {
 }
 
 template <int HDP>
-int launch(const void* q, const void* k, const void* v, void* out, int B, int S, int H, int K,
-           int hd, int causal, int window, float scale, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* out, int B, int S, int Sk, int H,
+           int K, int hd, int causal, int window, float scale, cudaStream_t stream) {
   const size_t smem = smem_bytes(HDP);
   cudaError_t err = cudaFuncSetAttribute(flash_kernel<float, HDP>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -276,8 +280,8 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int S,
   const dim3 grid((S + kBlockQ - 1) / kBlockQ, B * H);
   flash_kernel<float, HDP><<<grid, kThreadsF, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), S, H, K, hd, causal, window,
-      scale);
+      static_cast<const float*>(v), static_cast<float*>(out), S, Sk, H, K, hd, causal,
+      window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -311,12 +315,15 @@ struct Layout {
 // query tiles (the longest under the causal mask; under a window every
 // tile past the first window is as long) first, with key tiles
 // [kt0, n_kt): from the first that holds a key in the window of row q0
-// to the last at or below the diagonal of its last row.
+// to the last at or below the diagonal of its last row, or without the
+// causal mask the last of the Sk keys.  The producer and both consumer
+// warpgroups walk this one range, so no tile past Sk is ever issued.
 struct Item {
   int q0, b, h, kt0, n_kt;
 };
 
-__device__ __forceinline__ Item item_of(int w, int BH, int H, int S, int causal, int window) {
+__device__ __forceinline__ Item item_of(int w, int BH, int H, int S, int Sk, int causal,
+                                        int window) {
   const int n_qt = (S + kBlockM - 1) / kBlockM;
   const int qt = causal ? n_qt - 1 - w / BH : w / BH;
   const int bh = w - (w / BH) * BH;
@@ -324,7 +331,7 @@ __device__ __forceinline__ Item item_of(int w, int BH, int H, int S, int causal,
   it.q0 = qt * kBlockM;
   it.b = bh / H;
   it.h = bh - it.b * H;
-  const int n_kt_all = (S + kBlockN - 1) / kBlockN;
+  const int n_kt_all = (Sk + kBlockN - 1) / kBlockN;
   it.n_kt = causal ? min(n_kt_all, (it.q0 + kBlockM - 1) / kBlockN + 1) : n_kt_all;
   it.kt0 = window > 0 ? max(0, it.q0 - window + 1) / kBlockN : 0;
   return it;
@@ -336,7 +343,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     flash_tc_kernel(const __grid_constant__ CUtensorMap q_map,
                     const __grid_constant__ CUtensorMap k_map,
                     const __grid_constant__ CUtensorMap v_map, __nv_bfloat16* __restrict__ out,
-                    int B, int S, int H, int K, int hd, int causal, int window,
+                    int B, int S, int Sk, int H, int K, int hd, int causal, int window,
                     float scale_log2) {
   using L = Layout<HDP>;
   extern __shared__ uint8_t smem_raw[];
@@ -371,7 +378,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     if (threadIdx.x == 0) {
       int kv = 0;  // K/V tiles issued so far: the ring's stage and phase
       for (int n = 0, w = blockIdx.x; w < n_items; ++n, w += gridDim.x) {
-        const Item it = item_of(w, BH, H, S, causal, window);
+        const Item it = item_of(w, BH, H, S, Sk, causal, window);
         const int kvh = it.h / (H / K);
         const int qb = n & 1;
         mbar_wait(q_empty(qb), ((n >> 1) & 1) ^ 1);
@@ -407,7 +414,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int cq = 2 * (lane & 3);
     int kv = 0;
     for (int n = 0, w = blockIdx.x; w < n_items; ++n, w += gridDim.x) {
-      const Item it = item_of(w, BH, H, S, causal, window);
+      const Item it = item_of(w, BH, H, S, Sk, causal, window);
       const int qb = n & 1;
       // accumulator element j sits at row r0 + 8 ((j >> 1) & 1), column
       // 8 (j >> 2) + cq + (j & 1) of the warpgroup's 64-row tile
@@ -464,9 +471,9 @@ __global__ void __launch_bounds__(kThreads, 1)
         wg_wait<0>();
         fence_regs(s);
         // ---- mask (only a tile that crosses the diagonal, the window's
-        // lower edge or S needs one), online softmax (log2 domain)
+        // lower edge or Sk needs one), online softmax (log2 domain)
         float mx[2] = {m[0], m[1]};
-        const bool edge = k0 + kBlockN > S || (causal && k0 + kBlockN - 1 > first_row) ||
+        const bool edge = k0 + kBlockN > Sk || (causal && k0 + kBlockN - 1 > first_row) ||
                           (window > 0 && k0 <= last_row - window);
         auto scale_and_mask = [&](auto masked) {
 #pragma unroll
@@ -475,7 +482,7 @@ __global__ void __launch_bounds__(kThreads, 1)
             if constexpr (decltype(masked)::value) {
               const int key = k0 + 8 * (j >> 2) + cq + (j & 1);
               const int row = r0 + 8 * ((j >> 1) & 1);
-              if (!(key < S && (!causal || key <= row) && (window <= 0 || key > row - window))) {
+              if (!(key < Sk && (!causal || key <= row) && (window <= 0 || key > row - window))) {
                 s[j] = neg_inf();
               }
             }
@@ -557,14 +564,14 @@ __global__ void __launch_bounds__(kThreads, 1)
 }
 
 template <int HDP>
-int launch(const void* q, const void* k, const void* v, void* out, int B, int S, int H, int K,
-           int hd, int causal, int window, float scale, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* out, int B, int S, int Sk, int H,
+           int K, int hd, int causal, int window, float scale, cudaStream_t stream) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return kErrNoEncode;
   CUtensorMap qm, km, vm;
   if (!make_map(encode, &qm, q, B, S, H, hd, kBlockM) ||
-      !make_map(encode, &km, k, B, S, K, hd, kBlockN) ||
-      !make_map(encode, &vm, v, B, S, K, hd, kBlockN)) {
+      !make_map(encode, &km, k, B, Sk, K, hd, kBlockN) ||
+      !make_map(encode, &vm, v, B, Sk, K, hd, kBlockN)) {
     return kErrEncode;
   }
   const int smem = Layout<HDP>::kBytes;
@@ -580,7 +587,7 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int S,
   const long long n_items = static_cast<long long>((S + kBlockM - 1) / kBlockM) * B * H;
   const int grid = static_cast<int>(n_items < n_sm ? n_items : n_sm);
   flash_tc_kernel<HDP><<<grid, kThreads, smem, stream>>>(
-      qm, km, vm, static_cast<__nv_bfloat16*>(out), B, S, H, K, hd, causal, window,
+      qm, km, vm, static_cast<__nv_bfloat16*>(out), B, S, Sk, H, K, hd, causal, window,
       scale * 1.4426950408889634f);
   return static_cast<int>(cudaGetLastError());
 }
@@ -589,30 +596,31 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int S,
 }  // namespace flash
 }  // namespace repro_torch
 
-// q/out (B, S, H, hd), k/v (B, S, K, hd), contiguous, float32 (is_bf16 = 0)
-// or bfloat16 (is_bf16 = 1); 8 <= hd <= 128, hd % 8 == 0, H % K == 0; window
+// q/out (B, S, H, hd), k/v (B, kv_seq, K, hd), contiguous, float32
+// (is_bf16 = 0) or bfloat16 (is_bf16 = 1); 8 <= hd <= 128, hd % 8 == 0,
+// H % K == 0; kv_seq >= 1, and kv_seq == seq under the causal mask; window
 // > 0 only with causal (the wrapper checks).  Returns cudaGetLastError()
 // after the launch, or a negative code when a TMA map could not be made
 // (bf16 only).
-extern "C" int repro_torch_flash_attention_windowed(const void* q, const void* k, const void* v,
-                                                    void* out, int batch, int seq, int heads,
-                                                    int kv_heads, int head_dim, int causal,
-                                                    int window, float scale, int is_bf16,
-                                                    void* stream) {
+extern "C" int repro_torch_flash_attention_kv(const void* q, const void* k, const void* v,
+                                              void* out, int batch, int seq, int kv_seq,
+                                              int heads, int kv_heads, int head_dim, int causal,
+                                              int window, float scale, int is_bf16,
+                                              void* stream) {
   if (batch == 0 || seq == 0 || heads == 0) return 0;
   const auto s = static_cast<cudaStream_t>(stream);
   namespace f = repro_torch::flash;
   if (is_bf16) {
     if (head_dim <= 64) {
-      return f::tc::launch<64>(q, k, v, out, batch, seq, heads, kv_heads, head_dim, causal,
-                               window, scale, s);
+      return f::tc::launch<64>(q, k, v, out, batch, seq, kv_seq, heads, kv_heads, head_dim,
+                               causal, window, scale, s);
     }
-    return f::tc::launch<128>(q, k, v, out, batch, seq, heads, kv_heads, head_dim, causal,
-                              window, scale, s);
+    return f::tc::launch<128>(q, k, v, out, batch, seq, kv_seq, heads, kv_heads, head_dim,
+                              causal, window, scale, s);
   }
   auto run = [&](auto hdp) {
-    return f::launch<decltype(hdp)::value>(q, k, v, out, batch, seq, heads, kv_heads, head_dim,
-                                           causal, window, scale, s);
+    return f::launch<decltype(hdp)::value>(q, k, v, out, batch, seq, kv_seq, heads, kv_heads,
+                                           head_dim, causal, window, scale, s);
   };
   if (head_dim <= 16) return run(std::integral_constant<int, 16>{});
   if (head_dim <= 32) return run(std::integral_constant<int, 32>{});
@@ -620,13 +628,23 @@ extern "C" int repro_torch_flash_attention_windowed(const void* q, const void* k
   return run(std::integral_constant<int, 128>{});
 }
 
-// The entry without a window (window = 0), as before the window came, so
-// that scripts/time_model_kernels.py --against can time an older checkout
-// and today's sources through one call.
+// The entries with one length for queries and keys (kv_seq = seq), with
+// and without a window, as before the key length came, so that
+// scripts/time_model_kernels.py --against can time an older checkout and
+// today's sources through one call.
+extern "C" int repro_torch_flash_attention_windowed(const void* q, const void* k, const void* v,
+                                                    void* out, int batch, int seq, int heads,
+                                                    int kv_heads, int head_dim, int causal,
+                                                    int window, float scale, int is_bf16,
+                                                    void* stream) {
+  return repro_torch_flash_attention_kv(q, k, v, out, batch, seq, seq, heads, kv_heads, head_dim,
+                                        causal, window, scale, is_bf16, stream);
+}
+
 extern "C" int repro_torch_flash_attention(const void* q, const void* k, const void* v,
                                            void* out, int batch, int seq, int heads,
                                            int kv_heads, int head_dim, int causal,
                                            float scale, int is_bf16, void* stream) {
-  return repro_torch_flash_attention_windowed(q, k, v, out, batch, seq, heads, kv_heads,
-                                              head_dim, causal, 0, scale, is_bf16, stream);
+  return repro_torch_flash_attention_kv(q, k, v, out, batch, seq, seq, heads, kv_heads, head_dim,
+                                        causal, 0, scale, is_bf16, stream);
 }

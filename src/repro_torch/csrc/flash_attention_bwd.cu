@@ -14,8 +14,12 @@
 //   dV = P^T dO,  dK = dS^T Q / sqrt(hd),  dQ = dS K / sqrt(hd),
 // with the G = H / K query heads of a kv head summed into its dK and dV.
 //
-// Layout: K4's, q/out/dout/dq (B, S, H, hd), k/v/dk/dv (B, S, K, hd), query
-// head h on kv head h / (H / K); any S; hd a multiple of 8 up to 128.
+// Layout: K4's, q/out/dout/dq (B, S, H, hd), k/v/dk/dv (B, Sk, K, hd), query
+// head h on kv head h / (H / K); any S and Sk (Sk != S only without the
+// causal mask: the encdec family's cross-attention); hd a multiple of 8 up
+// to 128.  Query rows past S and keys past Sk are masked as S was before
+// the key length came: no tile past either is ever issued, and lse and D
+// stay per query row.
 // Under a window every pass skips the tiles wholly outside it, as it skips
 // tiles wholly above the diagonal: a query tile's key tiles start at
 // max(0, q0 - window + 1) / block, and a key tile's query tiles end at the
@@ -149,8 +153,9 @@ __device__ __forceinline__ void patch_product(const float* a_s, const float* b_s
   }
 }
 
-__device__ __forceinline__ bool is_valid(int qpos, int kpos, int S, int causal, int window) {
-  return qpos < S && kpos < S && (!causal || kpos <= qpos) &&
+__device__ __forceinline__ bool is_valid(int qpos, int kpos, int S, int Sk, int causal,
+                                         int window) {
+  return qpos < S && kpos < Sk && (!causal || kpos <= qpos) &&
          (window <= 0 || kpos > qpos - window);
 }
 
@@ -175,8 +180,8 @@ template <typename T, int HDP>
 __global__ void __launch_bounds__(kThreads)
     bwd_prep_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ out,
                     const T* __restrict__ dout, float* __restrict__ lse,
-                    float* __restrict__ delta, int S, int H, int K, int hd, int causal,
-                    int window, float scale) {
+                    float* __restrict__ delta, int S, int Sk, int H, int K, int hd,
+                    int causal, int window, float scale) {
   constexpr int kStride = HDP + 1;
   extern __shared__ float smem[];
   float* q_s = smem;                      // [64][HDP + 1]
@@ -214,12 +219,12 @@ __global__ void __launch_bounds__(kThreads)
     m[i] = kNegInf;
     l[i] = 0.f;
   }
-  const int n_all = (S + kTile - 1) / kTile;
+  const int n_all = (Sk + kTile - 1) / kTile;
   const int n_tiles = causal ? min(n_all, qt + 1) : n_all;
   for (int t = first_key_tile(q0, window, kTile); t < n_tiles; ++t) {
     const int k0 = t * kTile;
     __syncthreads();  // the last tile's readers are done
-    load_tile<T, HDP>(k_s, k, b, k0, kvh, S, K, hd);
+    load_tile<T, HDP>(k_s, k, b, k0, kvh, Sk, K, hd);
     __syncthreads();
     float sc[4][4];
     patch_product<HDP>(q_s, k_s, ty, tx, sc);
@@ -230,12 +235,14 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         sc[i][j] *= scale;
-        if (is_valid(qpos, k0 + tx + 16 * j, S, causal, window)) mt = fmaxf(mt, sc[i][j]);
+        if (is_valid(qpos, k0 + tx + 16 * j, S, Sk, causal, window)) mt = fmaxf(mt, sc[i][j]);
       }
       float sum = 0.f;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        if (is_valid(qpos, k0 + tx + 16 * j, S, causal, window)) sum += expf(sc[i][j] - mt);
+        if (is_valid(qpos, k0 + tx + 16 * j, S, Sk, causal, window)) {
+          sum += expf(sc[i][j] - mt);
+        }
       }
       l[i] = l[i] * expf(m[i] - mt) + sum;
       m[i] = mt;
@@ -266,7 +273,8 @@ __global__ void __launch_bounds__(kThreads)
     bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                     const T* __restrict__ dout, const float* __restrict__ lse,
                     const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
-                    int S, int H, int K, int hd, int causal, int window, float scale) {
+                    int S, int Sk, int H, int K, int hd, int causal, int window,
+                    float scale) {
   constexpr int kStride = HDP + 1;
   constexpr int kCols = HDP / 16;
   extern __shared__ float smem[];
@@ -288,8 +296,8 @@ __global__ void __launch_bounds__(kThreads)
   const int tx = threadIdx.x & 15;
   const int ty = threadIdx.x >> 4;
 
-  load_tile<T, HDP>(k_s, k, b, k0, kvh, S, K, hd);
-  load_tile<T, HDP>(v_s, v, b, k0, kvh, S, K, hd);
+  load_tile<T, HDP>(k_s, k, b, k0, kvh, Sk, K, hd);
+  load_tile<T, HDP>(v_s, v, b, k0, kvh, Sk, K, hd);
   float dk_acc[4][kCols], dv_acc[4][kCols];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
@@ -326,7 +334,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           const int c = tx + 16 * j;
-          const float p = is_valid(q0 + r, k0 + c, S, causal, window)
+          const float p = is_valid(q0 + r, k0 + c, S, Sk, causal, window)
                               ? expf(sc[i][j] * scale - lse_s[r]) : 0.f;
           p_s[r * kPStride + c] = p;
           ds_s[r * kPStride + c] = p * (dp[i][j] - d_s[r]);
@@ -361,8 +369,8 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int s = k0 + ty + 16 * i;
-    if (s >= S) continue;
-    const int64_t base = ((static_cast<int64_t>(b) * S + s) * K + kvh) * hd;
+    if (s >= Sk) continue;
+    const int64_t base = ((static_cast<int64_t>(b) * Sk + s) * K + kvh) * hd;
 #pragma unroll
     for (int j = 0; j < kCols; ++j) {
       const int d = tx + 16 * j;
@@ -380,8 +388,8 @@ template <typename T, int HDP>
 __global__ void __launch_bounds__(kThreads)
     bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                   const T* __restrict__ dout, const float* __restrict__ lse,
-                  const float* __restrict__ delta, T* __restrict__ dq, int S, int H, int K,
-                  int hd, int causal, int window, float scale) {
+                  const float* __restrict__ delta, T* __restrict__ dq, int S, int Sk, int H,
+                  int K, int hd, int causal, int window, float scale) {
   constexpr int kStride = HDP + 1;
   constexpr int kCols = HDP / 16;
   extern __shared__ float smem[];
@@ -416,13 +424,13 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int j = 0; j < kCols; ++j) dq_acc[i][j] = 0.f;
 
-  const int n_all = (S + kTile - 1) / kTile;
+  const int n_all = (Sk + kTile - 1) / kTile;
   const int n_tiles = causal ? min(n_all, qt + 1) : n_all;
   for (int t = first_key_tile(q0, window, kTile); t < n_tiles; ++t) {
     const int k0 = t * kTile;
     __syncthreads();  // the last tile's readers are done
-    load_tile<T, HDP>(k_s, k, b, k0, kvh, S, K, hd);
-    load_tile<T, HDP>(v_s, v, b, k0, kvh, S, K, hd);
+    load_tile<T, HDP>(k_s, k, b, k0, kvh, Sk, K, hd);
+    load_tile<T, HDP>(v_s, v, b, k0, kvh, Sk, K, hd);
     __syncthreads();
     float sc[4][4], dp[4][4];
     patch_product<HDP>(q_s, k_s, ty, tx, sc);
@@ -433,7 +441,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int c = tx + 16 * j;
-        const float p = is_valid(q0 + r, k0 + c, S, causal, window)
+        const float p = is_valid(q0 + r, k0 + c, S, Sk, causal, window)
                             ? expf(sc[i][j] * scale - lse_s[r]) : 0.f;
         ds_s[r * kPStride + c] = p * (dp[i][j] - d_s[r]);
       }
@@ -472,8 +480,8 @@ inline size_t tile_floats(int hdp) { return static_cast<size_t>(kTile) * (hdp + 
 
 template <typename T, int HDP>
 int launch(const void* q, const void* k, const void* v, const void* out, const void* dout,
-           void* dq, void* dk, void* dv, float* lse, float* delta, int B, int S, int H, int K,
-           int hd, int causal, int window, float scale, cudaStream_t stream) {
+           void* dq, void* dk, void* dv, float* lse, float* delta, int B, int S, int Sk, int H,
+           int K, int hd, int causal, int window, float scale, cudaStream_t stream) {
   const size_t prep_smem = sizeof(float) * 2 * tile_floats(HDP);
   const size_t dkdv_smem =
       sizeof(float) * (4 * tile_floats(HDP) + 2 * kTile * kPStride + 2 * kTile);
@@ -490,32 +498,35 @@ int launch(const void* q, const void* k, const void* v, const void* out, const v
                              static_cast<int>(dq_smem));
   if (err != cudaSuccess) return static_cast<int>(err);
 
-  const int n_tiles = (S + kTile - 1) / kTile;
+  const int n_tiles = (S + kTile - 1) / kTile;      // query tiles
+  const int n_key_tiles = (Sk + kTile - 1) / kTile;
   const T* q_ = static_cast<const T*>(q);
   const T* k_ = static_cast<const T*>(k);
   const T* v_ = static_cast<const T*>(v);
   const T* dout_ = static_cast<const T*>(dout);
   bwd_prep_kernel<T, HDP><<<dim3(n_tiles, B * H), kThreads, prep_smem, stream>>>(
-      q_, k_, static_cast<const T*>(out), dout_, lse, delta, S, H, K, hd, causal, window, scale);
+      q_, k_, static_cast<const T*>(out), dout_, lse, delta, S, Sk, H, K, hd, causal, window,
+      scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  bwd_dkdv_kernel<T, HDP><<<dim3(n_tiles, B * K), kThreads, dkdv_smem, stream>>>(
-      q_, k_, v_, dout_, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), S, H, K, hd,
+  bwd_dkdv_kernel<T, HDP><<<dim3(n_key_tiles, B * K), kThreads, dkdv_smem, stream>>>(
+      q_, k_, v_, dout_, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), S, Sk, H, K, hd,
       causal, window, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   bwd_dq_kernel<T, HDP><<<dim3(n_tiles, B * H), kThreads, dq_smem, stream>>>(
-      q_, k_, v_, dout_, lse, delta, static_cast<T*>(dq), S, H, K, hd, causal, window, scale);
+      q_, k_, v_, dout_, lse, delta, static_cast<T*>(dq), S, Sk, H, K, hd, causal, window,
+      scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int dispatch(const void* q, const void* k, const void* v, const void* out, const void* dout,
-             void* dq, void* dk, void* dv, float* lse, float* delta, int B, int S, int H, int K,
-             int hd, int causal, int window, float scale, cudaStream_t stream) {
+             void* dq, void* dk, void* dv, float* lse, float* delta, int B, int S, int Sk, int H,
+             int K, int hd, int causal, int window, float scale, cudaStream_t stream) {
   auto run = [&](auto hdp) {
-    return launch<T, decltype(hdp)::value>(q, k, v, out, dout, dq, dk, dv, lse, delta, B, S, H,
-                                           K, hd, causal, window, scale, stream);
+    return launch<T, decltype(hdp)::value>(q, k, v, out, dout, dq, dk, dv, lse, delta, B, S, Sk,
+                                           H, K, hd, causal, window, scale, stream);
   };
   if (hd <= 16) return run(std::integral_constant<int, 16>{});
   if (hd <= 32) return run(std::integral_constant<int, 32>{});
@@ -638,12 +649,14 @@ __device__ __forceinline__ int item_of_round(int r, int n_items) {
 // Work item w of the prep and dQ passes: (b*h, 128-row query tile), the
 // highest query tiles (the longest under the causal mask) first, with the
 // 64-key tiles [kt0, n_kt): from the first in the window of its first row
-// to the last that reaches its last row.
+// to the last that reaches its last row, or without the causal mask the
+// last of the Sk keys.
 struct QItem {
   int q0, b, h, kt0, n_kt;
 };
 
-__device__ __forceinline__ QItem q_item(int w, int BH, int H, int S, int causal, int window) {
+__device__ __forceinline__ QItem q_item(int w, int BH, int H, int S, int Sk, int causal,
+                                        int window) {
   const int n_qt = (S + kBlock - 1) / kBlock;
   const int qt = causal ? n_qt - 1 - w / BH : w / BH;
   const int bh = w - (w / BH) * BH;
@@ -651,7 +664,7 @@ __device__ __forceinline__ QItem q_item(int w, int BH, int H, int S, int causal,
   it.q0 = qt * kBlock;
   it.b = bh / H;
   it.h = bh - it.b * H;
-  const int n_kt_all = (S + kRows - 1) / kRows;
+  const int n_kt_all = (Sk + kRows - 1) / kRows;
   it.n_kt = causal ? min(n_kt_all, (it.q0 + kBlock - 1) / kRows + 1) : n_kt_all;
   it.kt0 = first_key_tile(it.q0, window, kRows);
   return it;
@@ -696,7 +709,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                    const __grid_constant__ CUtensorMap k_map,
                    const __grid_constant__ CUtensorMap o_map,
                    const __grid_constant__ CUtensorMap do_map, float* __restrict__ lse,
-                   float* __restrict__ delta, int B, int S, int H, int K, int causal,
+                   float* __restrict__ delta, int B, int S, int Sk, int H, int K, int causal,
                    int window, float scale_log2) {
   using L = PrepLayout<HDP>;
   constexpr int kStages = L::kStages;
@@ -736,7 +749,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int rd = 0, n = 0; rd * static_cast<int>(gridDim.x) < n_items; ++rd) {
         const int w = item_of_round(rd, n_items);
         if (w < 0) continue;
-        const QItem it = q_item(w, BH, H, S, causal, window);
+        const QItem it = q_item(w, BH, H, S, Sk, causal, window);
         const int qb = n % kBuffers;
         const uint32_t in = base + qb * L::kIn;
         mbar_wait(q_empty(qb), ((n / kBuffers) & 1) ^ 1);
@@ -765,7 +778,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int rd = 0, n = 0; rd * static_cast<int>(gridDim.x) < n_items; ++rd) {
       const int w = item_of_round(rd, n_items);
       if (w < 0) continue;
-      const QItem it = q_item(w, BH, H, S, causal, window);
+      const QItem it = q_item(w, BH, H, S, Sk, causal, window);
       const int qb = n % kBuffers;
       const uint32_t in = base + qb * L::kIn;
       const int row_lo = it.q0 + kRows * cw;
@@ -787,9 +800,9 @@ __global__ void __launch_bounds__(kThreads, 1)
           wg_wait<0>();
           fence_regs(s);
           // mask (only a tile that crosses the diagonal, the window's lower
-          // edge or S needs one), online (m, l) in the log2 domain: K4's
+          // edge or Sk needs one), online (m, l) in the log2 domain: K4's
           // forward without P V
-          const bool edge = k0 + kRows > S || (causal && k0 + kRows - 1 > row_lo) ||
+          const bool edge = k0 + kRows > Sk || (causal && k0 + kRows - 1 > row_lo) ||
                             (window > 0 && k0 <= row_lo + kRows - 1 - window);
           auto scale_and_mask = [&](auto masked) {
 #pragma unroll
@@ -798,7 +811,7 @@ __global__ void __launch_bounds__(kThreads, 1)
               if constexpr (decltype(masked)::value) {
                 const int key = k0 + 8 * (j >> 2) + cq + (j & 1);
                 const int row = r0 + 8 * ((j >> 1) & 1);
-                if (!(key < S && (!causal || key <= row) && (window <= 0 || key > row - window))) {
+                if (!(key < Sk && (!causal || key <= row) && (window <= 0 || key > row - window))) {
                   s[j] = neg_inf();
                 }
               }
@@ -914,8 +927,8 @@ __global__ void __launch_bounds__(kThreads, 1)
                    const __grid_constant__ CUtensorMap v_map,
                    const __grid_constant__ CUtensorMap do_map, const float* __restrict__ lse,
                    const float* __restrict__ delta, __nv_bfloat16* __restrict__ dk,
-                   __nv_bfloat16* __restrict__ dv, int B, int S, int H, int K, int hd, int causal,
-                   int window, float scale_log2, float scale) {
+                   __nv_bfloat16* __restrict__ dv, int B, int S, int Sk, int H, int K, int hd,
+                   int causal, int window, float scale_log2, float scale) {
   using L = DkdvLayout<HDP>;
   constexpr int kStages = L::kStages;
   extern __shared__ uint8_t smem_raw[];
@@ -927,7 +940,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   auto q_empty = [&](int st) { return bars + 8u * (2 + kStages + st); };
   const int G = H / K;
   const int BK = B * K;
-  const int n_items = (S + kBlock - 1) / kBlock * BK;
+  const int n_items = (Sk + kBlock - 1) / kBlock * BK;
   const int n_qt = (S + kRows - 1) / kRows;
   const int rows = padded_rows(S);
 
@@ -1004,9 +1017,9 @@ __global__ void __launch_bounds__(kThreads, 1)
         for (int t = it.t0; t < it.t1; ++t, ++c) {
           const int st = c % kStages;
           mbar_wait(q_full(st), (c / kStages) & 1);
-          // skipped: keys wholly past S, a query tile wholly above them, or
+          // skipped: keys wholly past Sk, a query tile wholly above them, or
           // one wholly past their window
-          if (key_lo < S && (!causal || t * kRows + kRows - 1 >= key_lo) &&
+          if (key_lo < Sk && (!causal || t * kRows + kRows - 1 >= key_lo) &&
               (window <= 0 || t * kRows < key_lo + kRows - 1 + window)) {
             const uint32_t q_tile = base + L::kQ + st * tile_bytes(HDP, kRows);
             const uint32_t do_tile = base + L::kDO + st * tile_bytes(HDP, kRows);
@@ -1022,8 +1035,8 @@ __global__ void __launch_bounds__(kThreads, 1)
             fence_regs(dp);
             // ---- P^T = exp2(S^T scale - lse), dS^T = P^T o (dP^T - D); the
             // mask only where the tile crosses the diagonal, the window's
-            // edge or S
-            const bool edge = key_lo + kRows > S || t * kRows + kRows > S ||
+            // edge, S or Sk
+            const bool edge = key_lo + kRows > Sk || t * kRows + kRows > S ||
                               (causal && key_lo + kRows - 1 > t * kRows) ||
                               (window > 0 && t * kRows + kRows - 1 >= key_lo + window);
             auto probs = [&](auto masked) {
@@ -1039,7 +1052,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                     const int key = key0 + 8 * (e >> 1);
                     const int query = t * kRows + 8 * cc + cq + (e & 1);
                     // masked pairs give p = 0 exactly
-                    if (!(key < S && query < S && (!causal || key <= query) &&
+                    if (!(key < Sk && query < S && (!causal || key <= query) &&
                           (window <= 0 || key > query - window))) {
                       p = 0.f;
                     }
@@ -1075,8 +1088,8 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int j = 0; j < HDP / 2; j += 2) {
         const int key = key0 + 8 * ((j >> 1) & 1);
         const int col = 8 * (j >> 2) + cq;
-        if (key < S && col < hd) {
-          const int64_t at = ((static_cast<int64_t>(it.b) * S + key) * K + it.kvh) * hd + col;
+        if (key < Sk && col < hd) {
+          const int64_t at = ((static_cast<int64_t>(it.b) * Sk + key) * K + it.kvh) * hd + col;
           *reinterpret_cast<__nv_bfloat162*>(dk + at) =
               __floats2bfloat162_rn(dk_acc[j] * scale, dk_acc[j + 1] * scale);
           *reinterpret_cast<__nv_bfloat162*>(dv + at) =
@@ -1110,7 +1123,8 @@ __global__ void __launch_bounds__(kThreads, 1)
                  const __grid_constant__ CUtensorMap v_map,
                  const __grid_constant__ CUtensorMap do_map, const float* __restrict__ lse,
                  const float* __restrict__ delta, __nv_bfloat16* __restrict__ dq, int B, int S,
-                 int H, int K, int hd, int causal, int window, float scale_log2, float scale) {
+                 int Sk, int H, int K, int hd, int causal, int window, float scale_log2,
+                 float scale) {
   using L = DqLayout<HDP>;
   constexpr int kStages = L::kStages;
   constexpr int kBuffers = L::kBuffers;
@@ -1150,7 +1164,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int rd = 0, n = 0; rd * static_cast<int>(gridDim.x) < n_items; ++rd) {
         const int w = item_of_round(rd, n_items);
         if (w < 0) continue;
-        const QItem it = q_item(w, BH, H, S, causal, window);
+        const QItem it = q_item(w, BH, H, S, Sk, causal, window);
         const int kvh = it.h / (H / K);
         const int qb = n % kBuffers;
         const uint32_t in = base + qb * L::kIn;
@@ -1182,7 +1196,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int rd = 0, n = 0; rd * static_cast<int>(gridDim.x) < n_items; ++rd) {
       const int w = item_of_round(rd, n_items);
       if (w < 0) continue;
-      const QItem it = q_item(w, BH, H, S, causal, window);
+      const QItem it = q_item(w, BH, H, S, Sk, causal, window);
       const int qb = n % kBuffers;
       const uint32_t in = base + qb * L::kIn;
       const int row_lo = it.q0 + kRows * cw;
@@ -1214,8 +1228,9 @@ __global__ void __launch_bounds__(kThreads, 1)
           fence_regs(s);
           fence_regs(dp);
           // ---- dS = P o (dP - D), P = exp2(S scale - lse); the mask only
-          // where the tile crosses the diagonal, the window's lower edge or S
-          const bool edge = k0 + kRows > S || row_lo + kRows > S ||
+          // where the tile crosses the diagonal, the window's lower edge, S
+          // or Sk
+          const bool edge = k0 + kRows > Sk || row_lo + kRows > S ||
                             (causal && k0 + kRows - 1 > row_lo) ||
                             (window > 0 && k0 <= row_lo + kRows - 1 - window);
           auto probs = [&](auto masked) {
@@ -1227,7 +1242,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                 const int key = k0 + 8 * (j >> 2) + cq + (j & 1);
                 const int row = r0 + 8 * r;
                 // masked pairs give p = 0 exactly
-                if (!(key < S && row < S && (!causal || key <= row) &&
+                if (!(key < Sk && row < S && (!causal || key <= row) &&
                       (window <= 0 || key > row - window))) {
                   p = 0.f;
                 }
@@ -1271,14 +1286,14 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 template <int HDP>
 int launch(const void* q, const void* k, const void* v, const void* out, const void* dout,
-           void* dq, void* dk, void* dv, float* lse, float* delta, int B, int S, int H, int K,
-           int hd, int causal, int window, float scale, cudaStream_t stream) {
+           void* dq, void* dk, void* dv, float* lse, float* delta, int B, int S, int Sk, int H,
+           int K, int hd, int causal, int window, float scale, cudaStream_t stream) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return kErrNoEncode;
   CUtensorMap qm, km, vm, om, dom;
   if (!make_map(encode, &qm, q, B, S, H, hd, kRows) ||
-      !make_map(encode, &km, k, B, S, K, hd, kRows) ||
-      !make_map(encode, &vm, v, B, S, K, hd, kRows) ||
+      !make_map(encode, &km, k, B, Sk, K, hd, kRows) ||
+      !make_map(encode, &vm, v, B, Sk, K, hd, kRows) ||
       !make_map(encode, &om, out, B, S, H, hd, kRows) ||
       !make_map(encode, &dom, dout, B, S, H, hd, kRows)) {
     return kErrEncode;
@@ -1298,20 +1313,21 @@ int launch(const void* q, const void* k, const void* v, const void* out, const v
     return static_cast<int>(err);
   }
   // one persistent CTA per SM, or one per work item if there are fewer
-  const long long n_tiles = (S + kBlock - 1) / kBlock;
+  const long long n_tiles = (S + kBlock - 1) / kBlock;        // query items per (b, h)
+  const long long n_key_tiles = (Sk + kBlock - 1) / kBlock;   // key items per (b, kv head)
   auto grid = [&](long long n_items) {
     return static_cast<int>(n_items < n_sm ? n_items : n_sm);
   };
   const float scale_log2 = scale * 1.4426950408889634f;
   prep_tc_kernel<HDP><<<grid(n_tiles * B * H), kThreads, PrepLayout<HDP>::kBytes, stream>>>(
-      qm, km, om, dom, lse, delta, B, S, H, K, causal, window, scale_log2);
+      qm, km, om, dom, lse, delta, B, S, Sk, H, K, causal, window, scale_log2);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  dkdv_tc_kernel<HDP><<<grid(n_tiles * B * K), kThreads, DkdvLayout<HDP>::kBytes, stream>>>(
+  dkdv_tc_kernel<HDP><<<grid(n_key_tiles * B * K), kThreads, DkdvLayout<HDP>::kBytes, stream>>>(
       qm, km, vm, dom, lse, delta, static_cast<__nv_bfloat16*>(dk),
-      static_cast<__nv_bfloat16*>(dv), B, S, H, K, hd, causal, window, scale_log2, scale);
+      static_cast<__nv_bfloat16*>(dv), B, S, Sk, H, K, hd, causal, window, scale_log2, scale);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
   dq_tc_kernel<HDP><<<grid(n_tiles * B * H), kThreads, DqLayout<HDP>::kBytes, stream>>>(
-      qm, km, vm, dom, lse, delta, static_cast<__nv_bfloat16*>(dq), B, S, H, K, hd, causal,
+      qm, km, vm, dom, lse, delta, static_cast<__nv_bfloat16*>(dq), B, S, Sk, H, K, hd, causal,
       window, scale_log2, scale);
   return static_cast<int>(cudaGetLastError());
 }
@@ -1327,40 +1343,52 @@ extern "C" int repro_torch_flash_attention_bwd_rows(int seq) {
   return repro_torch::flash_bwd::tc::padded_rows(seq);
 }
 
-// q/out/dout/dq (B, S, H, hd), k/v/dk/dv (B, S, K, hd), one type (float32,
-// or bfloat16 when is_bf16); lse and delta: (B, H, rows) float32 scratch,
-// rows from repro_torch_flash_attention_bwd_rows; window > 0 only with
-// causal.  Returns cudaGetLastError after the launches (0 = launched), or
-// a negative code when a TMA map could not be made (bf16 only).
-extern "C" int repro_torch_flash_attention_bwd_windowed(
+// q/out/dout/dq (B, S, H, hd), k/v/dk/dv (B, kv_seq, K, hd), one type
+// (float32, or bfloat16 when is_bf16); lse and delta: (B, H, rows) float32
+// scratch, rows from repro_torch_flash_attention_bwd_rows(seq), one per
+// query row; kv_seq >= 1, and kv_seq == seq under the causal mask; window
+// > 0 only with causal.  Returns cudaGetLastError after the launches (0 =
+// launched), or a negative code when a TMA map could not be made (bf16
+// only).
+extern "C" int repro_torch_flash_attention_bwd_kv(
     const void* q, const void* k, const void* v, const void* out, const void* dout, void* dq,
-    void* dk, void* dv, float* lse, float* delta, int batch, int seq, int heads, int kv_heads,
-    int head_dim, int causal, int window, float scale, int is_bf16, void* stream) {
+    void* dk, void* dv, float* lse, float* delta, int batch, int seq, int kv_seq, int heads,
+    int kv_heads, int head_dim, int causal, int window, float scale, int is_bf16, void* stream) {
   if (batch == 0 || seq == 0 || heads == 0) return 0;
   const auto s = static_cast<cudaStream_t>(stream);
   namespace f = repro_torch::flash_bwd;
   if (is_bf16) {
     if (head_dim <= 64) {
-      return f::tc::launch<64>(q, k, v, out, dout, dq, dk, dv, lse, delta, batch, seq, heads,
-                               kv_heads, head_dim, causal, window, scale, s);
+      return f::tc::launch<64>(q, k, v, out, dout, dq, dk, dv, lse, delta, batch, seq, kv_seq,
+                               heads, kv_heads, head_dim, causal, window, scale, s);
     }
-    return f::tc::launch<128>(q, k, v, out, dout, dq, dk, dv, lse, delta, batch, seq, heads,
-                              kv_heads, head_dim, causal, window, scale, s);
+    return f::tc::launch<128>(q, k, v, out, dout, dq, dk, dv, lse, delta, batch, seq, kv_seq,
+                              heads, kv_heads, head_dim, causal, window, scale, s);
   }
-  return f::dispatch<float>(q, k, v, out, dout, dq, dk, dv, lse, delta, batch, seq, heads,
-                            kv_heads, head_dim, causal, window, scale, s);
+  return f::dispatch<float>(q, k, v, out, dout, dq, dk, dv, lse, delta, batch, seq, kv_seq,
+                            heads, kv_heads, head_dim, causal, window, scale, s);
 }
 
-// The entry without a window (window = 0), as before the window came, so
-// that scripts/time_model_kernels.py --against can time an older checkout
-// and today's sources through one call.
+// The entries with one length for queries and keys (kv_seq = seq), with
+// and without a window, as before the key length came, so that
+// scripts/time_model_kernels.py --against can time an older checkout and
+// today's sources through one call.
+extern "C" int repro_torch_flash_attention_bwd_windowed(
+    const void* q, const void* k, const void* v, const void* out, const void* dout, void* dq,
+    void* dk, void* dv, float* lse, float* delta, int batch, int seq, int heads, int kv_heads,
+    int head_dim, int causal, int window, float scale, int is_bf16, void* stream) {
+  return repro_torch_flash_attention_bwd_kv(q, k, v, out, dout, dq, dk, dv, lse, delta, batch,
+                                            seq, seq, heads, kv_heads, head_dim, causal, window,
+                                            scale, is_bf16, stream);
+}
+
 extern "C" int repro_torch_flash_attention_bwd(const void* q, const void* k, const void* v,
                                                const void* out, const void* dout, void* dq,
                                                void* dk, void* dv, float* lse, float* delta,
                                                int batch, int seq, int heads, int kv_heads,
                                                int head_dim, int causal, float scale,
                                                int is_bf16, void* stream) {
-  return repro_torch_flash_attention_bwd_windowed(q, k, v, out, dout, dq, dk, dv, lse, delta,
-                                                  batch, seq, heads, kv_heads, head_dim, causal,
-                                                  0, scale, is_bf16, stream);
+  return repro_torch_flash_attention_bwd_kv(q, k, v, out, dout, dq, dk, dv, lse, delta, batch,
+                                            seq, seq, heads, kv_heads, head_dim, causal, 0, scale,
+                                            is_bf16, stream);
 }

@@ -12,9 +12,13 @@ bfloat16 parts, hi + lo, to ~2**-17.  The reference's oracle
 ``attention_ref`` casts them to q's type first, so in bfloat16 the two
 differ at the reference's 2e-2 tolerance.
 
-Unlike the reference kernel, both take the model's layout, q (B, S, H,
-hd) and k/v (B, S, K, hd) with query head ``h`` reading kv head
-``h // (H // K)`` (grouped-query attention), and any S.  They also take
+Unlike the reference kernel, both take the model's layout, q (B, Sq, H,
+hd) and k/v (B, Sk, K, hd) with query head ``h`` reading kv head
+``h // (H // K)`` (grouped-query attention), and any Sq and Sk: the key
+length may differ from the query length without the causal mask (the
+encdec family's cross-attention, Sq decoder rows over Sk encoder rows;
+``causal=True`` asks for Sk = Sq, since the reference's causal mask
+never meets two lengths in the model).  They also take
 the reference's sliding window (``window > 0``, causal only), which its
 Pallas kernel lacks: key j is valid for query i iff ``j <= i`` and
 ``j > i - window``, the mask of the reference's XLA paths
@@ -54,17 +58,19 @@ _TMA_ERRORS = {-1: "the driver gave no cuTensorMapEncodeTiled entry point",
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
-    """Validate K4's arguments (the backward adds ``out`` and ``dout``)."""
+    """Validate K4's arguments (the backward adds ``out`` and ``dout``):
+    k/v (B, Sk, K, hd) beside q (B, Sq, H, hd)."""
     check_tensor("q", q, q.dtype, 4)
     check_tensor("k", k, q.dtype, 4, q.device)
     check_tensor("v", v, q.dtype, 4, q.device)
     if q.dtype not in _DTYPES:
         raise TypeError(f"q must be one of {_DTYPES}, got {q.dtype}")
     B, S, H, hd = q.shape
-    if k.shape != v.shape or k.shape[0] != B or k.shape[1] != S \
+    if k.shape != v.shape or k.shape[0] != B or k.shape[1] < 1 \
             or k.shape[3] != hd:
-        raise ValueError(f"k/v must be (B, S, K, hd) = ({B}, {S}, K, {hd}); "
-                         f"got {tuple(k.shape)} and {tuple(v.shape)}")
+        raise ValueError(f"k/v must be (B, Sk, K, hd) = ({B}, Sk >= 1, K, "
+                         f"{hd}); got {tuple(k.shape)} and "
+                         f"{tuple(v.shape)}")
     K = k.shape[2]
     if K == 0 or H % K != 0:
         raise ValueError(f"{H} query heads do not group over {K} kv heads")
@@ -73,18 +79,25 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
                          f"[8, {MAX_HEAD_DIM}], got {hd}")
 
 
-def _check_window(causal: bool, window: int) -> None:
+def _check_mask(causal: bool, window: int, q: torch.Tensor,
+                k: torch.Tensor) -> None:
+    """The mask's arguments: a window only with the causal mask, and the
+    causal mask only over as many keys as queries (the reference never
+    asks for either otherwise)."""
     if window < 0:
         raise ValueError(f"window must be >= 0, got {window}")
     if window and not causal:
         raise ValueError("a sliding window needs the causal mask (the "
                          "reference never asks for one without it)")
+    if causal and k.shape[1] != q.shape[1]:
+        raise ValueError(f"the causal mask needs as many keys as queries, "
+                         f"got Sq = {q.shape[1]} and Sk = {k.shape[1]}")
 
 
 def _masked(S: int, causal: bool, window: int, device):
     """(S, S) bool, True where key j is invalid for query i: above the
-    diagonal under the causal mask, at or below ``i - window`` under a
-    window; None without a mask."""
+    diagonal under the causal mask (which has Sk = Sq = S), at or below
+    ``i - window`` under a window; None without a mask."""
     if not causal:
         return None
     pos = torch.arange(S, device=device)
@@ -97,10 +110,10 @@ def _masked(S: int, causal: bool, window: int, device):
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           causal: bool = True,
                           window: int = 0) -> torch.Tensor:
-    """Plain twin of K4 in the model layout: float32 scores, softmax as
-    ``exp(s - max) / max(sum, 1e-20)`` over float32 ``P·V``, cast at the
-    end."""
-    _check_window(causal, window)
+    """Plain twin of K4 in the model layout, q (B, Sq, H, hd) and k/v (B,
+    Sk, K, hd): float32 scores, softmax as ``exp(s - max) / max(sum,
+    1e-20)`` over float32 ``P·V``, cast at the end."""
+    _check_mask(causal, window, q, k)
     B, S, H, hd = q.shape
     K = k.shape[2]
     G = H // K
@@ -121,13 +134,13 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0) -> torch.Tensor:
-    """K4: q (B, S, H, hd), k/v (B, S, K, hd), float32 or bfloat16, all
-    contiguous -> (B, S, H, hd) in q's type; ``window > 0`` (causal only)
-    limits query i to keys ``i - window < j <= i``.  A CUDA tensor
-    launches the kernel (or raises); a CPU tensor takes the plain
-    version."""
+    """K4: q (B, Sq, H, hd), k/v (B, Sk, K, hd) (Sk = Sq under the causal
+    mask), float32 or bfloat16, all contiguous -> (B, Sq, H, hd) in q's
+    type; ``window > 0`` (causal only) limits query i to keys ``i -
+    window < j <= i``.  A CUDA tensor launches the kernel (or raises); a
+    CPU tensor takes the plain version."""
     _check(q, k, v)
-    _check_window(causal, window)
+    _check_mask(causal, window, q, k)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal, window)
     if q.device.type != "cuda":
@@ -136,14 +149,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if B * H > 65_535:
         raise ValueError(f"B*H = {B * H} exceeds the kernel's grid")
     out = torch.empty_like(q)
-    fn = library("flash_attention").repro_torch_flash_attention_windowed
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 \
+    fn = library("flash_attention").repro_torch_flash_attention_kv
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 \
         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(q.device):
         flash_attention.launches += 1
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B,
-                 S, H, k.shape[2], hd, int(causal), int(window),
+                 S, k.shape[1], H, k.shape[2], hd, int(causal), int(window),
                  1.0 / math.sqrt(hd), int(q.dtype == torch.bfloat16),
                  stream_ptr(q))
     if err in _TMA_ERRORS:
@@ -165,7 +178,7 @@ def flash_attention_backward_plain(q: torch.Tensor, k: torch.Tensor,
     ``dS = P * (dout V^T - D)``; returns ``(dS K / sqrt(hd),
     dS^T Q / sqrt(hd), P^T dout)`` in q's, k's and v's types, the G query
     heads of a kv head summed into its dK and dV."""
-    _check_window(causal, window)
+    _check_mask(causal, window, q, k)
     B, S, H, hd = q.shape
     K = k.shape[2]
     G = H // K
@@ -196,12 +209,13 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
                              dout: torch.Tensor, *, causal: bool = True,
                              window: int = 0):
     """K4's backward: K4's arguments plus its output ``out`` and the
-    output's gradient ``dout`` (both (B, S, H, hd), q's type, contiguous)
-    -> ``(dq, dk, dv)`` in the inputs' types.  A CUDA tensor launches the
-    kernels (or raises): bfloat16 the tensor-core ones, float32 the
-    CUDA-core ones; a CPU tensor takes the plain version."""
+    output's gradient ``dout`` (both (B, Sq, H, hd), q's type, contiguous)
+    -> ``(dq, dk, dv)`` in the inputs' types, dk and dv (B, Sk, K, hd).
+    A CUDA tensor launches the kernels (or raises): bfloat16 the
+    tensor-core ones, float32 the CUDA-core ones; a CPU tensor takes the
+    plain version."""
     _check(q, k, v)
-    _check_window(causal, window)
+    _check_mask(causal, window, q, k)
     for name, t in (("out", out), ("dout", dout)):
         check_tensor(name, t, q.dtype, 4, q.device)
         if t.shape != q.shape:
@@ -218,23 +232,24 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
         raise ValueError(f"B*H = {B * H} exceeds the kernel's grid")
     lib = library("flash_attention_bwd")
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-    # per-row log-sum-exp and rowsum(dout * out), filled by the first
-    # pass; the tensor-core kernels read whole 128-row tiles of them
+    # per query row log-sum-exp and rowsum(dout * out), filled by the
+    # first pass; the tensor-core kernels read whole 128-row tiles of them
     rows_fn = lib.repro_torch_flash_attention_bwd_rows
     rows_fn.argtypes, rows_fn.restype = [ctypes.c_int], ctypes.c_int
     lse = torch.empty((B, H, rows_fn(S)), dtype=torch.float32,
                       device=q.device)
     delta = torch.empty_like(lse)
-    fn = lib.repro_torch_flash_attention_bwd_windowed
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 \
+    fn = lib.repro_torch_flash_attention_bwd_kv
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 \
         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(q.device):
         flash_attention_backward.launches += 1
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                 lse.data_ptr(), delta.data_ptr(), B, S, H, k.shape[2], hd,
-                 int(causal), int(window), 1.0 / math.sqrt(hd),
+                 lse.data_ptr(), delta.data_ptr(), B, S, k.shape[1], H,
+                 k.shape[2], hd, int(causal), int(window),
+                 1.0 / math.sqrt(hd),
                  int(q.dtype == torch.bfloat16), stream_ptr(q))
     if err in _TMA_ERRORS:
         raise RuntimeError(f"CUDA kernel flash_attention_bwd: "
@@ -248,7 +263,8 @@ flash_attention_backward.launches = 0
 
 class FlashAttention(torch.autograd.Function):
     """K4 with its backward: ``FlashAttention.apply(q, k, v, causal,
-    window)``.  Forward and backward each take the kernel for CUDA tensors
+    window)``, k and v of their own length without the causal mask.
+    Forward and backward each take the kernel for CUDA tensors
     and the plain version for CPU tensors; the backward keeps q, k, v and
     the output, and recomputes the probabilities from them."""
 

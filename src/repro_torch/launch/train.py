@@ -13,7 +13,9 @@ through :func:`train_steps` (``chip_smoke.py`` trains qwen3-8b at its
 published widths with it).  The device is CUDA unless ``--device``
 names another.
 
-LM archs take the synthetic token stream of :func:`lm_batch_source`.
+LM archs take the synthetic token stream of :func:`lm_batch_source`
+(with the vlm family's patch embeddings and the encdec family's frame
+embeddings drawn as the reference draws them).
 The image-model path (``--arch vit-huge``) takes its batches from the
 Seneca image pipeline (:func:`image_batch_source`), each turned into
 patch embeddings by :func:`patch_batch`.  The pipeline's executor
@@ -40,6 +42,7 @@ from repro_torch.data.synthetic import tiny
 from repro_torch.distributed.ft import FTConfig, ResilientTrainer
 from repro_torch.kernels.device import resolve_device
 from repro_torch.models.model import Model, build
+from repro_torch.models.transformer import ENCDEC, encdec_src_len
 from repro_torch.train.optimizer import AdamW, warmup_cosine
 from repro_torch.train.step import build_train_step
 
@@ -47,15 +50,32 @@ from repro_torch.train.step import build_train_step
 def lm_batch_source(model: Model, batch: int, seq: int,
                     seed: int = 0) -> Callable[[], Dict]:
     """Synthetic-corpus LM batches (deterministic token stream, drawn as
-    the reference draws it), on the model's device."""
+    the reference draws it), on the model's device.  The vlm family's
+    batch holds ``frontend_tokens`` = P patch embeddings (bf16) in front
+    of ``seq - P`` tokens, with the ``seq`` labels of every row; the
+    encdec family's adds ``encdec_src_len(seq)`` frame embeddings (bf16),
+    ``src_embeds``.  Each is drawn after the tokens, from the same
+    generator, as the reference's."""
     rng = np.random.default_rng(seed)
-    V = model.cfg.vocab_size
+    cfg = model.cfg
     dev = model.device
 
+    def embeds(rows: int) -> torch.Tensor:
+        x = rng.normal(size=(batch, rows, cfg.d_model))
+        return torch.from_numpy(x).to(dev, torch.bfloat16)
+
     def next_batch():
-        toks = rng.integers(0, V, size=(batch, seq + 1), dtype=np.int64)
-        return {"tokens": torch.from_numpy(toks[:, :-1].copy()).to(dev),
-                "labels": torch.from_numpy(toks[:, 1:].copy()).to(dev)}
+        toks = rng.integers(0, cfg.vocab_size, size=(batch, seq + 1),
+                            dtype=np.int64)
+        b = {"tokens": torch.from_numpy(toks[:, :-1].copy()).to(dev),
+             "labels": torch.from_numpy(toks[:, 1:].copy()).to(dev)}
+        if cfg.family == "vlm":
+            p = cfg.frontend_tokens
+            b["tokens"] = b["tokens"][:, :seq - p].contiguous()
+            b["patch_embeds"] = embeds(p)
+        if cfg.family in ENCDEC:
+            b["src_embeds"] = embeds(encdec_src_len(seq))
+        return b
 
     return next_batch
 

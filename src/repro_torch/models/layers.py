@@ -13,10 +13,17 @@ The reference's XLA paths (``_sdpa`` for short sequences,
 ``blockwise_attention`` for long ones) compute the same function and are
 what the parity tests hold the port to, sliding windows (``window > 0``,
 the hybrid family's) included: K4 takes the window and skips the key
-tiles outside it.  Cross-attention (hence ``Sq != Sk``) belongs to a
-family not ported yet and raises ``NotImplementedError``.  One-token
-decode stays plain torch (``_sdpa``), windowed or not: the reference has
-no kernel for it.  There is no sharding: the port runs on one device.
+tiles outside it.  Cross-attention (``kv_x``, the encdec family's
+decoder over its encoder's output) runs through K4 too, non-causal with
+Sq decoder rows over Sk encoder rows.  One-token decode stays plain
+torch (``_sdpa``), windowed, cross or not: the reference has no kernel
+for it.  There is no sharding: the port runs on one device.
+
+Where a bf16 activation meets float32 weights (the encdec family's
+encoder takes its frame embeddings as bf16 whatever the parameters'
+type), jnp's ``einsum`` promotes to float32 and ``torch.matmul`` raises;
+the projections promote at the product (:func:`_mm`), so the bf16 input
+keeps the reference's rounding and a bf16 model is untouched.
 """
 from __future__ import annotations
 
@@ -95,14 +102,23 @@ def attention_defs(cfg: ModelConfig, *, cross: bool = False) -> Dict:
     return defs
 
 
+def _mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` in the promoted type of the two, as jnp's ``einsum``
+    takes it; for operands of one type, ``torch.matmul`` itself."""
+    if x.dtype != w.dtype:
+        dt = torch.promote_types(x.dtype, w.dtype)
+        x, w = x.to(dt), w.to(dt)
+    return torch.matmul(x, w)
+
+
 def _project_qkv(p, x: torch.Tensor, kv_x: torch.Tensor, cfg: ModelConfig,
                  positions, kv_positions, *, use_rope: bool = True):
     B = x.shape[0]
     hd = cfg.resolved_head_dim
     H, K = cfg.n_heads, cfg.n_kv_heads
-    q = torch.matmul(x, p["wq"])
-    k = torch.matmul(kv_x, p["wk"])
-    v = torch.matmul(kv_x, p["wv"])
+    q = _mm(x, p["wq"])
+    k = _mm(kv_x, p["wk"])
+    v = _mm(kv_x, p["wv"])
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     q = q.reshape(B, -1, H, hd)
@@ -149,14 +165,14 @@ def attention(p, x: torch.Tensor, cfg: ModelConfig, *,
               kv_x: Optional[torch.Tensor] = None,
               kv_positions: Optional[torch.Tensor] = None,
               use_rope: bool = True, return_kv: bool = False):
-    """Full-sequence self-attention (training / prefill) through K4;
+    """Full-sequence attention (training / prefill / cross) through K4;
     ``window > 0`` (with ``causal``) limits query i to keys
-    ``i - window < j <= i``."""
-    if kv_x is not None or kv_positions is not None:
-        raise NotImplementedError(
-            "cross-attention (encdec family) is not ported yet; see "
-            "ROADMAP.md")
-    q, k, v = _project_qkv(p, x, x, cfg, positions, positions,
+    ``i - window < j <= i``.  With ``kv_x`` (B, Sk, d) the keys and values
+    come from it, at ``kv_positions`` (default ``positions``); Sk may
+    differ from the query length only without ``causal``, as K4 asks."""
+    kv_x = x if kv_x is None else kv_x
+    kv_positions = positions if kv_positions is None else kv_positions
+    q, k, v = _project_qkv(p, x, kv_x, cfg, positions, kv_positions,
                            use_rope=use_rope)
     out = flash_mha(q, k, v, causal=causal, window=window)
     out = out.reshape(x.shape[0], -1, cfg.n_heads * cfg.resolved_head_dim)

@@ -1,15 +1,30 @@
 """Model assembly: the port's twin of ``repro.models.transformer`` for
-the families ported so far, dense (qwen3, deepseek-7b, qwen1.5,
-llama3), moe (deepseek-moe, kimi-k2), ssm (mamba2), hybrid (zamba2) and
-encoder (vit).
+every family of the pool: dense (qwen3, deepseek-7b, qwen1.5, llama3),
+moe (deepseek-moe, kimi-k2), vlm (internvl2), encdec/audio (seamless),
+ssm (mamba2), hybrid (zamba2) and encoder (vit).
 
 The reference scans over stacked per-layer params (``lax.scan``); the
 port loops over the ``nn.ModuleList`` of layers.  ``remat != "none"``
 recomputes each block in the backward
 (``torch.utils.checkpoint.checkpoint(..., use_reentrant=False)`` per
-block, as the reference's ``jax.checkpoint`` of the scan body).  The
-other families (vlm, encdec/audio) raise ``NotImplementedError`` until
-they are ported (ROADMAP.md).
+block, as the reference's ``jax.checkpoint`` of the scan body).
+
+The vlm family is the dense stack with ``patch_embeds`` (B, P, d), cast
+to the activations' type, in front of the token embeddings; positions
+run over the P + S_text rows, and its cache and decode are the dense
+ones.
+
+The encdec family (``"audio"`` alike, as in the reference) runs a
+bidirectional encoder (``enc_blocks``: non-causal, with rotary, under
+remat like the decoder, then ``enc_norm``) over ``src_embeds`` (B,
+S_src, d) taken as bf16, and a decoder whose blocks add, after the
+self-attention, a cross-attention (``lnc``, ``cross``: non-causal, no
+rotary, no qkv bias) from the S decoder rows to the S_src encoder rows
+through K4 with Sq != Sk.  Its decode cache adds the cross keys and
+values ``ck``/``cv`` of ``encdec_src_len(s_max)`` rows; prefill
+*replaces* them with its own ``encdec_src_len(S)`` rows, projected from
+the encoder's output with no norm, as the reference's does, and decode
+reads whatever the cache holds (a plain one-row attention, no mask).
 
 The hybrid family runs the ssm stack with one weight-tied attention
 block (``shared``, unstacked) applied after every ``hybrid_attn_every``
@@ -46,33 +61,32 @@ from typing import Dict, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import FAMILIES, ModelConfig
 from repro_torch.models import layers as lyr
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.params import ParamDef, padded_vocab, stack_defs
 
 F32 = torch.float32
-PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "encoder")
-
-
-def check_family(cfg: ModelConfig) -> None:
-    if cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.name}) is not ported yet; see "
-            f"ROADMAP.md")
+#: the families with an encoder and cross-attention (the reference treats
+#: both names alike)
+ENCDEC = ("encdec", "audio")
 
 
 # ---------------------------------------------------------------------------
 # Param defs
 # ---------------------------------------------------------------------------
 
-def _block_defs(cfg: ModelConfig, *, ssm: bool = False) -> Dict:
+def _block_defs(cfg: ModelConfig, *, cross: bool = False,
+                ssm: bool = False) -> Dict:
     d = {"ln1": lyr.rmsnorm_def(cfg.d_model)}
     if ssm:
         d["ssm"] = ssm_mod.ssm_defs(cfg)
         return d
     d["attn"] = lyr.attention_defs(cfg)
+    if cross:
+        d["lnc"] = lyr.rmsnorm_def(cfg.d_model)
+        d["cross"] = lyr.attention_defs(cfg, cross=True)
     d["ln2"] = lyr.rmsnorm_def(cfg.d_model)
     if cfg.moe is not None:
         d["moe"] = moe_mod.moe_defs(cfg)
@@ -82,13 +96,18 @@ def _block_defs(cfg: ModelConfig, *, ssm: bool = False) -> Dict:
 
 
 def param_defs(cfg: ModelConfig) -> Dict:
-    check_family(cfg)
+    if cfg.family not in FAMILIES:
+        raise ValueError(cfg.family)
     defs: Dict = {"final_norm": lyr.rmsnorm_def(cfg.d_model),
                   "blocks": stack_defs(_block_defs(
-                      cfg, ssm=cfg.family in ("ssm", "hybrid")),
-                      cfg.n_layers)}
+                      cfg, cross=cfg.family in ENCDEC,
+                      ssm=cfg.family in ("ssm", "hybrid")), cfg.n_layers)}
     if cfg.family == "hybrid":
         defs["shared"] = _block_defs(cfg)          # weight-tied attn block
+    if cfg.family in ENCDEC:
+        defs["enc_blocks"] = stack_defs(_block_defs(cfg),
+                                        cfg.n_encoder_layers)
+        defs["enc_norm"] = lyr.rmsnorm_def(cfg.d_model)
     if cfg.family == "encoder":
         defs["pos_embed"] = ParamDef((cfg.frontend_tokens, cfg.d_model),
                                      (None, "embed"), init="embed")
@@ -104,19 +123,31 @@ def param_defs(cfg: ModelConfig) -> Dict:
 # ---------------------------------------------------------------------------
 
 def _attn_block(lp, x: torch.Tensor, cfg: ModelConfig, positions, *,
-                causal: bool, window: int = 0, use_rope: bool = True,
-                return_kv: bool = False):
+                causal: bool, window: int = 0, enc_out=None,
+                use_rope: bool = True, return_kv: bool = False):
+    """One attention block: ``(x, aux)``; with ``return_kv``, ``(x, aux,
+    kv)``, kv the self-attention's keys and values ``{"k", "v"}`` and, in
+    a block with cross-attention, its keys and values ``{"ck", "cv"}``."""
+    kv = {}
     h = lyr.rmsnorm(x, lp["ln1"], cfg.norm_eps)
     a = lyr.attention(lp["attn"], h, cfg, positions=positions, causal=causal,
                       window=window, use_rope=use_rope, return_kv=return_kv)
     if return_kv:
-        a, k, v = a
+        a, kv["k"], kv["v"] = a
     x = x + a
+    if "cross" in lp:
+        h = lyr.rmsnorm(x, lp["lnc"], cfg.norm_eps)
+        a = lyr.attention(lp["cross"], h, cfg, positions=positions,
+                          causal=False, kv_x=enc_out, use_rope=False,
+                          return_kv=return_kv)
+        if return_kv:
+            a, kv["ck"], kv["cv"] = a
+        x = x + a
     h = lyr.rmsnorm(x, lp["ln2"], cfg.norm_eps)
     f, aux = _ffn(lp, h, cfg)
     x = x + f
     if return_kv:
-        return x, aux, k, v
+        return x, aux, kv
     return x, aux
 
 
@@ -132,11 +163,18 @@ def _ssm_block(lp, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return x + ssm_mod.ssm_block(lp["ssm"], h, cfg)
 
 
+def _run(body, x: torch.Tensor, remat: str):
+    """One block, recomputed in the backward under remat."""
+    if remat != "none":
+        return checkpoint(body, x, use_reentrant=False)
+    return body(x)
+
+
 def run_decoder(params, x: torch.Tensor, cfg: ModelConfig, positions, *,
-                causal: bool = True, use_rope: bool = True,
+                causal: bool = True, enc_out=None, use_rope: bool = True,
                 remat: str = "none") -> Tuple[torch.Tensor, torch.Tensor]:
-    """Run the main block stack. Returns (x, aux_loss)."""
-    check_family(cfg)
+    """Run the main block stack (the decoder's blocks attend to
+    ``enc_out`` too in the encdec family). Returns (x, aux_loss)."""
     aux = torch.zeros((), dtype=F32, device=x.device)
     every = cfg.hybrid_attn_every if cfg.family == "hybrid" else 0
     for l, lp in enumerate(params["blocks"]):
@@ -146,11 +184,8 @@ def run_decoder(params, x: torch.Tensor, cfg: ModelConfig, positions, *,
         else:
             def body(h, lp=lp):
                 return _attn_block(lp, h, cfg, positions, causal=causal,
-                                   use_rope=use_rope)
-        if remat != "none":
-            x, a = checkpoint(body, x, use_reentrant=False)
-        else:
-            x, a = body(x)
+                                   enc_out=enc_out, use_rope=use_rope)
+        x, a = _run(body, x, remat)
         aux = aux + a
         if every and (l + 1) % every == 0:
             # the weight-tied block, outside the checkpoint as in the
@@ -159,6 +194,39 @@ def run_decoder(params, x: torch.Tensor, cfg: ModelConfig, positions, *,
                                causal=True, window=cfg.attn_window)
             aux = aux + a
     return x, aux
+
+
+def run_encoder(params, src: torch.Tensor, cfg: ModelConfig,
+                remat: str = "none") -> Tuple[torch.Tensor, torch.Tensor]:
+    """The bidirectional encoder over frame embeddings (encdec family):
+    non-causal blocks with rotary, then ``enc_norm``.  Returns (the
+    encoder's output, its aux loss)."""
+    positions = torch.arange(src.shape[1], device=src.device)
+    x, aux = src, torch.zeros((), dtype=F32, device=src.device)
+    for lp in params["enc_blocks"]:
+        def body(h, lp=lp):
+            return _attn_block(lp, h, cfg, positions, causal=False)
+        x, a = _run(body, x, remat)
+        aux = aux + a
+    return lyr.rmsnorm(x, params["enc_norm"], cfg.norm_eps), aux
+
+
+def _encode(params, cfg: ModelConfig, batch: Dict, remat: str = "none"):
+    """The encoder's output for an encdec batch (its ``src_embeds`` taken
+    as bf16, as the reference takes them), None for the other families."""
+    if cfg.family not in ENCDEC:
+        return None
+    return run_encoder(params, batch["src_embeds"].to(torch.bfloat16), cfg,
+                       remat)[0]
+
+
+def _embed_inputs(params, cfg: ModelConfig, batch: Dict) -> torch.Tensor:
+    """The decoder's input rows: the token embeddings, behind the vlm
+    family's ``patch_embeds`` in the embeddings' type."""
+    x = lyr.embed(params["embed"], batch["tokens"])
+    if cfg.family == "vlm":
+        x = torch.cat([batch["patch_embeds"].to(x.dtype), x], dim=1)
+    return x
 
 
 # ---------------------------------------------------------------------------
@@ -171,9 +239,10 @@ def forward(params, cfg: ModelConfig, batch: Dict, *,
 
     batch keys by family:
       dense/moe/ssm/hybrid: tokens (B, S) int -> logits (B, S, V_pad)
+      vlm:       tokens (B, S - P) + patch_embeds (B, P, d) -> (B, S, V_pad)
+      encdec:    src_embeds (B, S_src, d) + tokens (B, S) -> (B, S, V_pad)
       encoder:   patch_embeds (B, T, d) -> class logits (B, n_classes)
     """
-    check_family(cfg)
     if cfg.family == "encoder":
         # bf16 embeddings plus the parameter: float32 parameters promote
         # the stream to float32, as jnp promotes it
@@ -183,9 +252,11 @@ def forward(params, cfg: ModelConfig, batch: Dict, *,
                              use_rope=False, remat=remat)
         x = lyr.rmsnorm(x, params["final_norm"], cfg.norm_eps)
         return torch.matmul(x[:, 0], params["head"]), aux
-    x = lyr.embed(params["embed"], batch["tokens"])
+    enc_out = _encode(params, cfg, batch, remat)
+    x = _embed_inputs(params, cfg, batch)
     positions = torch.arange(x.shape[1], device=x.device)
-    x, aux = run_decoder(params, x, cfg, positions, causal=True, remat=remat)
+    x, aux = run_decoder(params, x, cfg, positions, causal=True,
+                         enc_out=enc_out, remat=remat)
     x = lyr.rmsnorm(x, params["final_norm"], cfg.norm_eps)
     return lyr.logits(params["embed"], x), aux
 
@@ -223,18 +294,23 @@ def loss_fn(params, cfg: ModelConfig, batch: Dict, *,
 
 def cache_defs(cfg: ModelConfig, B: int, s_max: int) -> Dict:
     """Decode-state ParamDefs (init=zeros), as in the reference."""
-    check_family(cfg)
     if cfg.family == "encoder":
         raise ValueError(f"no decode cache for family {cfg.family}")
     L = cfg.n_layers
     bf16, f32 = torch.bfloat16, torch.float32
-    if cfg.family in ("dense", "moe"):
+    if cfg.family in ("dense", "moe", "vlm") + ENCDEC:
         hd, K = cfg.resolved_head_dim, cfg.n_kv_heads
         kv_axes = ("layers", "batch", "kv_seq", "act_kv", None)
-        return {
+        defs = {
             "k": ParamDef((L, B, s_max, K, hd), kv_axes, "zeros", dtype=bf16),
             "v": ParamDef((L, B, s_max, K, hd), kv_axes, "zeros", dtype=bf16),
         }
+        if cfg.family in ENCDEC:
+            s_src = encdec_src_len(s_max)
+            for name in ("ck", "cv"):
+                defs[name] = ParamDef((L, B, s_src, K, hd), kv_axes, "zeros",
+                                      dtype=bf16)
+        return defs
     s = cfg.ssm
     d_in = s.expand * cfg.d_model
     nh = d_in // s.head_dim
@@ -256,6 +332,22 @@ def cache_defs(cfg: ModelConfig, B: int, s_max: int) -> Dict:
         defs["av"] = ParamDef((sites, B, W, K, hd), kv_axes, "zeros",
                               dtype=bf16)
     return defs
+
+
+def encdec_src_len(seq_len: int) -> int:
+    """Audio frames entering the encoder (8x downsampled frontend)."""
+    return max(seq_len // 8, 16)
+
+
+def _cross_attention_cached(p, x: torch.Tensor, cfg: ModelConfig,
+                            ck: torch.Tensor, cv: torch.Tensor):
+    """Decode-time cross-attention of one row against the encoder's keys
+    and values ck/cv (B, S_src, K, hd): no rotary, no mask."""
+    B = x.shape[0]
+    hd = cfg.resolved_head_dim
+    q = torch.matmul(x, p["wq"]).reshape(B, 1, cfg.n_heads, hd)
+    out = lyr._sdpa(q, ck, cv, None, cfg)
+    return torch.matmul(out.reshape(B, 1, cfg.n_heads * hd), p["wo"])
 
 
 def _attention_decode_window(p, x: torch.Tensor, cfg: ModelConfig,
@@ -280,24 +372,29 @@ def decode_step(params, cfg: ModelConfig, cache: Dict, tokens: torch.Tensor,
                 index: int) -> Tuple[torch.Tensor, Dict]:
     """One-token decode. tokens: (B, 1) int; index: the position.
 
-    Returns (logits (B, 1, V_pad), new cache).  The dense and moe
-    families update ``cache`` in place and return it (moe drops its
-    auxiliary loss); the ssm family returns new state
+    Returns (logits (B, 1, V_pad), new cache).  The dense, moe, vlm and
+    encdec families update ``cache`` in place and return it (moe drops its
+    auxiliary loss; encdec reads ``ck``/``cv`` and leaves them); the ssm
+    family returns new state
     tensors (whose conv buffer takes the promoted type, as in the
     reference), and so does the hybrid family, whose ring buffers ``ak``
     and ``av`` it updates in place.  As in the reference, float32
     parameters raise ``TypeError`` on the bf16 attention cache.
     """
-    check_family(cfg)
     index = int(index)
     x = lyr.embed(params["embed"], tokens)
-    if cfg.family in ("dense", "moe"):
+    if cfg.family in ("dense", "moe", "vlm") + ENCDEC:
         for l, lp in enumerate(params["blocks"]):
             h = lyr.rmsnorm(x, lp["ln1"], cfg.norm_eps)
             a, _, _ = lyr.attention_decode(lp["attn"], h, cfg,
                                            cache_k=cache["k"][l],
                                            cache_v=cache["v"][l], index=index)
             x = x + a
+            if "cross" in lp:
+                h = lyr.rmsnorm(x, lp["lnc"], cfg.norm_eps)
+                x = x + _cross_attention_cached(lp["cross"], h, cfg,
+                                                cache["ck"][l],
+                                                cache["cv"][l])
             h = lyr.rmsnorm(x, lp["ln2"], cfg.norm_eps)
             x = x + _ffn(lp, h, cfg)[0]
         new_cache = cache
@@ -329,28 +426,35 @@ def decode_step(params, cfg: ModelConfig, cache: Dict, tokens: torch.Tensor,
 
 def prefill(params, cfg: ModelConfig, batch: Dict,
             cache: Dict) -> Tuple[torch.Tensor, Dict]:
-    """Prefill: one forward pass that also fills the decode cache (dense
-    and moe; positions past S are zero, as the reference pads them)."""
-    check_family(cfg)
+    """Prefill: one forward pass that also fills the decode cache (dense,
+    moe and vlm: positions past S are zero, as the reference pads them;
+    encdec also replaces ``ck``/``cv`` with the cross keys and values of
+    its ``encdec_src_len(S)`` encoder rows, those its cross-attention
+    projected: the reference's ``einsum`` of the encoder's output, as the
+    cross projections have no bias and no encdec config has qk_norm)."""
     if cfg.family in ("ssm", "hybrid"):
         logits, _ = forward(params, cfg, batch)
         return logits, cache
 
-    x = lyr.embed(params["embed"], batch["tokens"])
+    enc_out = _encode(params, cfg, batch)
+    x = _embed_inputs(params, cfg, batch)
     S = x.shape[1]
     positions = torch.arange(S, device=x.device)
-    ks, vs = [], []
+    kvs = {"k": [], "v": [], "ck": [], "cv": []}
     for lp in params["blocks"]:
-        x, _, k, v = _attn_block(lp, x, cfg, positions, causal=True,
-                                 return_kv=True)
-        ks.append(k)
-        vs.append(v)
+        x, _, kv = _attn_block(lp, x, cfg, positions, causal=True,
+                               enc_out=enc_out, return_kv=True)
+        for name, t in kv.items():
+            kvs[name].append(t)
     x = lyr.rmsnorm(x, params["final_norm"], cfg.norm_eps)
     logits = lyr.logits(params["embed"], x)
 
     new_cache = dict(cache)
-    for name, kv in (("k", ks), ("v", vs)):
+    for name in ("k", "v"):
         full = torch.zeros_like(cache[name])
-        full[:, :, :S] = torch.stack(kv).to(full.dtype)
+        full[:, :, :S] = torch.stack(kvs[name]).to(full.dtype)
         new_cache[name] = full
+    if enc_out is not None:
+        for name in ("ck", "cv"):
+            new_cache[name] = torch.stack(kvs[name]).to(cache[name].dtype)
     return logits, new_cache

@@ -17,7 +17,9 @@ step checks that gradients reach the attention weights on the card;
 K5's backward likewise, with one reduced mamba2-1.3b step for the ssm
 weights.  The reduced moe models run forward and backward on the card
 against the same parameters on the CPU, and two bf16 prefills on the
-card give the same bits.
+card give the same bits; so do the reduced vlm and encdec models, whose
+cross-attention runs K4 and its backward at Sq != Sk (checked on their
+own at ragged lengths too).
 """
 import numpy as np
 import pytest
@@ -1244,3 +1246,120 @@ def test_device_executor_over_process_shards_on_card(cuda):
             + served["decoded"] * ds.decoded_bytes() > 0
     finally:
         server.close()
+
+
+# ------------------------------------------- K4 with its own key length
+#: (Sq, Sk) of the cross-attention card checks: queries on both sides of
+#: a 128-row item, keys short of one 64-key tile, ragged past one and two,
+#: and one past 1024
+_KV_LENGTHS = [(37, 16), (37, 100), (37, 130), (37, 1025), (1000, 16),
+               (1000, 100), (1000, 130), (1000, 1025)]
+
+
+def _cross_inputs(B, Sq, Sk, H, K, hd, dtype, dev, seed):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+            .to(dtype).to(dev)
+            for shape in ((B, Sq, H, hd), (B, Sk, K, hd), (B, Sk, K, hd),
+                          (B, Sq, H, hd))]
+
+
+@pytest.mark.parametrize("Sq,Sk", _KV_LENGTHS)
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_with_its_own_key_length_matches_plain(
+        cuda, Sq, Sk, hd, dtype):
+    """K4 and its backward non-causal at Sq != Sk (the encdec family's
+    cross-attention), GQA 8 | 2, against their plain versions: float32 at
+    K4's 2e-5 and the backward's 1e-4, bf16 within one bf16 ulp; dk and
+    dv have the keys' length; two backward calls give the same bits."""
+    from repro_torch.kernels.flash_attention import kernel as fa
+    q, k, v, dout = _cross_inputs(2, Sq, Sk, 8, 2, hd, dtype, cuda,
+                                  Sq + Sk + hd)
+    f0, b0 = fa.flash_attention.launches, fa.flash_attention_backward.launches
+    out = fa.flash_attention(q, k, v, causal=False)
+    got = fa.flash_attention_backward(q, k, v, out, dout, causal=False)
+    again = fa.flash_attention_backward(q, k, v, out, dout, causal=False)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == f0 + 1
+    assert fa.flash_attention_backward.launches == b0 + 2
+    plain = fa.flash_attention_plain(q, k, v, False)
+    want = fa.flash_attention_backward_plain(q, k, v, out, dout, False)
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, plain, atol=2e-5, rtol=2e-5)
+    else:
+        _k4_within_one_bf16_ulp(out, plain)
+    for g, a, w, t in zip(got, again, want, (q, k, v)):
+        assert g.dtype == dtype and g.shape == t.shape == w.shape
+        assert torch.equal(g, a)
+        if dtype == torch.float32:
+            torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-4)
+        else:
+            _k4_within_one_bf16_ulp(g, w)
+
+
+@pytest.mark.parametrize("arch", ["internvl2-2b", "seamless-m4t-large-v2"])
+def test_vlm_and_encdec_forward_and_backward_on_card_match_cpu(cuda, arch):
+    """A reduced internvl2-2b and seamless-m4t-large-v2 in float32 with
+    the same parameters on the card and on the CPU: logits, loss and
+    every gradient within 1e-4 (the card runs K4 and its backward, the
+    encdec family's cross-attention at Sq != Sk among them, the CPU their
+    plain versions); K4 and its backward launch once per attention of a
+    layer."""
+    from repro_torch.configs import registry
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.launch.train import lm_batch_source
+    from repro_torch.models.convert import params_from_jax, params_to_numpy
+    from repro_torch.models.model import build
+
+    cfg = registry.get_reduced(arch)
+    cpu = build(cfg).init(dtype=torch.float32, seed=0, device="cpu")
+    card = params_from_jax(build(cfg), params_to_numpy(cpu), device=cuda)
+    batch = {k: v.float() if v.is_floating_point() else v
+             for k, v in lm_batch_source(cpu, 2, 160, seed=1)().items()}
+    batches = [batch, {k: v.to(cuda) for k, v in batch.items()}]
+    grads = []
+    f0, b0 = fa.flash_attention.launches, fa.flash_attention_backward.launches
+    for m, b in zip((cpu, card), batches):
+        m.requires_grad_(True)
+        names, ps = zip(*m.named_parameters())
+        loss = m.loss(b)
+        grads.append((float(loss), dict(zip(names, torch.autograd.grad(
+            loss, ps)))))
+    torch.cuda.synchronize()
+    attn = cfg.n_layers + (cfg.n_layers + cfg.n_encoder_layers
+                           if cfg.family == "encdec" else 0)
+    assert fa.flash_attention.launches - f0 == attn
+    assert fa.flash_attention_backward.launches - b0 == attn
+    (want_loss, want_g), (got_loss, got_g) = grads
+    np.testing.assert_allclose(got_loss, want_loss, rtol=1e-5)
+    for n, w in want_g.items():
+        scale = float(w.abs().max())
+        torch.testing.assert_close(got_g[n].cpu(), w, rtol=1e-4,
+                                   atol=1e-4 * max(scale, 1.0), msg=n)
+
+
+@pytest.mark.parametrize("arch", ["internvl2-2b", "seamless-m4t-large-v2"])
+def test_vlm_and_encdec_bf16_prefill_and_decode_on_card(cuda, arch):
+    """A reduced bf16 model on the card: prefill's logits equal
+    forward's bitwise, and decode at index S (reading prefill's cache,
+    for encdec its ``encdec_src_len(S)`` cross rows) agrees with forward
+    on the extended sequence within the reference's 1e-2."""
+    from repro_torch.configs import registry
+    from repro_torch.launch.train import lm_batch_source
+    from repro_torch.models.model import build
+
+    cfg = registry.get_reduced(arch)
+    model = build(cfg).init(seed=0, device=cuda)
+    batch = lm_batch_source(model, 2, 160, seed=2)()
+    batch.pop("labels")
+    S = 160
+    logits, cache = model.prefill(batch, model.init_cache(2, S + 40))
+    full, _ = model.forward(batch)
+    assert torch.equal(logits, full)
+    nxt = torch.full((2, 1), 3, dtype=torch.int64, device=cuda)
+    dec, _ = model.decode_step(cache, nxt, S)
+    ext = dict(batch, tokens=torch.cat([batch["tokens"], nxt], dim=1))
+    want, _ = model.forward(ext)
+    torch.testing.assert_close(dec[:, 0].float(), want[:, -1].float(),
+                               atol=1e-2, rtol=1e-2)

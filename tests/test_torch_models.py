@@ -1,6 +1,7 @@
 """The port's models (reduced: dense qwen3-8b, deepseek-7b, qwen1.5-32b
 and llama3-405b, moe deepseek-moe-16b and kimi-k2, ssm mamba2-1.3b,
-hybrid zamba2-1.2b) against the JAX package.
+hybrid zamba2-1.2b; the vlm and encdec archs' parameter trees) against
+the JAX package.
 
 Parameters come from the reference's own ``Model.init`` and are loaded
 into the port with ``params_from_jax``; tokens are drawn with numpy from
@@ -19,6 +20,8 @@ K4's and K5's plain versions.  Tolerances, with their reasons:
 * the ssm decode trajectory: the reference's criteria
   (``tests/test_models.py:122-130``).
 """
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -39,6 +42,11 @@ from repro_torch.models.params import padded_vocab  # noqa: E402
 
 ARCHS = ["qwen3-8b", "mamba2-1.3b", "deepseek-moe-16b", "kimi-k2-1t-a32b",
          "deepseek-7b", "qwen1.5-32b", "llama3-405b", "zamba2-1.2b"]
+#: the archs whose batches hold more than tokens (the vlm family's patch
+#: embeddings, the encdec family's frame embeddings) are held against the
+#: reference in tests/test_torch_{vlm,encdec}.py; their parameter trees
+#: round-trip here with the others
+ROUND_TRIP_ARCHS = ARCHS + ["internvl2-2b", "seamless-m4t-large-v2"]
 _JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 
 
@@ -56,7 +64,7 @@ def _tokens(B, S, seed=1, vocab=512):
         np.int32)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ROUND_TRIP_ARCHS)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_params_from_jax_round_trip_is_exact(arch, dtype):
     _, params, pm = _pair(arch, dtype)
@@ -163,17 +171,33 @@ def test_float32_dense_decode_raises_like_the_reference():
 
 
 def test_unported_families_and_variants_raise():
-    with pytest.raises(NotImplementedError):
-        registry.get("internvl2-2b")
+    """Every arch of the registry resolves, full and reduced, to the
+    reference's config and builds (no family is left unported); an
+    unknown arch raises ``KeyError``; cross-attention runs non-causal
+    over keys of another length, and the causal mask over them raises
+    ``ValueError`` (K4's causal mask needs Sk = Sq)."""
+    assert registry.list_archs() == ref_registry.list_archs()
+    for arch in registry.list_archs():
+        for get, ref_get in ((registry.get, ref_registry.get),
+                             (registry.get_reduced,
+                              ref_registry.get_reduced)):
+            assert dataclasses.asdict(get(arch)) == dataclasses.asdict(
+                ref_get(arch)), arch
+        assert build(registry.get(arch)).n_params() == ref_build(
+            ref_registry.get(arch)).n_params(), arch
     with pytest.raises(KeyError):
         registry.get("no-such-arch")
-    assert set(registry.list_archs()) == set(ref_registry.list_archs())
     _, _, pm = _pair("qwen3-8b")
     lp = pm["blocks"][0]["attn"]
     x = torch.zeros((1, 4, pm.cfg.d_model), dtype=torch.bfloat16)
+    kv = torch.zeros((1, 6, pm.cfg.d_model), dtype=torch.bfloat16)
     pos = torch.arange(4)
-    with pytest.raises(NotImplementedError):
-        lyr.attention(lp, x, pm.cfg, positions=pos, causal=False, kv_x=x)
+    y = lyr.attention(lp, x, pm.cfg, positions=pos, causal=False, kv_x=kv,
+                      use_rope=False)
+    assert y.shape == x.shape
+    with pytest.raises(ValueError):
+        lyr.attention(lp, x, pm.cfg, positions=pos, causal=True, kv_x=kv,
+                      use_rope=False)
 
 
 def test_init_is_seeded_and_scaled():

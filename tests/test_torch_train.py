@@ -338,9 +338,13 @@ def test_cli_trains_on_cpu(tmp_path, capsys):
     out = capsys.readouterr().out
     assert "3 steps in" in out and "loss" in out
     assert (tmp_path / "LATEST").read_text() == "step_00000003"
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        train_cli.main(["--arch", "internvl2-2b", "--steps", "1", "--device",
-                        "cpu", "--ckpt-dir", str(tmp_path / "internvl2")])
+    # the vlm family trains too (every family is ported)
+    train_cli.main(["--arch", "internvl2-2b", "--steps", "1", "--batch", "2",
+                    "--seq", "16", "--device", "cpu", "--ckpt-dir",
+                    str(tmp_path / "internvl2")])
+    out = capsys.readouterr().out
+    assert "arch=internvl2-2b" in out and "1 steps in" in out
+    assert (tmp_path / "internvl2" / "LATEST").read_text() == "step_00000001"
 
 
 def test_cli_rerun_over_its_checkpoints_trains_no_steps(tmp_path, capsys):
