@@ -95,8 +95,18 @@ into ``build/repro_torch/``), then:
    CLI's ``Server`` defaults (8 requests, 4 slots, prompts of 12, 16 new
    tokens), and one request alone whose first token is forward's
    argmax;
-7. serving path, ssm: mamba2-1.3b at full width: ``Model.forward`` of
-   4 x 1024 tokens (K5 launched once per layer), token-by-token decode
+7. the mesh layer's world: one NCCL process group of world size 1 on a
+   file store under ``build/`` and the (1, 1) ``("data", "model")``
+   ``DeviceMesh`` over it (``mesh_world``; a failure to initialise it
+   fails the run; destroyed before the last lines); then the serving
+   path, ssm: mamba2-1.3b at full width: ``Model.forward`` of
+   4 x 1024 tokens (K5 launched once per layer), the same forward under
+   the prefill rules of ``default_parallelism`` over that mesh, the
+   sequence-parallel SSD of ``models/ssm_sp.py`` (K5 once per layer,
+   logits equal to the local forward's; ``sp_part``), layer 0's block
+   with the sequence cut into 2 and 4 segments chained through the
+   hand-off that ranks past 0 take (``segments_check``, bf16 and
+   float32, against the local block), token-by-token decode
    from zero state against forward on a 64-token prefix (bf16 reported;
    float32 checked), and the ``Server`` as for qwen3-8b (each serving
    run with the device split of one decode step);
@@ -110,7 +120,14 @@ into ``build/repro_torch/``), then:
    likewise (the qwen3-8b model freed first), 4 x 1024 tokens per step,
    every layer's wx, wB, wC, wdt, A_log, dt_bias and conv weights with
    finite non-zero gradients at every step, K5 launched 2 x 48 times
-   and its backward 48 times per step;
+   and its backward 48 times per step; then mamba2-1.3b's
+   data-parallel step over the NCCL mesh (``dp_phase``): two
+   ``build_dp_train_step`` steps against two ``build_train_step`` steps
+   from the same weights (parameters within one bf16 ulp), then
+   ``TRAIN_STEPS`` steps with the int8 error-feedback all-reduce (last
+   loss within 0.1 of the uncompressed run's and below ln V), K5 and its
+   backward once per layer per step, step seconds and the seconds of
+   each ``allreduce_compressed`` over the 1.45 B gradient printed;
 9. training path, vit-huge at its published widths and full depth: (a)
    ``TRAIN_STEPS`` steps on one fixed batch, the first batch of the
    loader's device route (``imagenet_like(N_VIT)``) through
@@ -128,7 +145,13 @@ into ``build/repro_torch/``), then:
     bf16 weights from ``--seed``): (a) serving at full depth (28 layers,
     16.88 B parameters): ``Model.prefill`` of 4 x 1024 tokens (K4 once
     per layer, logits equal to forward's, the assignments the capacity
-    dropped per layer printed), the device split of one prefill; at
+    dropped per layer printed), the same prefill expert-parallel over
+    the NCCL mesh (the experts' weights placed by the prefill rules as
+    DTensors, 64 local experts from offset 0, K4 once per layer, logits
+    equal to the local prefill's; ``ep_part``), the first moe layer's
+    dispatch over 2 and 4 expert ranges from offsets above 0, summed,
+    against the dispatch over all experts (``ranges_check``), the device
+    split of one prefill; at
     capacity factor ``MOE_DECODE_FACTOR`` (nothing dropped) decode at
     index 64 against forward on the extended prefix within
     ``depth_tolerance``, with forward's experts and with its own (forward
@@ -175,7 +198,11 @@ into ``build/repro_torch/``), then:
     attention weights and every layer's ``cross.{wq,wk,wv,wo}``, at the
     rate ``SEAMLESS_LR``; every training phase's last loss must lie
     below ln V, a uniform prediction's;
-14. the kernel JSON line, the card line, and the result line
+14. the kernel JSON line (one row per kernel and shape; the rows of
+    K5, its backward and K4 at moe also carry ``launches_sp``,
+    ``launches_dp`` and ``launches_ep``, their launches on the
+    sequence-, data- and expert-parallel paths), the card line, and the
+    result line
     ``{"ok": true, "device": {...}}`` last.
 
 Float32 products on the card run in full float32: the script sets
@@ -2507,8 +2534,9 @@ def ssm_trajectory(model, prefix: torch.Tensor, ring_dtype=None):
     return rel, err, exact
 
 
-def ssm_phase(dev, seed: int, card: str) -> int:
-    """mamba2-1.3b at full width; returns K5's launches in one forward."""
+def ssm_phase(dev, seed: int, card: str, mesh):
+    """mamba2-1.3b at full width; returns K5's launches in one forward
+    and in one sequence-parallel forward over ``mesh`` (``sp_part``)."""
     model = build_model("mamba2-1.3b", dev, seed)
     cfg = model.cfg
     rng = np.random.default_rng(seed + 1)
@@ -2524,6 +2552,7 @@ def ssm_phase(dev, seed: int, card: str) -> int:
     print(f"mamba2-1.3b forward: {SSM_B} x {SSM_S} tokens in {secs:.3f} s "
           f"= {SSM_B * SSM_S / secs:.1f} tok/s, K5 launches {launches} "
           f"({card})", flush=True)
+    sp_launches = sp_part(model, tokens, full, secs, mesh, card)
     del full
     device_split(lambda: model({"tokens": tokens}), "mamba2-1.3b forward")
     # decode token by token from zero state against forward on a prefix:
@@ -2549,7 +2578,105 @@ def ssm_phase(dev, seed: int, card: str) -> int:
           f"{err:.2e}, argmax agreement {agree:.3f}", flush=True)
     del model
     torch.cuda.empty_cache()
+    return launches, sp_launches
+
+
+def mesh_rules(cfg, mesh):
+    """The sharding rules of ``cfg``'s prefill cell on ``mesh`` (one rank
+    on each axis): the reference's ``default_parallelism`` layout through
+    ``make_rules``."""
+    from repro_torch.configs.base import PREFILL_32K
+    from repro_torch.configs.registry import default_parallelism
+    from repro_torch.distributed.sharding import make_rules
+    return make_rules(cfg, PREFILL_32K, default_parallelism(cfg, PREFILL_32K),
+                      tp_size=1, dp_size=1, mesh=mesh)
+
+
+def sp_part(model, tokens, full, secs: float, mesh, card: str) -> int:
+    """The sequence-parallel SSD (``models/ssm_sp.py``) over the NCCL
+    world of one: ``Model.forward`` of the same tokens under mamba2-1.3b's
+    prefill rules (``act_seq`` -> ``model``), K5 once per layer, logits
+    against the local forward's ``full`` (bitwise expected at one rank:
+    ``h0`` is 0 and the halo zeros; at most ``depth_tolerance``).
+    Returns K5's launches in it."""
+    from repro_torch.distributed.sharding import local_block, use_rules
+    cfg = model.cfg
+    rules = mesh_rules(cfg, mesh)
+    check(rules.mapping["act_seq"] == "model",
+          f"mamba2-1.3b prefill rules map act_seq to "
+          f"{rules.mapping['act_seq']}, not model")
+    local = local_block(tokens, rules, "batch", "act_seq")
+    reset_counts()
+    with use_rules(rules):
+        (sp, _), sp_secs = synced_seconds(lambda: model({"tokens": local}))
+    launches = read_counts()["ssd_scan"]
+    with use_rules(rules):
+        _, warm = synced_seconds(lambda: model({"tokens": local}))
+    _, local_warm = synced_seconds(lambda: model({"tokens": tokens}))
+    check(launches == cfg.n_layers,
+          f"K5 launched {launches} times in one sequence-parallel forward, "
+          f"expected {cfg.n_layers}")
+    rel, err, agree, _ = compare_logits(sp, full)
+    tol = depth_tolerance(cfg.n_layers)
+    same = bool(torch.equal(sp, full))
+    check(same or (rel <= tol and agree == 1.0),
+          f"sequence-parallel forward differs from the local forward: "
+          f"relative RMS {rel} (tolerance {tol}), argmax agreement {agree}")
+    print(f"mamba2-1.3b sequence-parallel forward over a (1, 1) NCCL mesh "
+          f"(rules act_seq -> model): {SSM_B} x {SSM_S} tokens in "
+          f"{sp_secs:.3f} s (first call), {warm:.3f} s (second) against "
+          f"the local forward's {secs:.3f} s (first), {local_warm:.3f} s "
+          f"(again), K5 launches {launches} in the first; logits "
+          + ("equal the local forward's (torch.equal)" if same else
+             f"within relative RMS {rel:.2e} of the local forward's "
+             f"(tolerance {tol:.2e}), max abs {err:.3e}") + f" ({card})",
+          flush=True)
+    segments_check(model, card)
     return launches
+
+
+def segments_check(model, card: str) -> None:
+    """The sequence-parallel hand-off on the card, which a world of one
+    never takes (its rank 0 enters from a zero state): layer 0's block at
+    full width, the 4 x 1024 sequence cut into 2 and 4 segments, each
+    through K5 from a zero state with its halo from the segment before
+    and its incoming state from ``ssm_sp.hand_off``
+    (``ssm_block_in_segments``), against the local ``ssm_block`` on the
+    same input, in bf16 (relative RMS within 2**-6: each segment's y is
+    rounded to bf16 once more) and with the block's weights in float32
+    (within 1e-4 of the largest output, the reference's SP bound)."""
+    from repro_torch.models.ssm import ssm_block
+    from repro_torch.models.ssm_sp import ssm_block_in_segments
+    cfg = model.cfg
+    block = model.blocks[0]["ssm"]
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    x = torch.randn(SSM_B, SSM_S, cfg.d_model, generator=gen,
+                    device="cuda") * 0.5
+    parts = []
+    with torch.no_grad():
+        for dtype in (torch.bfloat16, torch.float32):
+            p = {k: block[k].to(dtype) for k in block.keys()}
+            xd = x.to(dtype)
+            want = ssm_block(p, xd, cfg).float()
+            for n in (2, 4):
+                got = ssm_block_in_segments(p, xd, cfg, n).float()
+                check(bool(torch.isfinite(got).all()),
+                      f"{n} segments: output not finite")
+                rel = float((got - want).norm() / want.norm())
+                err = float((got - want).abs().max())
+                top = float(want.abs().max())
+                ok = rel <= 2.0 ** -6 if dtype == torch.bfloat16 \
+                    else err <= 1e-4 * top
+                check(ok, f"mamba2-1.3b block in {n} segments ({dtype}) "
+                      f"differs from the local block: relative RMS {rel}, "
+                      f"max abs {err} of {top}")
+                parts.append(f"{str(dtype)[6:]} {n} segments: relative RMS "
+                             f"{rel:.3e}, max abs {err:.3e} of {top:.3f}")
+    print(f"mamba2-1.3b block 0 in segments (halo and K5-state hand-off "
+          f"between segments, as ranks 1..n-1 of the sequence-parallel "
+          f"path take them) against the local block, {SSM_B} x {SSM_S}: "
+          + "; ".join(parts) + " (bf16 tolerance relative RMS 2**-6, "
+          f"float32 1e-4 of the largest) ({card})", flush=True)
 
 
 #: per arch: the training batch and learning rate, the depth (None: the
@@ -2737,7 +2864,142 @@ def train_phase(dev, seed: int, card: str, arch: str = "qwen3-8b") -> int:
     del model, opt, batch, params
     gc.collect()
     torch.cuda.empty_cache()
-    return dict({k: counts[k] for k in expect}, by_shape=shapes)
+    return dict({k: counts[k] for k in expect}, by_shape=shapes,
+                losses=losses)
+
+
+def restore_params(model, saved) -> None:
+    """Copy ``saved`` ({name: tensor}) back into ``model``'s parameters."""
+    with torch.no_grad():
+        for n, p in model.named_parameters():
+            p.copy_(saved[n])
+
+
+def within_bf16_ulps(got, want) -> float:
+    """The largest |got - want| over all parameters, in bf16 ulps of
+    ``want`` (the spacing at each element's magnitude)."""
+    worst = 0.0
+    for n, w in want.items():
+        g = got[n].float()
+        w = w.float()
+        ulp = torch.exp2(torch.floor(torch.log2(w.abs().clamp_min(
+            torch.finfo(torch.bfloat16).tiny))) - 7)
+        worst = max(worst, float(((g - w).abs() / ulp).max()))
+    return worst
+
+
+def dp_phase(dev, seed: int, card: str, mesh, plain_losses):
+    """The explicit-collective data-parallel step (``train/dp_shard.py``)
+    over the NCCL world of one, mamba2-1.3b at its published widths and
+    full depth on ``train_phase``'s batch and rate: (a) two
+    ``build_train_step`` steps and two ``build_dp_train_step`` steps from
+    the same weights (int8 moments, no remat: the DP step has none, as the
+    reference's), parameters within one bf16 ulp (bitwise expected: the
+    all-reduce of one rank and the division by 1 are exact); (b)
+    ``TRAIN_STEPS`` steps with ``compress_grads=True``: the last loss
+    within 0.1 of ``train_phase``'s uncompressed run (``plain_losses``,
+    the reference's bound, tests/test_distributed.py:99) and below ln V.
+    Prints the step seconds of each run and the seconds of each
+    ``allreduce_compressed`` over the whole gradient.  Returns K5's and
+    its backward's launches over the DP steps."""
+    from repro_torch.configs.base import ParallelismConfig
+    from repro_torch.launch.train import lm_batch_source
+    from repro_torch.train import compression
+    from repro_torch.train.dp_shard import build_dp_train_step
+    from repro_torch.train.optimizer import AdamW
+    from repro_torch.train.step import build_train_step
+
+    run = TRAIN_RUNS["mamba2-1.3b"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model("mamba2-1.3b", dev, seed)
+    cfg = model.cfg
+    batch = lm_batch_source(model, run["batch"], TRAIN_S, seed + 2)()
+    init = {n: p.detach().clone() for n, p in model.named_parameters()}
+    n_params = sum(p.numel() for p in init.values())
+
+    def opt():
+        return AdamW(lr=run["lr"], state_dtype="int8")
+
+    def steps(step, n, *state):
+        secs, hist = [], []
+        for _ in range(n):
+            out, t = synced_seconds(lambda: step(model, *state, batch))
+            state = out[1:-1]
+            hist.append(float(out[-1]["loss"]))
+            secs.append(t)
+        return hist, secs
+
+    o = opt()
+    single_hist, single_s = steps(build_train_step(
+        model, ParallelismConfig(), o), 2, o.init(model))
+    single = {n: p.detach().clone() for n, p in model.named_parameters()}
+    restore_params(model, init)
+    o = opt()
+    reset_counts()
+    dp_hist, dp_s = steps(build_dp_train_step(model, o, mesh), 2,
+                          o.init(model), compression.init_ef(model))
+    got = {n: p.detach() for n, p in model.named_parameters()}
+    same = all(torch.equal(got[n], single[n]) for n in single)
+    ulps = within_bf16_ulps(got, single)
+    check(ulps <= 1.0, f"data-parallel parameters differ from the "
+          f"single-device step's by {ulps} bf16 ulps after 2 steps")
+    del single, got
+    restore_params(model, init)
+    del init
+    o = opt()
+    reduce_s = []
+    real = compression.allreduce_compressed
+
+    def timed(grads, ef, group=None):
+        out, t = synced_seconds(lambda: real(grads, ef, group))
+        reduce_s.append(t)
+        return out
+
+    compression.allreduce_compressed = timed
+    try:
+        comp_hist, comp_s = steps(build_dp_train_step(
+            model, o, mesh, compress_grads=True), TRAIN_STEPS,
+            o.init(model), compression.init_ef(model))
+    finally:
+        compression.allreduce_compressed = real
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    n_dp = 2 + TRAIN_STEPS
+    for name in ("ssd_scan", "ssd_scan_bwd"):
+        check(counts[name] == cfg.n_layers * n_dp,
+              f"{name} launched {counts[name]} times in {n_dp} "
+              f"data-parallel steps, expected {cfg.n_layers * n_dp}")
+    uniform = math.log(cfg.vocab_size)
+    check(all(np.isfinite(comp_hist))
+          and abs(comp_hist[-1] - plain_losses[-1]) < 0.1
+          and comp_hist[-1] < uniform,
+          f"compressed data-parallel losses {comp_hist}: the last not "
+          f"within 0.1 of the uncompressed run's {plain_losses[-1]}, or "
+          f"not below ln V {uniform:.4f}")
+    print(f"mamba2-1.3b data-parallel step over a (1, 1) NCCL mesh "
+          f"(int8 moments, no remat, {run['batch']} x {TRAIN_S} tokens): "
+          f"2 steps losses {[round(x, 4) for x in dp_hist]} against "
+          f"build_train_step's {[round(x, 4) for x in single_hist]}; "
+          f"parameters "
+          + ("equal (torch.equal)" if same else f"within {ulps:.2f} bf16 "
+             f"ulps") + f"; step seconds {[round(x, 3) for x in dp_s]} "
+          f"against {[round(x, 3) for x in single_s]} ({card})", flush=True)
+    print(f"mamba2-1.3b compressed data-parallel step (int8 error-feedback "
+          f"all-reduce of {n_params:,} gradient elements): {TRAIN_STEPS} "
+          f"steps losses {[round(x, 4) for x in comp_hist]} against the "
+          f"uncompressed run's {[round(x, 4) for x in plain_losses]} (last "
+          f"within 0.1; ln V {uniform:.4f}); step seconds "
+          f"{[round(x, 3) for x in comp_s]}; allreduce_compressed seconds "
+          f"{[round(x, 3) for x in reduce_s]}; K5 launches "
+          f"{counts['ssd_scan']}, its backward {counts['ssd_scan_bwd']} over "
+          f"{n_dp} data-parallel steps; peak memory {peak / 1e9:.2f} GB "
+          f"({card})", flush=True)
+    del model, o, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts["ssd_scan"], counts["ssd_scan_bwd"]
 
 
 def first_image_batch(dev, seed: int, cfg):
@@ -2904,8 +3166,8 @@ def dropped_per_layer():
     from repro_torch.models import moe as moe_mod
     plan, dropped = moe_mod.dispatch_plan, []
 
-    def counting(top_e, n_experts, capacity):
-        slot, src = plan(top_e, n_experts, capacity)
+    def counting(top_e, n_experts, capacity, e_start=0):
+        slot, src = plan(top_e, n_experts, capacity, e_start)
         dropped.append(int((slot == n_experts * capacity).sum()))
         return slot, src
 
@@ -3008,11 +3270,12 @@ def planted_routes(own, k: int):
             "the best expert dropped": shifted}
 
 
-def moe_phase(dev, seed: int, card: str):
+def moe_phase(dev, seed: int, card: str, mesh):
     """deepseek-moe-16b: (a) serving at published widths and full depth,
-    (b) ``train_phase`` at published widths and ``MOE_TRAIN_LAYERS``
-    layers.  Returns (K4's launches in one prefill, K4 backward's in the
-    training run)."""
+    with one expert-parallel prefill over ``mesh`` (``ep_part``), (b)
+    ``train_phase`` at published widths and ``MOE_TRAIN_LAYERS`` layers.
+    Returns (K4's launches in one prefill, in the expert-parallel
+    prefill, and K4 backward's in the training run)."""
     from repro_torch.models import moe as moe_mod
     arch = "deepseek-moe-16b"
     gc.collect()
@@ -3040,6 +3303,7 @@ def moe_phase(dev, seed: int, card: str):
           f"(first call), {warm:.3f} s = {T / warm:.1f} tok/s (second), K4 "
           f"launches {launches}, expert capacity {cap} slots ({e.n_experts} "
           f"x {cap} x {cfg.d_model} buffer per layer) ({card})", flush=True)
+    ep_launches = ep_part(model, tokens, logits_pf, warm, mesh, card)
     with dropped_per_layer() as dropped:
         (full, _), secs = synced_seconds(lambda: model({"tokens": tokens}))
     check(len(dropped) == cfg.n_layers,
@@ -3147,7 +3411,107 @@ def moe_phase(dev, seed: int, card: str):
           flush=True)
     del model
     bwd = train_phase(dev, seed, card, arch)["flash_attention_bwd"]
-    return launches, bwd
+    return launches, ep_launches, bwd
+
+
+def ep_part(model, tokens, want, secs: float, mesh, card: str) -> int:
+    """The expert-parallel moe over the NCCL world of one: the experts'
+    weights placed by deepseek-moe-16b's prefill rules
+    (``distribute_model``: ``Shard(0)`` on ``model``, all 64 experts on
+    this rank from offset 0), one ``Model.prefill`` of the same tokens
+    under them, K4 once per layer, logits equal to the local prefill's
+    ``want``.  The model's parameters are put back after.  Returns K4's
+    launches in the prefill."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.distributed.sharding import (distribute_model,
+                                                  local_block, use_rules)
+    from repro_torch.models.params import ParamDef, ParamTree
+    cfg = model.cfg
+    rules = mesh_rules(cfg, mesh)
+    check(rules.ep_axis == "model", f"deepseek-moe-16b prefill rules give "
+          f"ep_axis {rules.ep_axis}")
+    whole = [(tree, name, tree[name]) for tree in model.modules()
+             if isinstance(tree, ParamTree)
+             for name, d in tree.defs.items() if isinstance(d, ParamDef)]
+    distribute_model(model, rules)
+    placed = [n for n, p in model.named_parameters()
+              if isinstance(p, DTensor)]
+    check(len(placed) == 3 * cfg.n_layers,
+          f"{len(placed)} expert weights placed, expected "
+          f"{3 * cfg.n_layers}")
+    local = local_block(tokens, rules, "batch", None)
+    try:
+        reset_counts()
+        with use_rules(rules):
+            (got, _), ep_first = synced_seconds(lambda: model.prefill(
+                {"tokens": local}, model.init_cache(*local.shape[:1],
+                                                    ATTN_S_MAX)))
+        launches = read_counts()["flash_attention"]
+        with use_rules(rules):
+            _, ep_secs = synced_seconds(lambda: model.prefill(
+                {"tokens": local}, model.init_cache(*local.shape[:1],
+                                                    ATTN_S_MAX)))
+    finally:
+        for tree, name, p in whole:
+            setattr(tree, name, p)
+    check(launches == cfg.n_layers, f"K4 launched {launches} times in the "
+          f"expert-parallel prefill, expected {cfg.n_layers}")
+    check(torch.equal(got, want), "expert-parallel prefill logits differ "
+          "from the local prefill's")
+    print(f"deepseek-moe-16b expert-parallel prefill over a (1, 1) NCCL "
+          f"mesh ({len(placed)} expert weights as DTensor Shard(0) on "
+          f"model, {cfg.moe.n_experts} local experts from offset 0): "
+          f"{ATTN_B} x {ATTN_S} tokens in {ep_first:.3f} s (first call), "
+          f"{ep_secs:.3f} s (second) against the local prefill's "
+          f"{secs:.3f} s (second call), K4 launches {launches} in the "
+          f"first; "
+          f"logits equal the local prefill's (torch.equal) ({card})",
+          flush=True)
+    ranges_check(model, card)
+    return launches
+
+
+def ranges_check(model, card: str) -> None:
+    """The expert-parallel ranks' dispatch on the card, which a world of
+    one never takes past offset 0: the first moe layer at full width
+    routes 4 x 1024 tokens (random, bf16) at its capacity factor, and the
+    outputs of ``_dispatch_local`` over 2 and 4 expert ranges (offsets
+    ``r * E / n``) summed, as the all-reduce sums the ranks', against
+    the dispatch over all 64 experts: relative RMS within 2**-6 (the
+    ranges' partial sums are added in another order in bf16)."""
+    from repro_torch.models import moe as moe_mod
+    cfg = model.cfg
+    e = cfg.moe
+    p = next(b["moe"] for b in model.blocks if "moe" in b)
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    T = ATTN_B * ATTN_S
+    x2d = torch.randn(T, cfg.d_model, generator=gen, device="cuda").to(
+        p["router"].dtype)
+    parts = []
+    with torch.no_grad():
+        top_e, top_g, _ = moe_mod._route(x2d, p["router"], e.top_k)
+        cap = moe_mod._capacity(T, e.top_k, e.n_experts, e.capacity_factor)
+        want = moe_mod._dispatch_local(x2d, top_e, top_g, cap, p["we_gate"],
+                                       p["we_up"], p["we_out"]).float()
+        for n in (2, 4):
+            k = e.n_experts // n
+            got = sum(moe_mod._dispatch_local(
+                x2d, top_e, top_g, cap,
+                *(p[w][lo:lo + k] for w in ("we_gate", "we_up", "we_out")),
+                e_start=lo) for lo in range(0, e.n_experts, k)).float()
+            rel = float((got - want).norm() / want.norm())
+            err = float((got - want).abs().max())
+            check(bool(torch.isfinite(got).all()) and rel <= 2.0 ** -6,
+                  f"deepseek-moe-16b dispatch over {n} expert ranges summed "
+                  f"differs from the dispatch over all experts: relative "
+                  f"RMS {rel}, max abs {err}")
+            parts.append(f"{n} ranges: relative RMS {rel:.3e}, max abs "
+                         f"{err:.3e}")
+    print(f"deepseek-moe-16b dispatch over expert ranges (offsets > 0, as "
+          f"ranks 1..n-1 of the expert-parallel path take them) summed "
+          f"against the dispatch over all {e.n_experts} experts, {T} tokens, "
+          f"capacity {cap}: " + "; ".join(parts)
+          + f" (tolerance relative RMS 2**-6) ({card})", flush=True)
 
 
 def hybrid_phase(dev, seed: int, card: str):
@@ -3357,6 +3721,35 @@ def vlm_encdec_phase(dev, seed: int, card: str, arch: str):
     return {suffix: (by_row[suffix], bwd[suffix]) for suffix in by_row}
 
 
+def mesh_world(card: str):
+    """One NCCL process group of world size 1 on a file store under the
+    build directory, and the (1, 1) ``("data", "model")`` mesh over it
+    (``launch.mesh.make_debug_mesh``): the mesh layer's collectives run
+    through NCCL on the card.  Returns (mesh, store file)."""
+    from repro_torch.launch.mesh import init_world, make_debug_mesh
+    store = ROOT / "build" / f"nccl_store_{os.getpid()}"
+    store.parent.mkdir(parents=True, exist_ok=True)
+    store.unlink(missing_ok=True)
+    init_world(f"file://{store}", 0, 1)
+    mesh = make_debug_mesh()
+    import torch.distributed as dist
+    check(dist.get_backend() == "nccl" and tuple(mesh.shape) == (1, 1),
+          f"mesh world: backend {dist.get_backend()}, mesh {mesh}")
+    # NCCL sets up a communicator at a group's first collective: one
+    # all-reduce on each axis's group here keeps that out of the timings
+    one = torch.ones(1, device="cuda")
+    _, first = synced_seconds(lambda: [
+        dist.all_reduce(one, group=mesh.get_group(a))
+        for a in mesh.mesh_dim_names])
+    check(float(one) == 1.0, f"an all-reduce of 1 over one rank gave "
+          f"{float(one)}")
+    print(f"mesh: NCCL world of 1 (torch.distributed backend "
+          f"{dist.get_backend()}), DeviceMesh {tuple(mesh.shape)} "
+          f"{mesh.mesh_dim_names}; the first all-reduce on each axis's "
+          f"group (communicator set-up) {first:.3f} s ({card})", flush=True)
+    return mesh, store
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3411,23 +3804,30 @@ def main(argv=None) -> int:
     rows.update(phase("model kernels", model_kernel_phase, dev, args.seed))
     rows["flash_attention"]["launches"] = phase(
         "serving, qwen3-8b", dense_phase, dev, args.seed, card)
-    rows["ssd_scan"]["launches"] = phase(
-        "serving, mamba2-1.3b", ssm_phase, dev, args.seed, card)
+    mesh, store = phase("mesh: an NCCL world of one", mesh_world, card)
+    rows["ssd_scan"]["launches"], sp_launches = phase(
+        "serving, mamba2-1.3b", ssm_phase, dev, args.seed, card, mesh)
+    rows["ssd_scan"]["launches_sp"] = sp_launches
     rows["flash_attention_bwd"]["launches"] = phase(
         "training, qwen3-8b", train_phase, dev, args.seed,
         card)["flash_attention_bwd"]
-    rows["ssd_scan_bwd"]["launches"] = phase(
-        "training, mamba2-1.3b", train_phase, dev, args.seed, card,
-        "mamba2-1.3b")["ssd_scan_bwd"]
+    train = phase("training, mamba2-1.3b", train_phase, dev, args.seed,
+                  card, "mamba2-1.3b")
+    rows["ssd_scan_bwd"]["launches"] = train["ssd_scan_bwd"]
+    fwd, bwd = phase("data-parallel training, mamba2-1.3b", dp_phase, dev,
+                     args.seed, card, mesh, train["losses"])
+    rows["ssd_scan"]["launches_dp"] = fwd
+    rows["ssd_scan_bwd"]["launches_dp"] = bwd
     counts = phase("training, vit-huge", vit_phase, dev, args.seed, card)
     rows["flash_attention_vit"]["launches"] = counts["flash_attention"]
     rows["flash_attention_bwd_vit"]["launches"] = \
         counts["flash_attention_bwd"]
     rows["decode_augment"]["launches"] += counts["decode_augment"]
-    rows["flash_attention_moe"]["launches"], \
+    rows["flash_attention_moe"]["launches"], ep_launches, \
         rows["flash_attention_bwd_moe"]["launches"] = phase(
             "serving and training, deepseek-moe-16b", moe_phase, dev,
-            args.seed, card)
+            args.seed, card, mesh)
+    rows["flash_attention_moe"]["launches_ep"] = ep_launches
     counts, train = phase("serving and training, zamba2-1.2b", hybrid_phase,
                           dev, args.seed, card)
     rows["flash_attention_zamba2"]["launches"] = counts["flash_attention"]
@@ -3450,7 +3850,10 @@ def main(argv=None) -> int:
         print(f"variant {name} (not on the main path): {r['ms']:.4f} ms, "
               f"plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms",
               flush=True)
-    kernels = [{k: rows[name][k] for k in keys}
+    # launches on the mesh layer's paths (sequence-, data-, expert-
+    # parallel), beside the row's own main-path count
+    keys += ("launches_sp", "launches_dp", "launches_ep")
+    kernels = [{k: rows[name][k] for k in keys if k in rows[name]}
                for name in ("decode_augment", "augment", "decode",
                             "flash_attention", "flash_attention_bwd",
                             "ssd_scan", "ssd_scan_bwd", "flash_attention_vit",
@@ -3468,6 +3871,9 @@ def main(argv=None) -> int:
                             "flash_attention_bwd_seamless_self",
                             "flash_attention_seamless_cross",
                             "flash_attention_bwd_seamless_cross")]
+    import torch.distributed as dist
+    dist.destroy_process_group()
+    store.unlink(missing_ok=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

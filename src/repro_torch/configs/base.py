@@ -3,11 +3,11 @@
 
 ``ModelConfig``, ``SSMConfig``, ``MoEConfig``, ``ShapeConfig`` and
 ``ParallelismConfig`` are the reference's plain frozen dataclasses,
-copied unchanged.  The port runs on one device, so of
-``ParallelismConfig`` the training step reads only ``remat``,
-``microbatches`` and ``opt_state_dtype``; the mesh fields are kept for
-the distributed layer, which is not ported yet (ROADMAP.md), as is the
-reference's ``RunConfig``.
+copied unchanged.  Of ``ParallelismConfig`` the training step reads
+``remat``, ``microbatches`` and ``opt_state_dtype``; the mesh fields
+(``tp``, ``ep``, ``sp``, ``sp_ssd``, ...) are read by
+``distributed.sharding.make_rules``.  The reference's ``RunConfig``
+is not copied: nothing of the port reads it.
 """
 from __future__ import annotations
 

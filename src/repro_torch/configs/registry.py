@@ -3,16 +3,17 @@
 ``get(arch_id)`` returns the full ModelConfig and ``get_reduced(arch_id)``
 the smoke-test config, as in the reference.  Every arch the reference
 knows resolves, of every family: dense, moe, vlm, encdec, ssm, hybrid
-and encoder; an unknown arch raises ``KeyError``.  The reference's
-layout policy (``default_parallelism``) belongs to the distributed
-layer, which is not ported yet.
+and encoder; an unknown arch raises ``KeyError``.
+``default_parallelism(model, shape)`` is the reference's layout policy
+for one (arch x shape) cell, which ``distributed.sharding.make_rules``
+turns into sharding rules.
 """
 from __future__ import annotations
 
 import importlib
 from typing import Dict, List
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ParallelismConfig, ShapeConfig
 
 #: arch id -> module of the port
 _MODULES: Dict[str, str] = {
@@ -46,3 +47,54 @@ def get(arch_id: str) -> ModelConfig:
 
 def get_reduced(arch_id: str) -> ModelConfig:
     return _module(arch_id).reduced()
+
+
+# ---------------------------------------------------------------------------
+# Default layout policy
+# ---------------------------------------------------------------------------
+
+# Archs whose param+optimizer footprint forces FSDP (ZeRO-style sharding of
+# params/grads/opt-state over the 'data' axis) on a 16 GB/chip pod.
+_FSDP_ARCHS = {"llama3-405b", "kimi-k2-1t-a32b", "qwen1.5-32b"}
+# 8-bit optimizer state for the 1T arch.
+_OPT8_ARCHS = {"kimi-k2-1t-a32b"}
+
+# Small archs whose 16-way TP is collective-bound at train_4k: pure-DP
+# (batch over both axes, params replicated) removes the per-layer
+# activation reductions.  Applied to the <=2.5B archs whose replicated
+# params fit.
+_PURE_DP_TRAIN = {"internvl2-2b", "mamba2-1.3b", "zamba2-1.2b",
+                  "seamless-m4t-large-v2"}
+
+
+def default_parallelism(model: ModelConfig,
+                        shape: ShapeConfig) -> ParallelismConfig:
+    p = ParallelismConfig()
+    if model.moe is not None:
+        p = p.replace(ep=True)
+    if shape.is_train:
+        if model.name in _FSDP_ARCHS:
+            p = p.replace(fsdp=True, remat="block", microbatches=4)
+        if model.name in _OPT8_ARCHS:
+            # microbatches=1 avoids re-gathering FSDP shards per
+            # microbatch; int8 moments use the structured block layout
+            # (train/optimizer.py) so they inherit param specs
+            p = p.replace(opt_state_dtype="int8", microbatches=1)
+        elif model.name in _FSDP_ARCHS:
+            p = p.replace(opt_state_dtype="bfloat16")
+        if model.name in _PURE_DP_TRAIN and \
+                shape.global_batch % 256 == 0:
+            p = p.replace(tp=False, dp_over_model=True)
+    else:
+        # inference: no optimizer, no remat; batch=1 long decode replicates
+        # data axis and uses sequence-parallel state sharding where possible.
+        p = p.replace(remat="none", microbatches=1)
+        if shape.name == "long_500k":
+            p = p.replace(sp=True)
+        if shape.name == "prefill_32k":
+            p = p.replace(sp=True)   # sequence-shard activations for prefill
+        if shape.kind == "prefill" and model.family == "ssm":
+            # sequence-parallel SSD replaces per-layer TP reductions with
+            # small state hand-offs (models/ssm_sp.py)
+            p = p.replace(tp=False, sp_ssd=True)
+    return p

@@ -12,7 +12,8 @@ Counter discipline: ``BandwidthBudget.bytes_served`` and
 concurrent fetch workers previously raced the bare ``+=`` and dropped
 increments, so benchmark fetch tallies undercounted under load.
 
-Fault injection (the reference's ``repro.faults``, not ported yet):
+Fault injection (``repro_torch.faults``, the twin of the reference's
+``repro.faults``):
 :meth:`RemoteStorage.degrade` scales
 the token-bucket rate (a storage-bandwidth collapse) and
 :meth:`restore_bandwidth` undoes it; transient dataset IO errors are

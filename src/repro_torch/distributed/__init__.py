@@ -1,3 +1,5 @@
-"""Fault tolerance for training: atomic checkpoints and the resilient
-trainer loop (the port's twin of ``repro.distributed.{checkpoint,ft}``;
-the mesh, sharding and pipeline modules are not ported yet)."""
+"""The distributed layer (the port's twin of ``repro.distributed``):
+atomic checkpoints and the resilient trainer loop (``checkpoint``,
+``ft``) and the logical-axis sharding rules (``sharding``).  Pipeline
+parallelism and elastic resharding (``pp``, ``elastic``) are not ported
+yet (ROADMAP.md)."""

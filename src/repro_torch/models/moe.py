@@ -26,11 +26,31 @@ local path.
 * **Shared experts** — one dense gated MLP of width
   ``n_shared * d_ff_expert``.
 
-The reference's expert-parallel ``shard_map`` branch, which dispatches
-to each model rank's local experts and sums their outputs with a
-``psum``, belongs to the distributed layer, which is not ported yet
-(ROADMAP.md); the port runs on one device and takes the reference's path
-"without a mesh".
+* **Expert parallelism** — the twin of the reference's ``shard_map``
+  branch, taken when the sharding rules (``distributed/sharding.py``)
+  are enabled and name a mesh and an ``ep_axis``.  Each rank is handed
+  its block of the batch (``local_block(x, rules, "batch", ...)``),
+  replicated over the expert axis, and routes it over all experts; it
+  dispatches to its ``n_local = E / ep`` experts from ``r * n_local``
+  (assignments to other ranks' experts go to the overflow row), in the
+  same sorted order, and the partial outputs are summed by an
+  ``all_reduce`` over the expert axis's group.  The aux loss is averaged
+  over the batch axes' group.  A rank's expert weights are its
+  ``Shard(0)`` block, read with ``.to_local()``
+  (``sharding.distribute_model``); a whole ``(E, ...)`` tensor is cut
+  to the rank's experts.  Gradients: the ranks of the expert axis share
+  one loss term (the same batch block), so the sum of the partial
+  outputs passes the gradient back as it is and the tokens and gates
+  entering the dispatch sum theirs over the group
+  (``sharding.sum_to_replicated`` / ``replicated_to_partial``): each
+  rank holds the whole gradient of its block's loss for the replicated
+  weights, and its experts' part for its own.  The aux loss's mean over
+  the data ranks sums its gradient back over them, so the data ranks'
+  gradients averaged (as the data-parallel step does) are those of the
+  mean loss, as ``jax.grad`` of the reference's ``shard_map`` gives.
+
+Without rules the dispatch runs locally over all experts, the
+reference's path "without a mesh".
 """
 from __future__ import annotations
 
@@ -40,6 +60,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import (all_reduce_over, current_rules,
+                                              replicated_to_partial,
+                                              sum_to_replicated)
 from repro_torch.models.params import ParamDef
 
 F32 = torch.float32
@@ -106,25 +129,31 @@ def _capacity(T: int, k: int, E: int, factor: float) -> int:
 # Local sorted dispatch + expert products + combine
 # ---------------------------------------------------------------------------
 
-def dispatch_plan(top_e: torch.Tensor, n_experts: int, capacity: int):
-    """Where each assignment goes.  top_e: (T, k) expert ids.
+def dispatch_plan(top_e: torch.Tensor, n_experts: int, capacity: int,
+                  e_start: int = 0):
+    """Where each assignment goes, for the ``n_experts`` experts from
+    ``e_start``.  top_e: (T, k) expert ids.
 
     Returns ``(slot, src)``: ``slot`` (T, k) is each assignment's row of
-    the flattened ``(E * C)`` buffer, ``E * C`` (the overflow row) where
-    its expert is full; ``src`` (E * C,) is the token each buffer row
-    holds, ``T`` (a zero row) where a row is empty.  Assignments fill
-    their expert in the reference's sorted order: stable by expert id,
-    so by token, then by rank among the token's k choices.
+    the flattened ``(n_experts * C)`` buffer, ``n_experts * C`` (the
+    overflow row) where its expert is full or not among these; ``src``
+    (n_experts * C,) is the token each buffer row holds, ``T`` (a zero
+    row) where a row is empty.  Assignments fill their expert in the
+    reference's sorted order: stable by expert id, so by token, then by
+    rank among the token's k choices; the other experts' sort last.
     """
     T, k = top_e.shape
     dev = top_e.device
     flat_e = top_e.reshape(-1)
-    order = torch.sort(flat_e, stable=True).indices
-    s_e = flat_e[order]
+    local = (flat_e >= e_start) & (flat_e < e_start + n_experts)
+    key = torch.where(local, flat_e - e_start,
+                      torch.full_like(flat_e, n_experts))
+    order = torch.sort(key, stable=True).indices
+    s_e = key[order]
     first_idx = torch.searchsorted(
         s_e, torch.arange(n_experts + 1, device=dev, dtype=s_e.dtype))
     pos_in_e = torch.arange(T * k, device=dev) - first_idx[s_e]
-    keep = pos_in_e < capacity
+    keep = (s_e < n_experts) & (pos_in_e < capacity)
     s_slot = torch.where(keep, s_e * capacity + pos_in_e,
                          torch.full_like(s_e, n_experts * capacity))
     slot = torch.empty_like(s_slot)
@@ -137,12 +166,13 @@ def dispatch_plan(top_e: torch.Tensor, n_experts: int, capacity: int):
 
 def _dispatch_local(x2d: torch.Tensor, top_e: torch.Tensor,
                     top_g: torch.Tensor, capacity: int, we_gate, we_up,
-                    we_out) -> torch.Tensor:
-    """Sorted capacity dispatch over all experts.  x2d: (T, D); top_e /
-    top_g: (T, k) expert ids / gate weights.  Returns (T, D)."""
+                    we_out, e_start: int = 0) -> torch.Tensor:
+    """Sorted capacity dispatch over the experts of ``we_*`` (``E`` of
+    them, from ``e_start``).  x2d: (T, D); top_e / top_g: (T, k) expert
+    ids / gate weights.  Returns (T, D): these experts' contributions."""
     T, D = x2d.shape
     E = we_gate.shape[0]
-    slot, src = dispatch_plan(top_e, E, capacity)
+    slot, src = dispatch_plan(top_e, E, capacity, e_start)
     zero = x2d.new_zeros((1, D))
     buf = torch.index_select(torch.cat([x2d, zero]), 0, src).reshape(
         E, capacity, D)
@@ -170,11 +200,29 @@ def _dispatch_local(x2d: torch.Tensor, top_e: torch.Tensor,
 # Public layer
 # ---------------------------------------------------------------------------
 
+def local_experts(w: torch.Tensor, rank: int, n_local: int,
+                  n_experts: int) -> torch.Tensor:
+    """Expert rank ``rank``'s ``n_local`` experts of ``w``: a DTensor's
+    local block, or that slice of a whole ``(n_experts, ...)`` tensor."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(w, DTensor):
+        local = w.to_local()
+        if local.shape[0] != n_local:
+            raise ValueError(f"expert block of {local.shape[0]} experts, "
+                             f"expected {n_local}")
+        return local
+    if w.shape[0] != n_experts:
+        raise ValueError(f"expert weights of {w.shape[0]} experts, expected "
+                         f"{n_experts}")
+    return w.narrow(0, rank * n_local, n_local)
+
+
 def moe_ffn(p, x: torch.Tensor,
             cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
     """MoE FFN. x: (B, S, D). Returns (y, aux * aux_loss_weight)."""
     e = cfg.moe
     B, S, D = x.shape
+    rules = current_rules()
     shared_y = 0.0
     if "ws_gate" in p:
         g = torch.matmul(x, p["ws_gate"])
@@ -184,6 +232,22 @@ def moe_ffn(p, x: torch.Tensor,
     x2d = x.reshape(B * S, D)
     top_e, top_g, aux = _route(x2d, p["router"], e.top_k)
     cap = _capacity(B * S, e.top_k, e.n_experts, e.capacity_factor)
-    y = _dispatch_local(x2d, top_e, top_g, cap, p["we_gate"], p["we_up"],
-                        p["we_out"]).reshape(B, S, D)
-    return y + shared_y, aux * e.aux_loss_weight
+    if rules.enabled and rules.mesh is not None \
+            and rules.ep_axis is not None:
+        mesh, ep_axis = rules.mesh, rules.ep_axis
+        n_local = e.n_experts // mesh.size(mesh.mesh_dim_names.index(ep_axis))
+        r = mesh.get_local_rank(ep_axis)
+        group = mesh.get_group(ep_axis)
+        we = [local_experts(p[n], r, n_local, e.n_experts)
+              for n in ("we_gate", "we_up", "we_out")]
+        y = _dispatch_local(replicated_to_partial(x2d, group), top_e,
+                            replicated_to_partial(top_g, group), cap, *we,
+                            e_start=r * n_local)
+        y = sum_to_replicated(y, group)
+        if rules.batch_axes:
+            total, n = all_reduce_over(aux, mesh, rules.batch_axes)
+            aux = total / n
+    else:
+        y = _dispatch_local(x2d, top_e, top_g, cap, p["we_gate"],
+                            p["we_up"], p["we_out"])
+    return y.reshape(B, S, D) + shared_y, aux * e.aux_loss_weight

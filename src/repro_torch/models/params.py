@@ -16,10 +16,11 @@ derives
   that compare with the reference load its parameters instead
   (:mod:`repro_torch.models.convert`).
 
-The logical axes are kept for the distributed layer, which is not ported
-yet.  Parameters are created with ``requires_grad=False``, as serving
-wants them; :func:`repro_torch.train.step.build_train_step` turns their
-gradients on.
+The logical axes are read by the distributed layer
+(``distributed.sharding.distribute_model``).  Parameters are created
+with ``requires_grad=False``, as serving wants them;
+:func:`repro_torch.train.step.build_train_step` turns their gradients
+on.
 """
 from __future__ import annotations
 

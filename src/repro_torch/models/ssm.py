@@ -6,7 +6,8 @@ shared across heads).  The full-sequence block's scan goes through K5
 (``ops.ssd``) where the reference calls its XLA ``_ssd_chunked``: on a
 CUDA tensor the hand-written kernel, on a CPU tensor its plain twin, a
 torch copy of ``_ssd_core``.  The single-token recurrent step stays
-plain torch, as in the reference.  There is no sharding (one device).
+plain torch, as in the reference.  The sequence-parallel block over a
+mesh is ``models/ssm_sp.py``.
 """
 from __future__ import annotations
 

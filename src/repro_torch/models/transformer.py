@@ -62,10 +62,12 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import FAMILIES, ModelConfig
+from repro_torch.distributed.sharding import current_rules
 from repro_torch.models import layers as lyr
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.params import ParamDef, padded_vocab, stack_defs
+from repro_torch.models.ssm_sp import ssm_block_seq_parallel
 
 F32 = torch.float32
 #: the families with an encoder and cross-attention (the reference treats
@@ -159,7 +161,16 @@ def _ffn(lp, h: torch.Tensor, cfg: ModelConfig):
 
 
 def _ssm_block(lp, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Pre-norm Mamba2 block.  Under sharding rules with a mesh that map
+    ``act_seq`` to ``model`` (the ssm family's prefill layout), ``x`` is
+    this rank's block of the sequence and the block runs sequence-parallel
+    (``models/ssm_sp.py``), as the reference's ``_ssm_block`` routes it."""
     h = lyr.rmsnorm(x, lp["ln1"], cfg.norm_eps)
+    rules = current_rules()
+    if (rules.enabled and rules.mesh is not None
+            and rules.mapping.get("act_seq") == "model"
+            and cfg.family == "ssm"):
+        return x + ssm_block_seq_parallel(lp["ssm"], h, cfg, rules.mesh)
     return x + ssm_mod.ssm_block(lp["ssm"], h, cfg)
 
 

@@ -1,3 +1,3 @@
-"""Training: AdamW with tiered moment state and the train step
-(the port's twin of ``repro.train``; gradient compression and the
-data-parallel shard belong to the distributed layer, not ported yet)."""
+"""Training: AdamW with tiered moment state, the train step, and the
+explicit-collective data-parallel step with int8 error-feedback gradient
+compression (the port's twin of ``repro.train``)."""

@@ -1,0 +1,67 @@
+"""Explicit-collective data-parallel trainer.
+
+The port's twin of ``repro.train.dp_shard``, whose ``shard_map`` path
+makes the gradient reduction explicit so that it can be compressed on
+the wire (``train/compression.py``).  Here the reduction is
+``torch.distributed`` collectives over the process group of one mesh
+axis.
+
+``build_dp_train_step(model, opt, mesh, axis)`` returns ``step(model,
+opt_state, ef, batch) -> (model, opt_state', ef', metrics)``, the
+contract of ``train/step.py`` with the error-feedback state beside it:
+
+* parameters are replicated (each rank holds all of them) and updated
+  in place by the port's ``AdamW``;
+* every rank is handed the global batch and takes its contiguous slice
+  along dim 0 by its index on ``axis``, the block ``P(axis)`` gives a
+  device;
+* gradients come from ``torch.autograd.grad`` of the local loss and are
+  averaged over the axis (``all_reduce`` SUM, then divided by the axis's
+  size, as ``pmean``), or go through ``allreduce_compressed``; the loss
+  is averaged likewise, and ``metrics`` holds ``loss`` and
+  ``grad_norm``.
+"""
+from __future__ import annotations
+
+from typing import Callable, Dict
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.distributed.sharding import block_of
+from repro_torch.models.model import Model
+from repro_torch.train import compression
+from repro_torch.train.optimizer import AdamW
+
+F32 = torch.float32
+
+
+def build_dp_train_step(model: Model, opt: AdamW, mesh, axis: str = "data",
+                        compress_grads: bool = False) -> Callable:
+    """Params replicated; batch sharded over ``axis``; explicit
+    all-reduce."""
+    group = mesh.get_group(axis)
+    world = dist.get_world_size(group)
+    model.requires_grad_(True)
+
+    def step(model: Model, opt_state, ef: compression.EFState, batch: Dict):
+        local = {k: block_of(v, mesh, (axis,)) for k, v in batch.items()}
+        names, params = zip(*model.named_parameters())
+        loss = model.loss(local)
+        # a collective takes a dense tensor: a gradient that comes out of
+        # a concatenation's backward is a view that may not be one
+        grads = {n: g.contiguous() for n, g in
+                 zip(names, torch.autograd.grad(loss, params))}
+        loss = loss.detach().to(F32)
+        if compress_grads:
+            grads, ef = compression.allreduce_compressed(grads, ef, group)
+        else:
+            for g in grads.values():
+                dist.all_reduce(g, group=group)
+                g.div_(world)
+        dist.all_reduce(loss, group=group)
+        loss = loss / world
+        model, opt_state, gnorm = opt.update(grads, opt_state, model)
+        return model, opt_state, ef, {"loss": loss, "grad_norm": gnorm}
+
+    return step

@@ -12,8 +12,9 @@ added into float32 buffers and divided by n at the end, as the
 reference's ``lax.scan`` carry does (a bf16 ``.grad`` would round every
 partial sum); with one microbatch they keep the parameters' type, as
 ``jax.grad`` gives them.  ``parallel.remat`` is passed to the model's
-loss; the other fields of ``ParallelismConfig`` describe a mesh, and the
-port runs on one device.
+loss; the other fields of ``ParallelismConfig`` describe a mesh, which
+this single-device step does not use (the data-parallel step over a
+mesh is ``train/dp_shard.py``).
 """
 from __future__ import annotations
 

@@ -777,8 +777,8 @@ def test_moe_bf16_prefill_is_bitwise_repeatable_on_card(cuda, monkeypatch):
         0, cfg.vocab_size, (4, 256))).to(cuda)
     plan, dropped = moe.dispatch_plan, []
 
-    def counting(top_e, n_experts, capacity):
-        slot, src = plan(top_e, n_experts, capacity)
+    def counting(top_e, n_experts, capacity, e_start=0):
+        slot, src = plan(top_e, n_experts, capacity, e_start)
         dropped.append(int((slot == n_experts * capacity).sum()))
         return slot, src
 
@@ -1363,3 +1363,115 @@ def test_vlm_and_encdec_bf16_prefill_and_decode_on_card(cuda, arch):
     want, _ = model.forward(ext)
     torch.testing.assert_close(dec[:, 0].float(), want[:, -1].float(),
                                atol=1e-2, rtol=1e-2)
+
+
+# ------------------------------------------- the mesh layer over NCCL
+
+@pytest.fixture(scope="module")
+def nccl_world(tmp_path_factory):
+    """A world of one rank over NCCL (``tests/torch_world.py``): the
+    data-parallel step with and without the int8 all-reduce, the
+    sequence-parallel SSD and the expert-parallel moe on reduced models,
+    each beside its single-device path."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is "
+                    "false)")
+    import torch_world
+    return torch_world.spawn("nccl_world_of_one",
+                             tmp_path_factory.mktemp("nccl"), world=1,
+                             device="cuda")[0]
+
+
+def test_nccl_dp_step_equals_single_device_step(nccl_world):
+    single, single_loss = nccl_world["dp"]["single"]
+    dp, dp_loss = nccl_world["dp"]["dp"]
+    assert dp_loss == single_loss
+    assert all(torch.equal(dp[n], single[n]) for n in single)
+    _, comp_loss = nccl_world["dp"]["dp_compressed"]
+    assert abs(comp_loss - single_loss) < 0.1
+    assert nccl_world["compressed"] == (True, True, True)
+
+
+def test_nccl_sp_and_ep_forward_equal_local(nccl_world):
+    from repro_torch.configs import registry
+    assert nccl_world["sp"] == (
+        True, registry.get_reduced("mamba2-1.3b").n_layers)
+    assert nccl_world["ep"] == (
+        True, True, registry.get_reduced("deepseek-moe-16b").n_layers)
+
+
+def _rel_rms(got, want) -> float:
+    return float((got.float() - want.float()).norm() / want.float().norm())
+
+
+@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssm_block_in_segments_matches_local_on_card(cuda, n, dtype):
+    """The sequence-parallel stages on the card, with no collective:
+    reduced mamba2-1.3b's block, the sequence (2 x 256) cut into ``n``
+    segments, each through K5 from a zero state, its halo from the
+    segment before and its incoming state from the hand-off
+    (``ssm_block_in_segments``), against the local ``ssm_block`` (one K5
+    pass over the whole sequence).  float32: within 1e-4 of the largest
+    output, the reference's SP bound; bf16: relative RMS within 2**-6
+    (each segment's y is rounded to bf16 once more before the hand-off's
+    float32 part is added)."""
+    from repro_torch.configs import registry
+    from repro_torch.kernels.ssd_scan import kernel as ssd_k
+    from repro_torch.models.model import build
+    from repro_torch.models.ssm import ssm_block
+    from repro_torch.models.ssm_sp import ssm_block_in_segments
+    cfg = registry.get_reduced("mamba2-1.3b")
+    model = build(cfg).init(seed=0, device=cuda).to(dtype)
+    p = model.blocks[0]["ssm"]
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    x = (torch.randn(2, 256, cfg.d_model, generator=gen, device=cuda)
+         * 0.5).to(dtype)
+    with torch.no_grad():
+        n0 = ssd_k.ssd_scan.launches
+        got = ssm_block_in_segments(p, x, cfg, n)
+        assert ssd_k.ssd_scan.launches == n0 + n
+        want = ssm_block(p, x, cfg)
+    assert got.dtype == dtype and got.shape == want.shape
+    if dtype == torch.float32:
+        d = float((got - want).abs().max())
+        assert d <= 1e-4 * float(want.abs().max()), d
+    else:
+        assert _rel_rms(got, want) <= 2.0 ** -6
+
+
+@pytest.mark.parametrize("n_ranges", [2, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dispatch_over_expert_ranges_sums_to_local_on_card(cuda, n_ranges,
+                                                          dtype):
+    """The expert-parallel ranks' dispatch on the card, with no
+    collective: reduced deepseek-moe-16b's first moe layer routes 2 x 64
+    tokens at its capacity factor (with drops), and the outputs over
+    ``n_ranges`` expert ranges (``e_start`` > 0 for all but the first)
+    summed against the dispatch over all experts.  float32: within 1e-5
+    of the largest output; bf16: relative RMS within 2**-6 (the ranges'
+    partial sums are added in another order)."""
+    from repro_torch.configs import registry
+    from repro_torch.models import moe
+    from repro_torch.models.model import build
+    cfg = registry.get_reduced("deepseek-moe-16b")
+    e = cfg.moe
+    model = build(cfg).init(seed=0, device=cuda).to(dtype)
+    p = next(b["moe"] for b in model.blocks if "moe" in b)
+    gen = torch.Generator(device=cuda).manual_seed(n_ranges)
+    x2d = torch.randn(128, cfg.d_model, generator=gen, device=cuda).to(dtype)
+    with torch.no_grad():
+        top_e, top_g, _ = moe._route(x2d, p["router"], e.top_k)
+        cap = moe._capacity(128, e.top_k, e.n_experts, e.capacity_factor)
+        want = moe._dispatch_local(x2d, top_e, top_g, cap, p["we_gate"],
+                                   p["we_up"], p["we_out"])
+        n_local = e.n_experts // n_ranges
+        got = sum(moe._dispatch_local(
+            x2d, top_e, top_g, cap,
+            *(p[w][lo:lo + n_local] for w in ("we_gate", "we_up", "we_out")),
+            e_start=lo) for lo in range(0, e.n_experts, n_local))
+    if dtype == torch.float32:
+        d = float((got - want).abs().max())
+        assert d <= 1e-5 * float(want.abs().max()), d
+    else:
+        assert _rel_rms(got, want) <= 2.0 ** -6

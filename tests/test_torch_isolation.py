@@ -12,8 +12,10 @@ the training step and the trainer (with the training CLI), runs one
 simulation and two resilient training steps with a checkpoint restore,
 differentiates a reduced mamba2-1.3b loss through K5's backward (its
 plain twin), a reduced deepseek-moe-16b loss (its router included) and
-a reduced vit-huge loss on a batch of the image path,
-and exits 0.  A static scan of the
+a reduced vit-huge loss on a batch of the image path, joins a gloo
+world of one and takes a compressed data-parallel step, a
+sequence-parallel mamba2 forward and an expert-parallel moe forward
+under the mesh layer's rules, and exits 0.  A static scan of the
 port's sources backs it up for modules the run does not import.
 """
 import ast
@@ -159,6 +161,30 @@ pipe.stop()
 server.close()
 grads = torch.autograd.grad(loss, list(vit.parameters()))
 assert all(bool(torch.isfinite(g.float()).all()) for g in grads)
+
+import torch.distributed as dist
+from repro_torch.configs.base import PREFILL_32K
+from repro_torch.configs.registry import default_parallelism
+from repro_torch.distributed.sharding import (distribute_model, make_rules,
+                                              use_rules)
+from repro_torch.launch.mesh import init_world, make_debug_mesh
+from repro_torch.train.compression import init_ef
+from repro_torch.train.dp_shard import build_dp_train_step
+with tempfile.TemporaryDirectory() as d:
+    init_world(f"file://{{d}}/store", 0, 1, device="cpu")
+    mesh = make_debug_mesh(device="cpu")
+    step = build_dp_train_step(model, opt, mesh, compress_grads=True)
+    _, _, _, metrics = step(model, opt.init(model), init_ef(model), batch)
+    assert np.isfinite(float(metrics["loss"]))
+    for m in (ssm, moe):
+        rules = make_rules(m.cfg, PREFILL_32K,
+                           default_parallelism(m.cfg, PREFILL_32K),
+                           tp_size=1, dp_size=1, mesh=mesh)
+        distribute_model(m, rules)
+        with use_rules(rules):
+            logits, _ = m.forward({{"tokens": tokens}})
+        assert bool(torch.isfinite(logits.float()).all())
+    dist.destroy_process_group()
 held = sorted(m for m in sys.modules if m.split(".")[0] in {blocked!r})
 assert not held, held
 print("ok")

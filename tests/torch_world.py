@@ -1,0 +1,416 @@
+"""Small worlds of ranks for the port's multi-rank tests (not a test
+module: the ``test_torch_{mesh,dp,ep_sp}.py`` files import it).
+
+:func:`spawn` starts ``world`` Python processes of this file, one per
+rank.  Each joins a process group that meets on a file store under the
+test's ``tmp_path`` (never a fixed port: several test workers run at
+once), gloo on the CPU or NCCL on the card, with a 60 s collective
+timeout; loads the inputs the parent saved with ``torch.save``; runs one
+case of :data:`CASES` (several checks that share a world run in one
+case, so one spawn serves them); saves what the case returns; and
+leaves the group.  The parent waits for its ranks against a deadline,
+kills them all on overrun and fails the test, and fails it with the
+rank's error output when a rank exits with another code than 0.
+
+The ranks import ``repro_torch`` and torch only.  The tests compute the
+reference's numbers in their own process and hold the ranks' results to
+them.
+"""
+from __future__ import annotations
+
+import os
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+#: seconds a spawned world may take in all
+DEADLINE = 240.0
+
+
+def spawn(case: str, tmp_path, inputs=None, world: int = 4,
+          device: str = "cpu", deadline: float = DEADLINE):
+    """Run ``CASES[case]`` on ``world`` ranks; returns each rank's result,
+    in rank order."""
+    import pytest
+    import torch
+    d = Path(tmp_path)
+    d.mkdir(parents=True, exist_ok=True)
+    torch.save(inputs or {}, d / "inputs.pt")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               OMP_NUM_THREADS="1")
+    logs = [open(d / f"rank{r}.log", "w+") for r in range(world)]
+    procs = [subprocess.Popen(
+        [sys.executable, __file__, case, str(r), str(world), str(d), device],
+        cwd=str(ROOT), env=env, stdout=logs[r], stderr=subprocess.STDOUT)
+        for r in range(world)]
+    end = time.monotonic() + deadline
+    try:
+        for p in procs:
+            p.wait(timeout=max(0.0, end - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+        for p in procs:
+            p.wait()
+        pytest.fail(f"world of {world} ranks for {case!r} overran its "
+                    f"{deadline:.0f} s deadline; killed")
+    finally:
+        for f in logs:
+            f.close()
+    for r, p in enumerate(procs):
+        if p.returncode != 0:
+            tail = (d / f"rank{r}.log").read_text()[-4000:]
+            pytest.fail(f"rank {r} of {case!r} exited {p.returncode}:\n"
+                        f"{tail}")
+    return [torch.load(d / f"out{r}.pt", weights_only=False)
+            for r in range(world)]
+
+
+# ---------------------------------------------------------------------------
+# Cases, run in each rank: (rank, world, inputs, device) -> result
+# ---------------------------------------------------------------------------
+
+def _model(arch: str, state, dtype=None, device="cpu", cfg=None):
+    """The port's reduced ``arch`` with the parameters of ``state`` (a
+    ``{name: tensor}`` the parent took from the reference's tree)."""
+    from torch import nn
+    from repro_torch.configs import registry
+    from repro_torch.models.model import build
+    model = build(cfg or registry.get_reduced(arch))
+    for name, t in state.items():
+        *path, leaf = name.split(".")
+        tree = model
+        for part in path:
+            tree = tree[int(part)] if part.isdigit() else getattr(tree, part)
+        t = t.to(device) if dtype is None else t.to(device, dtype)
+        setattr(tree, leaf, nn.Parameter(t.clone(), requires_grad=False))
+    return model
+
+
+def _gather(t, mesh, placements):
+    """The full tensor of this rank's block ``t`` laid out by
+    ``placements`` on ``mesh``."""
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(t, mesh, placements,
+                              run_check=False).full_tensor()
+
+
+def case_mesh(rank, world, inputs, device):
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor, Replicate
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import TRAIN_4K, ParallelismConfig
+    from repro_torch.distributed.sharding import (distribute_model,
+                                                  local_block, make_rules,
+                                                  shard, use_rules)
+    from repro_torch.launch.mesh import make_debug_mesh, make_production_mesh
+    from repro_torch.models.model import build
+
+    out = {}
+    m = make_debug_mesh(device=device)
+    out["debug"] = (tuple(m.shape), m.mesh_dim_names, m.get_coordinate())
+    sub = make_debug_mesh(2, device=device)
+    out["debug2"] = (tuple(sub.shape), sub.get_coordinate())
+    for multi in (False, True):
+        try:
+            make_production_mesh(multi_pod=multi, device=device)
+            out[f"prod{multi}"] = None
+        except RuntimeError as e:
+            out[f"prod{multi}"] = str(e)
+
+    mesh = init_device_mesh(device, (2, 2), mesh_dim_names=("data", "model"))
+    cfg = registry.get_reduced("deepseek-moe-16b")
+    rules = make_rules(cfg, TRAIN_4K, ParallelismConfig(ep=True), tp_size=2,
+                       dp_size=2, mesh=mesh)
+    out["placements"] = {
+        "act": rules.placements(mesh, "batch", "act_seq", "act_embed"),
+        "expert": rules.placements(mesh, "expert", "embed", None),
+        "router": rules.placements(mesh, "embed", "expert")}
+    x = torch.arange(4 * 6, dtype=torch.float32).reshape(4, 6)
+    out["block"] = local_block(x, rules, "batch", None)
+    out["block_no_rules"] = local_block(x, make_rules(
+        cfg, TRAIN_4K, ParallelismConfig(ep=True), tp_size=2, dp_size=2),
+        "batch", None)
+    rep = DTensor.from_local(x, mesh, (Replicate(), Replicate()),
+                             run_check=False)
+    with use_rules(rules):
+        moved = shard(rep, "batch", None)
+        out["shard_plain_is_same"] = shard(x, "batch", None) is x
+    out["shard"] = (moved.placements, moved.to_local())
+    out["shard_no_rules_is_same"] = shard(rep, "batch", None) is rep
+
+    model = build(cfg).init(seed=0, device=device)
+    full = {n: p.detach().clone() for n, p in model.named_parameters()}
+    distribute_model(model, rules)
+    kinds = {}
+    for n, p in model.named_parameters():
+        if isinstance(p, DTensor):
+            kinds[n] = (tuple(p.placements), tuple(p.to_local().shape),
+                        bool(torch.equal(p.full_tensor(), full[n])),
+                        bool(torch.equal(p.to_local(), full[n].narrow(
+                            0, mesh.get_local_rank("model")
+                            * p.to_local().shape[0], p.to_local().shape[0]))))
+        else:
+            kinds[n] = bool(torch.equal(p, full[n]))
+    out["distributed"] = kinds
+    return out
+
+
+def case_dp(rank, world, inputs, device):
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.train import compression
+    from repro_torch.train.dp_shard import build_dp_train_step
+    from repro_torch.train.optimizer import AdamW
+
+    out = {}
+    # ---- allreduce_compressed, with the shared scales and code sums seen
+    seen = []
+    real = dist.all_reduce
+
+    def recording(t, *a, **k):
+        res = real(t, *a, **k)
+        seen.append(t.clone())
+        return res
+
+    ar = inputs["allreduce"]
+    compression.dist.all_reduce = recording
+    try:
+        mean, ef = compression.allreduce_compressed(
+            ar["grads"][rank], compression.EFState(ar["residuals"][rank]))
+    finally:
+        compression.dist.all_reduce = real
+    out["allreduce"] = {"mean": mean, "residual": ef.residual,
+                        "seen": seen}
+
+    mesh = init_device_mesh(device, (world,), mesh_dim_names=("data",))
+    for key, run in inputs["runs"].items():
+        model = _model(run["arch"], run["state"], device=device)
+        opt = AdamW(lr=1e-3)
+        step = build_dp_train_step(model, opt, mesh,
+                                   compress_grads=run["compress"])
+        state = opt.init(model)
+        ef = compression.init_ef(model)
+        batch = {k: v.to(device) for k, v in run["batch"].items()}
+        hist = []
+        for _ in range(run["steps"]):
+            model, state, ef, metrics = step(model, state, ef, batch)
+            hist.append({k: float(v) for k, v in metrics.items()})
+        params = {n: p.detach().cpu() for n, p in model.named_parameters()}
+        digest = torch.stack([p.double().sum() for p in params.values()])
+        out[key] = {"hist": hist, "digest": digest,
+                    "params": params if rank == 0 else None}
+    return out
+
+
+def _grads(model, loss):
+    """{name: (this rank's gradient, its placements or None)}: a DTensor
+    parameter's gradient is its local block."""
+    import torch
+    from torch.distributed.tensor import DTensor
+    names, params = zip(*model.named_parameters())
+    out = {}
+    for n, g in zip(names, torch.autograd.grad(loss, params)):
+        out[n] = (g.to_local(), g.placements) if isinstance(g, DTensor) \
+            else (g, None)
+    return out
+
+
+def case_ep_sp(rank, world, inputs, device):
+    import copy
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import Replicate, Shard
+    from repro_torch.configs.base import PREFILL_32K, TRAIN_4K, \
+        ParallelismConfig
+    from repro_torch.distributed.sharding import (distribute_model,
+                                                  local_block, make_rules,
+                                                  use_rules)
+    from repro_torch.models.ssm_sp import ssm_block_seq_parallel
+
+    out = {}
+    ep = inputs["ep"]
+    base = _model("deepseek-moe-16b", ep["state"], device=device,
+                  cfg=ep["cfg"])
+    tokens = ep["tokens"].to(device)
+    labels = ep["labels"].to(device)
+    for shape in ((2, 2), (1, 4)):
+        mesh = init_device_mesh(device, shape,
+                                mesh_dim_names=("data", "model"))
+        rules = make_rules(ep["cfg"], TRAIN_4K, ParallelismConfig(ep=True),
+                           tp_size=shape[1], dp_size=shape[0], mesh=mesh)
+        model = distribute_model(copy.deepcopy(base).requires_grad_(True),
+                                 rules)
+        local = local_block(tokens, rules, "batch", None)
+        with use_rules(rules):
+            logits, aux = model.forward({"tokens": local})
+            loss = model.loss({"tokens": local, "labels": local_block(
+                labels, rules, "batch", None)})
+        # the data ranks' gradients averaged, as the data-parallel step
+        # averages them; an expert weight's blocks gathered over model
+        grads = {}
+        for n, (g, placements) in _grads(model, loss).items():
+            g = g.contiguous()
+            dist.all_reduce(g, group=mesh.get_group("data"))
+            g = g / shape[0]
+            if placements is not None:
+                g = _gather(g, mesh, placements)
+            grads[n] = g.cpu()
+        out[shape] = {
+            "logits": _gather(logits, mesh, (Shard(0), Replicate())).cpu(),
+            "aux": float(aux), "n_local": model.blocks[0].moe.we_gate
+            .to_local().shape[0], "grads": grads}
+
+    sp = inputs["sp"]
+    mesh = init_device_mesh(device, (1, world),
+                            mesh_dim_names=("data", "model"))
+    p = {k: v.to(device).requires_grad_(True) for k, v in sp["block"].items()}
+    S_loc = sp["x"].shape[1] // world
+    seg = slice(rank * S_loc, (rank + 1) * S_loc)
+    x = sp["x"][:, seg].to(device).requires_grad_(True)
+    y = ssm_block_seq_parallel(p, x, sp["cfg"], mesh)
+    # each rank's loss term is its segment's; the replicated weights'
+    # gradients summed over the ranks are the summed loss's
+    gx, *gp = torch.autograd.grad((y * sp["w"][:, seg].to(device)).sum(),
+                                  [x, *p.values()])
+    # the conv weights' gradients are views of their concatenation's:
+    # a collective takes them dense
+    gp = [g.contiguous() for g in gp]
+    for g in gp:
+        dist.all_reduce(g, group=mesh.get_group("model"))
+    out["sp_block"] = _gather(y.detach(), mesh, (Replicate(), Shard(1))).cpu()
+    out["sp_grads"] = dict(zip(p, (g.cpu() for g in gp)),
+                           x=_gather(gx, mesh, (Replicate(), Shard(1))).cpu())
+
+    from repro_torch.configs.registry import default_parallelism
+    model = _model("mamba2-1.3b", sp["state"], device=device, cfg=sp["cfg"])
+    rules = make_rules(sp["cfg"], PREFILL_32K,
+                       default_parallelism(sp["cfg"], PREFILL_32K),
+                       tp_size=world, dp_size=1, mesh=mesh)
+    tokens = sp["tokens"].to(device)
+    with use_rules(rules):
+        logits, _ = model.forward(
+            {"tokens": local_block(tokens, rules, "batch", "act_seq")})
+    out["act_seq"] = rules.mapping["act_seq"]
+    out["sp_forward"] = _gather(logits, mesh, (Replicate(), Shard(1))).cpu()
+    out["local_forward"] = model.forward({"tokens": tokens})[0].cpu()
+    return out
+
+
+def case_nccl_world_of_one(rank, world, inputs, device):
+    """On the card, a world of one over NCCL: each collective path against
+    its single-device path, compared bitwise in the test."""
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import PREFILL_32K, ParallelismConfig
+    from repro_torch.configs.registry import default_parallelism
+    from repro_torch.distributed.sharding import (distribute_model,
+                                                  make_rules, use_rules)
+    from repro_torch.kernels.ssd_scan.kernel import ssd_scan
+    from repro_torch.kernels.flash_attention.kernel import flash_attention
+    from repro_torch.models.model import build
+    from repro_torch.train import compression
+    from repro_torch.train.dp_shard import build_dp_train_step
+    from repro_torch.train.optimizer import AdamW
+    from repro_torch.train.step import build_train_step
+
+    dev = torch.device("cuda")
+    mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    toks = torch.randint(0, 512, (2, 64), generator=gen, device=dev)
+    batch = {"tokens": toks, "labels": toks.roll(-1, 1)}
+    out = {}
+
+    runs = {}
+    for how in ("single", "dp", "dp_compressed"):
+        model = build(registry.get_reduced("qwen3-8b")).init(seed=0,
+                                                             device=dev)
+        opt = AdamW(lr=1e-3)
+        state = opt.init(model)
+        if how == "single":
+            step = build_train_step(model, ParallelismConfig(), opt)
+            for _ in range(2):
+                model, state, m = step(model, state, batch)
+        else:
+            step = build_dp_train_step(model, opt, mesh,
+                                       compress_grads=how != "dp")
+            ef = compression.init_ef(model)
+            for _ in range(2):
+                model, state, ef, m = step(model, state, ef, batch)
+        runs[how] = ({n: p.detach().cpu()
+                      for n, p in model.named_parameters()},
+                     float(m["loss"]))
+    out["dp"] = runs
+
+    g = torch.randn(3, 1000, generator=gen, device=dev)
+    r = torch.randn(3, 1000, generator=gen, device=dev) * 1e-3
+    q, scale, two = compression.compress(g, r)
+    mean, ef = compression.allreduce_compressed(
+        {"g": g}, compression.EFState({"g": r}))
+    cq, cscale, _ = compression.compress(g.cpu(), r.cpu())
+    # at one rank the mean is the dequantized payload; the residual,
+    # rounded once, is within one float32 rounding of the product of
+    # compress's (rounded twice, its difference exact); and compress's
+    # codes and scales on the card are the CPU's
+    deq = compression.decompress(q, scale, g.shape)
+    eps = torch.finfo(torch.float32).eps
+    out["compressed"] = (
+        torch.equal(mean["g"], deq),
+        bool(((ef.residual["g"] - two).abs()
+              <= eps * (deq.abs() + two.abs())).all()),
+        torch.equal(q.cpu(), cq) and torch.equal(scale.cpu(), cscale))
+
+    cfg = registry.get_reduced("mamba2-1.3b")
+    model = build(cfg).init(seed=0, device=dev)
+    local, _ = model.forward({"tokens": toks})
+    rules = make_rules(cfg, PREFILL_32K, default_parallelism(cfg, PREFILL_32K),
+                       tp_size=1, dp_size=1, mesh=mesh)
+    n0 = ssd_scan.launches
+    with use_rules(rules):
+        sp, _ = model.forward({"tokens": toks})
+    out["sp"] = (torch.equal(sp, local), ssd_scan.launches - n0)
+
+    cfg = registry.get_reduced("deepseek-moe-16b")
+    model = build(cfg).init(seed=0, device=dev)
+    local, aux = model.forward({"tokens": toks})
+    rules = make_rules(cfg, PREFILL_32K, default_parallelism(cfg, PREFILL_32K),
+                       tp_size=1, dp_size=1, mesh=mesh)
+    distribute_model(model, rules)
+    n0 = flash_attention.launches
+    with use_rules(rules):
+        ep, ep_aux = model.forward({"tokens": toks})
+    out["ep"] = (torch.equal(ep, local), torch.equal(ep_aux, aux),
+                 flash_attention.launches - n0)
+    return out
+
+
+CASES = {"mesh": case_mesh, "dp": case_dp, "ep_sp": case_ep_sp,
+         "nccl_world_of_one": case_nccl_world_of_one}
+
+
+def _main(case: str, rank: int, world: int, d: str, device: str) -> int:
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import init_world
+    torch.set_num_threads(1)
+    init_world(f"file://{d}/store", rank, world,
+               device=None if device == "cuda" else device)
+    try:
+        inputs = torch.load(Path(d) / "inputs.pt", weights_only=False)
+        out = CASES[case](rank, world, inputs, device)
+        torch.save(out, Path(d) / f"out{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(_main(sys.argv[1], int(sys.argv[2]), int(sys.argv[3]),
+                   sys.argv[4], sys.argv[5]))
