@@ -98,7 +98,24 @@ into ``build/repro_torch/``), then:
 7. the mesh layer's world: one NCCL process group of world size 1 on a
    file store under ``build/`` and the (1, 1) ``("data", "model")``
    ``DeviceMesh`` over it (``mesh_world``; a failure to initialise it
-   fails the run; destroyed before the last lines); then the serving
+   fails the run; destroyed before the last lines); over it
+   qwen3-8b's pipeline (the model of 6): its 36 full-width blocks through
+   ``distributed.pp.pipeline_forward`` on a ``("pipe",)`` mesh of the
+   one rank (``pp_phase``): 4 x 1024 embedded tokens in 4 microbatches,
+   bitwise equal to ``run_decoder`` on each microbatch in turn, K4
+   launched (M + S - 1) x L/S = 144 times, the largest difference from
+   ``run_decoder`` over the whole batch printed, the collectives recorded
+   by ``roofline.hlo_collectives.record``; the schedule over 4 stages of 9
+   blocks run in one process through the same tick
+   (``pipeline_forward_local``: 7 ticks, K4 252 times, bitwise equal to
+   the same reference), its 7 hand-offs and the all-reduce of its output
+   accounted on the H100 profile (wire bytes, collective term), and
+   ``roofline.analysis.model_flops`` of the prefill over the pipeline's
+   seconds; then elastic resharding (``elastic_phase``): the parameters
+   resharded by ``partition_specs`` under the prefill rules onto
+   ``distributed.elastic.make_mesh(1)``, no demotion, every local block
+   equal to its source, and a prefill from the local blocks giving
+   ``dense_phase``'s logits bitwise (K4 36 times); then the serving
    path, ssm: mamba2-1.3b at full width: ``Model.forward`` of
    4 x 1024 tokens (K5 launched once per layer), the same forward under
    the prefill rules of ``default_parallelism`` over that mesh, the
@@ -201,7 +218,8 @@ into ``build/repro_torch/``), then:
 14. the kernel JSON line (one row per kernel and shape; the rows of
     K5, its backward and K4 at moe also carry ``launches_sp``,
     ``launches_dp`` and ``launches_ep``, their launches on the
-    sequence-, data- and expert-parallel paths), the card line, and the
+    sequence-, data- and expert-parallel paths, and K4's qwen3-8b row
+    ``launches_pp``, its launches in the pipeline), the card line, and the
     result line
     ``{"ok": true, "device": {...}}`` last.
 
@@ -236,10 +254,15 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-#: NVIDIA H100 SXM data-sheet peaks
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOPS_PER_S = 67e12
-BF16_FLOPS_PER_S = 989e12
+try:
+    from repro_torch.roofline.analysis import H100
+except ImportError:          # no port beside the script: main() exits 2
+    H100 = None
+#: NVIDIA H100 SXM data-sheet peaks, from the port's device profile
+#: (``repro_torch.roofline.analysis.H100``)
+HBM_BYTES_PER_S = H100.hbm_bytes_per_s if H100 else None
+FP32_FLOPS_PER_S = H100.fp32_flops_per_s if H100 else None
+BF16_FLOPS_PER_S = H100.peak_bf16_flops if H100 else None
 #: integer lanes of one SM: the ALU pipe's 64 (shifts and logic
 #: operations), and the 128 thread-instructions its four schedulers issue
 #: per clock, which also carry the FMA pipe's multiplies and adds
@@ -2394,8 +2417,10 @@ def serve_phase(model, seed: int, card: str) -> None:
           f"{1e3 * secs / server.steps:.2f} ms/step ({card})", flush=True)
 
 
-def dense_phase(dev, seed: int, card: str) -> int:
-    """qwen3-8b at full width; returns K4's launches in one prefill."""
+def dense_phase(dev, seed: int, card: str):
+    """qwen3-8b at full width; returns K4's launches in one prefill, the
+    model, the prefill's tokens and its logits (for the pipeline and
+    elastic phases)."""
     model = build_model("qwen3-8b", dev, seed)
     cfg = model.cfg
     rng = np.random.default_rng(seed)
@@ -2417,7 +2442,7 @@ def dense_phase(dev, seed: int, card: str) -> int:
     check(bool(torch.isfinite(full).all()), "forward logits are not finite")
     print(f"qwen3-8b forward: {secs:.3f} s; prefill logits equal forward's "
           f"(torch.equal)", flush=True)
-    del full, logits_pf
+    del full
     device_split(lambda: model.prefill({"tokens": tokens},
                                        model.init_cache(ATTN_B, ATTN_S_MAX)),
                  "qwen3-8b prefill")
@@ -2443,9 +2468,8 @@ def dense_phase(dev, seed: int, card: str) -> int:
 
     serve_phase(model, seed, card)
     one_request(model, rng)
-    del model
     torch.cuda.empty_cache()
-    return launches
+    return launches, model, tokens, logits_pf
 
 
 def served_first_token(model, prompt, forced=None):
@@ -3750,6 +3774,170 @@ def mesh_world(card: str):
     return mesh, store
 
 
+#: the pipeline phase: microbatches, and the stages of the schedule run
+#: by hand in one process
+PP_MICROBATCHES, PP_STAGES = 4, 4
+
+
+def pp_phase(model, seed: int, card: str) -> int:
+    """qwen3-8b's blocks through ``pipeline_forward`` on a ``("pipe",)``
+    mesh of one rank over the NCCL world: ``ATTN_B`` x ``ATTN_S`` embedded
+    tokens in ``PP_MICROBATCHES`` microbatches, bitwise equal to
+    ``run_decoder`` on each microbatch in turn, K4 (M + S - 1) x L/S
+    times; the schedule over ``PP_STAGES`` stages run in one process
+    (``pipeline_forward_local``, the same tick) likewise; the collectives
+    recorded (``hlo_collectives.record``) and the four-stage schedule's
+    accounted on the H100 profile.  Returns K4's launches in the
+    pipeline."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed.pp import (pipeline_forward,
+                                            pipeline_forward_local)
+    from repro_torch.models import transformer as tfm
+    from repro_torch.roofline import analysis, hlo_collectives
+    cfg, dev = model.cfg, model.device
+    M, S, L = PP_MICROBATCHES, PP_STAGES, cfg.n_layers
+    rng = np.random.default_rng(seed + 27)
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (ATTN_B, ATTN_S))).to(dev)
+    positions = torch.arange(ATTN_S, device=dev)
+    with torch.no_grad():
+        x = tfm._embed_inputs(model, cfg, {"tokens": tokens})
+
+    def block(lp, h):
+        return tfm._attn_block(lp, h, cfg, positions, causal=True)[0]
+
+    def per_microbatch():
+        with torch.no_grad():
+            return torch.cat([tfm.run_decoder(model, xm, cfg, positions)[0]
+                              for xm in x.chunk(M)])
+
+    pipe = init_device_mesh(dev.type, (1,), mesh_dim_names=("pipe",))
+    # the pipe group's communicator is set up at its first collective:
+    # here, out of the timings
+    torch.distributed.all_reduce(torch.ones(1, device=dev),
+                                 group=pipe.get_group("pipe"))
+    want, ref_secs = synced_seconds(per_microbatch)
+    reset_counts()
+    out, secs = synced_seconds(lambda: pipeline_forward(
+        block, model.blocks, x, pipe, microbatches=M))
+    launches = read_counts()["flash_attention"]
+    check(launches == M * L, f"K4 launched {launches} times in the "
+          f"pipeline, expected (M + S - 1) x L/S = {M * L}")
+    check(torch.equal(out, want), "the pipeline's hidden states differ "
+          "from run_decoder's on each microbatch")
+    with torch.no_grad():
+        whole, whole_secs = synced_seconds(lambda: tfm.run_decoder(
+            model, x, cfg, positions)[0])
+    err = float((out.float() - whole.float()).abs().max())
+    print(f"qwen3-8b pipeline_forward, 1 stage x {L} blocks, {M} "
+          f"microbatches of 1 x {ATTN_S}: {secs:.4f} s against "
+          f"run_decoder per microbatch {ref_secs:.4f} s (bitwise equal, "
+          f"torch.equal) and on the whole batch {whole_secs:.4f} s (max abs "
+          f"difference {err:.6g}, other cuBLAS shapes); K4 launches "
+          f"{launches} ({card})", flush=True)
+    del whole
+    with hlo_collectives.record() as rec:
+        again = pipeline_forward(block, model.blocks, x, pipe, microbatches=M)
+    check(torch.equal(again, want), "the recorded pipeline run differs")
+    st = rec.analyze()
+    print(f"recorded collectives of the world-of-one pipeline: "
+          f"{[dataclasses.astuple(r) for r in rec.records]} -> "
+          f"{st.summary()}", flush=True)
+    check(dict(st.per_kind_count) == {"all-reduce": 1},
+          f"the world-of-one pipeline issued {dict(st.per_kind_count)}")
+    del again
+
+    reset_counts()
+    four, four_secs = synced_seconds(lambda: pipeline_forward_local(
+        block, model.blocks, x, S, microbatches=M))
+    n4 = read_counts()["flash_attention"]
+    check(n4 == (M + S - 1) * S * (L // S), f"K4 launched {n4} times in the "
+          f"{S}-stage schedule, expected {(M + S - 1) * S * (L // S)}")
+    check(torch.equal(four, want), f"the {S}-stage schedule's hidden states "
+          f"differ from run_decoder's on each microbatch")
+    mb_bytes = x[:ATTN_B // M].numel() * x.element_size()
+    recs = [hlo_collectives.Record("collective-permute", mb_bytes, S)] \
+        * (M + S - 1) + [hlo_collectives.Record(
+            "all-reduce", x.numel() * x.element_size(), S)]
+    st = hlo_collectives.analyze(recs)
+    t_coll = st.total_wire_bytes / analysis.H100.link_bytes_per_s
+    print(f"{S}-stage schedule by hand ({S} x {L // S} blocks, {M + S - 1} "
+          f"ticks): {four_secs:.4f} s, bitwise equal to run_decoder per "
+          f"microbatch, K4 launches {n4}; per rank on {S} ranks: "
+          f"{M + S - 1} hand-offs of {ATTN_B // M} x {ATTN_S} x "
+          f"{cfg.d_model} bf16 and one all-reduce of the {ATTN_B} x "
+          f"{ATTN_S} x {cfg.d_model} output over {S}: {st.summary()}, "
+          f"collective term {t_coll * 1e3:.4f} ms at "
+          f"{analysis.H100.link_bytes_per_s / 1e9:.0f} GB/s "
+          f"({analysis.H100.name} profile)", flush=True)
+    shape = ShapeConfig("pipeline_prefill", ATTN_S, ATTN_B, "prefill")
+    flops = analysis.model_flops(cfg, shape)
+    print(f"analysis.model_flops of a {ATTN_B} x {ATTN_S} prefill: "
+          f"{flops:.6g} (the whole model, embedding and head included, "
+          f"which the pipeline does not run); over the pipeline's "
+          f"{secs:.4f} s: {flops / secs / 1e12:.2f} TFLOP/s, "
+          f"{100 * flops / secs / analysis.H100.peak_bf16_flops:.1f}% of "
+          f"the {analysis.H100.peak_bf16_flops / 1e12:.0f} TFLOP/s bf16 "
+          f"peak ({card})", flush=True)
+    return launches
+
+
+def elastic_phase(model, tokens, logits_pf, card: str) -> None:
+    """``reshard`` qwen3-8b's parameters by ``partition_specs`` under its
+    prefill rules onto ``make_mesh(1)``: no demotion, every local block
+    bitwise its source, and a prefill of ``dense_phase``'s tokens from a
+    model loaded with the local blocks gives ``dense_phase``'s logits
+    bitwise (K4 once per layer)."""
+    from torch.distributed.tensor import DTensor, Shard
+    from repro_torch.configs.base import PREFILL_32K
+    from repro_torch.configs.registry import default_parallelism
+    from repro_torch.distributed.elastic import make_mesh, reshard
+    from repro_torch.distributed.sharding import make_rules
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.model import build
+    from repro_torch.models.params import load_tree, partition_specs
+    cfg = model.cfg
+    rules = make_rules(cfg, PREFILL_32K, default_parallelism(cfg,
+                                                             PREFILL_32K))
+    specs = partition_specs(tfm.param_defs(cfg), rules)
+    mesh = make_mesh(1, device=model.device.type)
+    (tree, plan), secs = synced_seconds(lambda: reshard(model, specs, mesh))
+    check(plan.demotions == [], f"reshard onto {tuple(mesh.shape)} demoted "
+          f"{plan.demotions}")
+    fresh = build(cfg)
+    load_tree(fresh, tree)
+    pairs = list(zip(fresh.parameters(), model.parameters()))
+    check(all(torch.equal(a, b) for a, b in pairs),
+          "a resharded local block differs from its source")
+    leaves = _leaves(tree)
+    check(all(isinstance(p, DTensor) and p.device_mesh is mesh
+              for p in leaves), "reshard gave a leaf off the new mesh")
+    sharded = sum(any(isinstance(q, Shard) for q in p.placements)
+                  for p in leaves)
+    reset_counts()
+    (logits, _), psecs = synced_seconds(lambda: fresh.prefill(
+        {"tokens": tokens}, fresh.init_cache(ATTN_B, ATTN_S_MAX)))
+    launches = read_counts()["flash_attention"]
+    check(launches == cfg.n_layers, f"K4 launched {launches} times in the "
+          f"resharded prefill, expected {cfg.n_layers}")
+    check(torch.equal(logits, logits_pf), "the resharded prefill's logits "
+          "differ from dense_phase's")
+    print(f"qwen3-8b reshard onto make_mesh(1) {tuple(mesh.shape)} "
+          f"{mesh.mesh_dim_names}: {plan.summary()}, {len(leaves)} leaves "
+          f"({sharded} with a Shard placement) in {secs:.3f} s; every local "
+          f"block equal to its source; prefill from the local blocks "
+          f"{psecs:.3f} s, logits equal to dense_phase's (torch.equal), K4 "
+          f"launches {launches} ({card})", flush=True)
+
+
+def _leaves(tree):
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    items = tree if isinstance(tree, list) else tree.values()
+    return [t for v in items for t in _leaves(v)]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3802,9 +3990,16 @@ def main(argv=None) -> int:
     rows["decode_augment"]["launches"] += counts["decode_augment"]
     rows["augment"]["launches"] += counts["augment"]
     rows.update(phase("model kernels", model_kernel_phase, dev, args.seed))
-    rows["flash_attention"]["launches"] = phase(
+    rows["flash_attention"]["launches"], model, tokens, logits = phase(
         "serving, qwen3-8b", dense_phase, dev, args.seed, card)
     mesh, store = phase("mesh: an NCCL world of one", mesh_world, card)
+    rows["flash_attention"]["launches_pp"] = phase(
+        "pipeline, qwen3-8b", pp_phase, model, args.seed, card)
+    phase("elastic resharding, qwen3-8b", elastic_phase, model, tokens,
+          logits, card)
+    del model, tokens, logits
+    gc.collect()
+    torch.cuda.empty_cache()
     rows["ssd_scan"]["launches"], sp_launches = phase(
         "serving, mamba2-1.3b", ssm_phase, dev, args.seed, card, mesh)
     rows["ssd_scan"]["launches_sp"] = sp_launches
@@ -3851,8 +4046,8 @@ def main(argv=None) -> int:
               f"plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms",
               flush=True)
     # launches on the mesh layer's paths (sequence-, data-, expert-
-    # parallel), beside the row's own main-path count
-    keys += ("launches_sp", "launches_dp", "launches_ep")
+    # parallel, pipeline), beside the row's own main-path count
+    keys += ("launches_sp", "launches_dp", "launches_ep", "launches_pp")
     kernels = [{k: rows[name][k] for k in keys if k in rows[name]}
                for name in ("decode_augment", "augment", "decode",
                             "flash_attention", "flash_attention_bwd",

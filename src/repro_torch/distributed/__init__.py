@@ -1,5 +1,6 @@
 """The distributed layer (the port's twin of ``repro.distributed``):
 atomic checkpoints and the resilient trainer loop (``checkpoint``,
-``ft``) and the logical-axis sharding rules (``sharding``).  Pipeline
-parallelism and elastic resharding (``pp``, ``elastic``) are not ported
-yet (ROADMAP.md)."""
+``ft``), the logical-axis sharding rules (``sharding``), GPipe-style
+pipeline parallelism over a ``pipe`` mesh axis, forward only (``pp``),
+and re-meshing and resharding when the rank count changes
+(``elastic``)."""

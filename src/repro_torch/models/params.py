@@ -124,6 +124,50 @@ def init_tree(tree: ParamTree, generator: torch.Generator,
             init_tree(tree[name], generator, dtype)
 
 
+def partition_specs(defs, rules) -> Any:
+    """Map logical axes -> mesh axes via ``rules`` (a mapping, or
+    ``ShardingRules`` for its ``mapping``; missing/None -> replicated):
+    the reference's ``partition_specs`` over the port's defs.  A spec is
+    a tuple, one entry per dimension; a :class:`Stacked` entry gives the
+    specs of its defs with the ``layers`` axis in front, as the
+    reference's stacked leaves have it."""
+    mapping = getattr(rules, "mapping", rules)
+
+    def walk(d, lead: Tuple):
+        if isinstance(d, ParamDef):
+            return lead + tuple(mapping.get(a) if a is not None else None
+                                for a in d.axes)
+        if isinstance(d, Stacked):
+            return walk(d.defs, lead + (mapping.get("layers"),))
+        return {k: walk(v, lead) for k, v in d.items()}
+
+    return walk(defs, ())
+
+
+def load_tree(tree: ParamTree, values) -> None:
+    """Set each leaf of ``tree`` to the tensor at its name in ``values``:
+    nested mappings, a :class:`Stacked` entry a sequence of per-layer
+    mappings (as ``distributed.elastic.reshard`` returns a model's tree).
+    The tensors are taken as they are, not copied; a DTensor gives its
+    local block."""
+    from torch.distributed.tensor import DTensor
+    for name in tree.keys():
+        d = tree.defs[name]
+        if isinstance(d, ParamDef):
+            t = values[name]
+            if isinstance(t, DTensor):
+                t = t.to_local()
+            if tuple(t.shape) != tuple(d.shape):
+                raise ValueError(f"{name}: shape {tuple(t.shape)}, "
+                                 f"expected {d.shape}")
+            setattr(tree, name, nn.Parameter(t, requires_grad=False))
+        elif isinstance(d, Stacked):
+            for layer, v in zip(tree[name], values[name], strict=True):
+                load_tree(layer, v)
+        else:
+            load_tree(tree[name], values[name])
+
+
 def param_count(defs) -> int:
     if isinstance(defs, ParamDef):
         return int(np.prod(defs.shape))

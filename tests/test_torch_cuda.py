@@ -1400,6 +1400,18 @@ def test_nccl_sp_and_ep_forward_equal_local(nccl_world):
         True, True, registry.get_reduced("deepseek-moe-16b").n_layers)
 
 
+def test_nccl_pipeline_and_reshard_equal_local(nccl_world):
+    """Reduced qwen3-8b: ``pipeline_forward`` at one stage (2
+    microbatches, K4 (M + S - 1) x L times) equals ``run_decoder`` on each
+    microbatch bitwise, so does the 2-stage schedule run in one process;
+    ``reshard`` onto ``make_mesh(1)`` demotes nothing, keeps every block
+    as it was, and a model loaded from it gives the same logits."""
+    from repro_torch.configs import registry
+    n_layers = registry.get_reduced("qwen3-8b").n_layers
+    assert nccl_world["pp"] == (True, 2 * n_layers, True)
+    assert nccl_world["reshard"] == ([], True, True)
+
+
 def _rel_rms(got, want) -> float:
     return float((got.float() - want.float()).norm() / want.float().norm())
 

@@ -15,8 +15,11 @@ plain twin), a reduced deepseek-moe-16b loss (its router included) and
 a reduced vit-huge loss on a batch of the image path, joins a gloo
 world of one and takes a compressed data-parallel step, a
 sequence-parallel mamba2 forward and an expert-parallel moe forward
-under the mesh layer's rules, and exits 0.  A static scan of the
-port's sources backs it up for modules the run does not import.
+under the mesh layer's rules, runs a one-stage pipeline with its
+collectives recorded, reshards the qwen3-8b model onto a one-rank mesh,
+computes a roofline term and a memory ledger, and exits 0.  A static
+scan of the port's sources backs it up for modules the run does not
+import.
 """
 import ast
 import os
@@ -184,6 +187,27 @@ with tempfile.TemporaryDirectory() as d:
         with use_rules(rules):
             logits, _ = m.forward({{"tokens": tokens}})
         assert bool(torch.isfinite(logits.float()).all())
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.distributed.elastic import make_mesh, reshard
+    from repro_torch.distributed.pp import pipeline_forward
+    from repro_torch.models.params import partition_specs
+    from repro_torch.models.transformer import param_defs
+    from repro_torch.roofline import analysis, hlo_collectives, memory_ledger
+    pipe = init_device_mesh("cpu", (1,), mesh_dim_names=("pipe",))
+    with hlo_collectives.record() as rec:
+        y = pipeline_forward(lambda w, h: torch.tanh(h @ w),
+                             torch.ones(2, 3, 3), torch.ones(4, 3), pipe,
+                             microbatches=2)
+    assert y.shape == (4, 3) and rec.analyze().per_kind_count["all-reduce"] == 1
+    rules = make_rules(model.cfg, PREFILL_32K,
+                       default_parallelism(model.cfg, PREFILL_32K))
+    _, plan = reshard(model, partition_specs(param_defs(model.cfg), rules),
+                      make_mesh(1, device="cpu"))
+    assert plan.demotions == []
+    assert analysis.model_flops(model.cfg, PREFILL_32K) > 0
+    assert memory_ledger.build_ledger(
+        model.cfg, PREFILL_32K, default_parallelism(model.cfg, PREFILL_32K)
+    ).fits()
     dist.destroy_process_group()
 held = sorted(m for m in sys.modules if m.split(".")[0] in {blocked!r})
 assert not held, held

@@ -1,5 +1,6 @@
 """Small worlds of ranks for the port's multi-rank tests (not a test
-module: the ``test_torch_{mesh,dp,ep_sp}.py`` files import it).
+module: the ``test_torch_{mesh,dp,ep_sp,pp_elastic}.py`` files import
+it).
 
 :func:`spawn` starts ``world`` Python processes of this file, one per
 rank.  Each joins a process group that meets on a file store under the
@@ -302,19 +303,119 @@ def case_ep_sp(rank, world, inputs, device):
     return out
 
 
+def _stack(trees):
+    """Per-layer trees as one tree of stacked (L, ...) leaves, the
+    reference's layout."""
+    import torch
+    if isinstance(trees[0], torch.Tensor):
+        return torch.stack(trees)
+    return {k: _stack([t[k] for t in trees]) for k in trees[0].keys()}
+
+
+def _tanh_block(w, h):
+    import torch
+    return torch.tanh(h @ w)
+
+
+def case_pp_elastic(rank, world, inputs, device):
+    """Pipeline parallelism and elastic resharding on 4 ranks: the
+    reference test's tanh stack at M in (2, 4, 8) on a 4-stage ``pipe``
+    mesh (with its collectives recorded at M 4), the same schedule run in
+    one process, a reduced qwen3-8b stack on 4 stages and on 2 (a (2, 2)
+    ``("data", "pipe")`` mesh), the refusals, and ``reshard`` onto
+    ``make_mesh(4, model_parallel=2)`` and then onto the mesh with rank 3
+    failed."""
+    import dataclasses
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.distributed.elastic import (make_mesh, reshard,
+                                                 shrunk_mesh)
+    from repro_torch.distributed.pp import (pipeline_forward,
+                                            pipeline_forward_local)
+    from repro_torch.faults.liveness import LivenessRegistry
+    from repro_torch.models.transformer import _attn_block
+    from repro_torch.roofline import hlo_collectives
+
+    out = {}
+    pipe4 = init_device_mesh(device, (world,), mesh_dim_names=("pipe",))
+    t = inputs["tanh"]
+    for M in (2, 4, 8):
+        with hlo_collectives.record() as rec:
+            out[("tanh", M)] = pipeline_forward(_tanh_block, t["w"], t["x"],
+                                                pipe4, microbatches=M)
+        out[("tanh_local", M)] = pipeline_forward_local(
+            _tanh_block, t["w"], t["x"], world, microbatches=M)
+        if M == 4:
+            st = rec.analyze()
+            out["collectives"] = (dict(st.per_kind_count),
+                                  dict(st.per_kind_bytes),
+                                  [dataclasses.astuple(r)
+                                   for r in rec.records])
+    errors = {}
+    for key, (w, M) in {"layers": (t["w"][:6], 4),
+                        "batch": (t["w"], 3)}.items():
+        try:
+            pipeline_forward(_tanh_block, w, t["x"], pipe4, microbatches=M)
+            errors[key] = None
+        except ValueError as e:
+            errors[key] = str(e)
+    out["errors"] = errors
+
+    q = inputs["qwen"]
+    cfg = q["cfg"]
+    model = _model("qwen3-8b", q["state"], device=device, cfg=cfg)
+    positions = torch.arange(q["x"].shape[1])
+
+    def block(lp, h):
+        return _attn_block(lp, h, cfg, positions, causal=True)[0]
+
+    out["qwen4"] = pipeline_forward(block, model.blocks, q["x"], pipe4)
+    out["qwen4_stacked"] = pipeline_forward(block, _stack(list(model.blocks)),
+                                            q["x"], pipe4)
+    mesh22 = init_device_mesh(device, (2, 2),
+                              mesh_dim_names=("data", "pipe"))
+    out["qwen2"] = pipeline_forward(block, model.blocks, q["x"], mesh22)
+
+    r = inputs["reshard"]
+    m4 = make_mesh(4, model_parallel=2, device=device)
+    specs = {"w": ("data", None), "b": ("data",)}
+    p4, plan4 = reshard({"w": r["w"], "b": r["b"]}, specs, m4)
+    out["reshard4"] = ({k: v.to_local() for k, v in p4.items()},
+                       plan4.demotions, tuple(m4.shape))
+    specs3 = dict(specs, v=("data", "model"))
+    p4v, _ = reshard(r, specs3, m4)
+    registry = LivenessRegistry()
+    registry.mark_dead(3)
+    m3 = shrunk_mesh(4, registry, model_parallel=2, device=device)
+    with hlo_collectives.record() as rec:
+        p3, plan3 = reshard(p4v, specs3, m3)
+    out["reshard3"] = ({k: v.to_local() for k, v in p3.items()},
+                       {k: v.placements for k, v in p3.items()},
+                       plan3.demotions, tuple(m3.shape),
+                       dict(rec.analyze().per_kind_count))
+    return out
+
+
 def case_nccl_world_of_one(rank, world, inputs, device):
     """On the card, a world of one over NCCL: each collective path against
-    its single-device path, compared bitwise in the test."""
+    its single-device path (data-, sequence- and expert-parallel, the
+    pipeline at one stage, a reshard onto ``make_mesh(1)``), compared
+    bitwise in the test."""
     import torch
     from torch.distributed.device_mesh import init_device_mesh
     from repro_torch.configs import registry
     from repro_torch.configs.base import PREFILL_32K, ParallelismConfig
     from repro_torch.configs.registry import default_parallelism
+    from repro_torch.distributed.elastic import make_mesh, reshard
+    from repro_torch.distributed.pp import (pipeline_forward,
+                                            pipeline_forward_local)
     from repro_torch.distributed.sharding import (distribute_model,
                                                   make_rules, use_rules)
     from repro_torch.kernels.ssd_scan.kernel import ssd_scan
     from repro_torch.kernels.flash_attention.kernel import flash_attention
+    from repro_torch.models import transformer as tfm
     from repro_torch.models.model import build
+    from repro_torch.models.params import load_tree, partition_specs
     from repro_torch.train import compression
     from repro_torch.train.dp_shard import build_dp_train_step
     from repro_torch.train.optimizer import AdamW
@@ -387,10 +488,41 @@ def case_nccl_world_of_one(rank, world, inputs, device):
         ep, ep_aux = model.forward({"tokens": toks})
     out["ep"] = (torch.equal(ep, local), torch.equal(ep_aux, aux),
                  flash_attention.launches - n0)
+
+    # the pipeline at one stage, against run_decoder per microbatch; the
+    # schedule on 2 stages in one process; a reshard onto make_mesh(1)
+    cfg = registry.get_reduced("qwen3-8b")
+    model = build(cfg).init(seed=0, device=dev)
+    x = tfm._embed_inputs(model, cfg, {"tokens": toks})
+    positions = torch.arange(toks.shape[1], device=dev)
+
+    def block(lp, h):
+        return tfm._attn_block(lp, h, cfg, positions, causal=True)[0]
+
+    pipe = init_device_mesh("cuda", (1,), mesh_dim_names=("pipe",))
+    with torch.no_grad():
+        want = torch.cat([tfm.run_decoder(model, xm, cfg, positions)[0]
+                          for xm in x.chunk(2)])
+        n0 = flash_attention.launches
+        got = pipeline_forward(block, model.blocks, x, pipe, microbatches=2)
+        launches = flash_attention.launches - n0
+        two = pipeline_forward_local(block, model.blocks, x, 2,
+                                     microbatches=2)
+    out["pp"] = (torch.equal(got, want), launches, torch.equal(two, want))
+    rules = make_rules(cfg, PREFILL_32K, default_parallelism(cfg, PREFILL_32K))
+    tree, plan = reshard(model, partition_specs(tfm.param_defs(cfg), rules),
+                         make_mesh(1))
+    fresh = build(cfg)
+    load_tree(fresh, tree)
+    same = all(torch.equal(a, b) for a, b in zip(fresh.parameters(),
+                                                 model.parameters()))
+    out["reshard"] = (plan.demotions, same, torch.equal(
+        fresh.forward({"tokens": toks})[0], model.forward({"tokens": toks})[0]))
     return out
 
 
 CASES = {"mesh": case_mesh, "dp": case_dp, "ep_sp": case_ep_sp,
+         "pp_elastic": case_pp_elastic,
          "nccl_world_of_one": case_nccl_world_of_one}
 
 
