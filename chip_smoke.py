@@ -115,12 +115,25 @@ into ``build/repro_torch/``), then:
    resharded by ``partition_specs`` under the prefill rules onto
    ``distributed.elastic.make_mesh(1)``, no demotion, every local block
    equal to its source, and a prefill from the local blocks giving
-   ``dense_phase``'s logits bitwise (K4 36 times); then the serving
-   path, ssm: mamba2-1.3b at full width: ``Model.forward`` of
-   4 x 1024 tokens (K5 launched once per layer), the same forward under
-   the prefill rules of ``default_parallelism`` over that mesh, the
-   sequence-parallel SSD of ``models/ssm_sp.py`` (K5 once per layer,
-   logits equal to the local forward's; ``sp_part``), layer 0's block
+   ``dense_phase``'s logits bitwise (K4 36 times); then the dry-run
+   against the run (``dryrun_phase``): ``launch.dryrun.lower_cell``
+   traces, in a child process on a fake world of one (fake CUDA tensors,
+   nothing runs), (a) qwen3-8b's 4 x 1024 prefill and (b) one
+   data-parallel step of mamba2-1.3b at 4 x 1024; here the same steps
+   run for real under the same rules on the NCCL world of one inside the
+   same counters (``dry_check``; (b) in ``dryrun_train_phase``, once
+   qwen3-8b is freed): FLOPs, bytes accessed and collectives per kind
+   equal, K4's op calls (36) and K5's and its backward's (48
+   each) equal to the launches, the traced peak within ``DRY_PEAK_TOL``
+   of ``max_memory_allocated``, the record's terms on the H100 profile
+   beside the measured seconds; (c) the production sweep comes after
+   the last timed phase (item 14);
+   then the serving path, ssm: mamba2-1.3b at full width:
+   ``Model.forward`` of 4 x 1024 tokens (K5 launched once per layer),
+   the same forward under the prefill rules of ``default_parallelism``
+   over that mesh, the sequence-parallel SSD of ``models/ssm_sp.py``
+   (K5 once per layer, logits equal to the local forward's;
+   ``sp_part``), layer 0's block
    with the sequence cut into 2 and 4 segments chained through the
    hand-off that ranks past 0 take (``segments_check``, bf16 and
    float32, against the local block), token-by-token decode
@@ -215,12 +228,18 @@ into ``build/repro_torch/``), then:
     attention weights and every layer's ``cross.{wq,wk,wv,wo}``, at the
     rate ``SEAMLESS_LR``; every training phase's last loss must lie
     below ln V, a uniform prediction's;
-14. the kernel JSON line (one row per kernel and shape; the rows of
-    K5, its backward and K4 at moe also carry ``launches_sp``,
-    ``launches_dp`` and ``launches_ep``, their launches on the
-    sequence-, data- and expert-parallel paths, and K4's qwen3-8b row
-    ``launches_pp``, its launches in the pipeline), the card line, and the
-    result line
+14. the dry-run's production sweep (``sweep_phase``), after every timed
+    phase: ``launch.dryrun`` over every assigned arch x shape on the
+    ``SWEEP_MESHES`` (single and multi), one process per arch,
+    ``SWEEP_PROCS`` at a time; each
+    cell's bottleneck and trace seconds, ok, failed and skipped, 0
+    failed and every applicable cell recorded; then the kernel JSON line (one
+    row per kernel and shape; the rows of K5, its backward and K4 at moe
+    also carry ``launches_sp``, ``launches_dp`` and ``launches_ep``,
+    their launches on the sequence-, data- and expert-parallel paths,
+    K4's qwen3-8b row ``launches_pp``, its launches in the pipeline, and
+    K4's, K5's and K5's backward's rows ``launches_dry``, their launches
+    in the dry-run's real runs), the card line, and the result line
     ``{"ok": true, "device": {...}}`` last.
 
 Float32 products on the card run in full float32: the script sets
@@ -3931,6 +3950,213 @@ def elastic_phase(model, tokens, logits_pf, card: str) -> None:
           f"launches {launches} ({card})", flush=True)
 
 
+#: the dry-run phase's cells, as ShapeConfig fields: qwen3-8b's prefill of
+#: dense_phase's shape and one data-parallel step of mamba2-1.3b at
+#: train_phase's
+DRY_PREFILL = ("prefill", ATTN_S, ATTN_B, "prefill")
+DRY_TRAIN = ("train", SSM_S, SSM_TRAIN_B, "train")
+#: the traced peak memory against the allocator's, relative
+DRY_PEAK_TOL = 0.05
+#: the production sweep's processes at once (one ``launch.dryrun`` per
+#: arch; the card's host has 8 cores and nothing else runs then), and its
+#: meshes
+SWEEP_PROCS = 8
+SWEEP_MESHES = ("single", "multi")
+
+_DRY_CHILD = """
+import json, sys
+import torch.distributed as dist
+from torch.distributed.device_mesh import init_device_mesh
+from torch.testing._internal.distributed.fake_pg import FakeStore
+from repro_torch.configs.base import ShapeConfig
+from repro_torch.launch.dryrun import lower_cell
+dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=1)
+mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+rec = lower_cell(sys.argv[1], ShapeConfig(*json.loads(sys.argv[2])),
+                 multi_pod=False, mesh=mesh)
+dist.destroy_process_group()
+print(json.dumps(rec))
+"""
+
+
+def traced_cell(arch: str, shape) -> dict:
+    """``launch.dryrun.lower_cell`` of ``arch`` at ``shape`` on a fake
+    world of one, a (1, 1) ``("data", "model")`` mesh, on CUDA (fake
+    tensors: nothing runs), in a process of its own (a fake world and
+    this run's NCCL world cannot both be the default group)."""
+    out = subprocess.run(
+        [sys.executable, "-c", _DRY_CHILD, arch, json.dumps(list(shape))],
+        cwd=str(ROOT), capture_output=True, text=True, timeout=600,
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    check(out.returncode == 0, f"the trace of {arch} {shape} failed:\n"
+          f"{out.stderr[-4000:]}")
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def dry_check(model, shape_fields, mesh, card: str, kernels) -> dict:
+    """One dry-run cell held against the real run: the child traces
+    ``model``'s arch at ``shape_fields`` (:func:`traced_cell`); here the
+    same step (``launch.dryrun.cell_step``) runs on ``model`` under the
+    same rules on ``mesh`` (the NCCL world of one) inside the same
+    ``Trace``.  FLOPs, bytes accessed and the collectives per kind (count,
+    wire bytes) must be equal, each of ``kernels``' op calls in the trace
+    equal to its wrapper's launches, and the peak within
+    ``DRY_PEAK_TOL``, both as the arguments' bytes plus the most the step
+    had allocated beyond them at once: on the card
+    ``max_memory_allocated()`` after ``reset_peak_memory_stats()`` less
+    ``memory_allocated()`` before the step, its arguments made.  Returns
+    the launches."""
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed.sharding import (distribute_model,
+                                                  make_rules, use_rules)
+    from repro_torch.launch import dryrun
+    cfg, dev = model.cfg, model.device
+    shape = ShapeConfig(*shape_fields)
+    t0 = time.perf_counter()
+    rec = traced_cell(cfg.name, shape_fields)
+    child_s = time.perf_counter() - t0
+    parallel = registry.default_parallelism(cfg, shape)
+    rules = make_rules(cfg, shape, parallel, tp_size=1, dp_size=1, mesh=mesh)
+    distribute_model(model, rules)
+    for _ in range(2):        # a warm-up run, then the one timed bare
+        args, run, _ = dryrun.cell_step(model, shape, parallel, rules, dev)
+        with use_rules(rules):
+            out, secs = synced_seconds(run)
+        del args, run, out
+    args, run, note = dryrun.cell_step(model, shape, parallel, rules, dev)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    with use_rules(rules), dryrun.Trace(args) as tr:
+        out = run()
+    torch.cuda.synchronize()
+    new_peak = torch.cuda.max_memory_allocated() - before
+    launches = read_counts()
+    real = tr.result(out)
+    del args, run, out
+    traced = rec["trace"]
+    name = f"{cfg.name} {note} {shape.global_batch} x {shape.seq_len}"
+    check(traced["flops"] == real["flops"], f"{name}: traced FLOPs "
+          f"{traced['flops']} against {real['flops']} run")
+    check(traced["bytes"] == real["bytes"], f"{name}: traced bytes "
+          f"{traced['bytes']} against {real['bytes']} run")
+    check(rec["collective_counts"] == real["collective_counts"]
+          and rec["collectives"] == real["collectives"],
+          f"{name}: traced collectives {rec['collective_counts']} "
+          f"{rec['collectives']} against {real['collective_counts']} "
+          f"{real['collectives']} run")
+    for k in kernels:
+        check(traced["kernel_calls"].get(k) == launches[k] > 0,
+              f"{name}: {k} op calls in the trace "
+              f"{traced['kernel_calls'].get(k)}, launches {launches[k]}")
+    mem = rec["memory_analysis"]
+    peak = mem["peak_memory_in_bytes"]
+    card_peak = real["memory"]["argument_size_in_bytes"] + new_peak
+    check(mem["argument_size_in_bytes"] ==
+          real["memory"]["argument_size_in_bytes"],
+          f"{name}: traced arguments {mem['argument_size_in_bytes']} B "
+          f"against {real['memory']['argument_size_in_bytes']} B")
+    check(abs(peak - card_peak) <= DRY_PEAK_TOL * card_peak,
+          f"{name}: traced peak {peak} B against {card_peak} B on the card")
+    args_b = mem["argument_size_in_bytes"]
+    print(f"dry-run {name}: traced in {rec['lower_s']:.2f} s (child "
+          f"{child_s:.1f} s); FLOPs {real['flops']:.6g}, bytes accessed "
+          f"{real['bytes']:.6g}, collectives {real['collective_counts']} "
+          f"{real['collectives']} equal to the run's; kernel calls "
+          f"{traced['kernel_calls']} equal to the launches; peak traced "
+          f"{peak / 1e9:.3f} GB against {card_peak / 1e9:.3f} GB on the "
+          f"card (arguments {args_b / 1e9:.3f} GB; beyond them "
+          f"{(peak - args_b) / 1e9:.3f} traced, {new_peak / 1e9:.3f} "
+          f"allocated); the record's terms on the {H100.name} profile: "
+          f"compute {rec['t_compute'] * 1e3:.3f} ms, memory "
+          f"{rec['t_memory'] * 1e3:.3f} ms, collective "
+          f"{rec['t_collective'] * 1e3:.3f} ms, bottleneck "
+          f"{rec['bottleneck']}, beside {secs:.4f} s measured ({card})",
+          flush=True)
+    return launches
+
+
+def dryrun_phase(model, mesh, card: str) -> int:
+    """(a) of the dry-run against the run: qwen3-8b's ``DRY_PREFILL`` on
+    ``model`` by :func:`dry_check` (K4 36 times).  Returns K4's
+    launches."""
+    return dry_check(model, DRY_PREFILL, mesh, card,
+                     ("flash_attention",))["flash_attention"]
+
+
+def dryrun_train_phase(dev, mesh, seed: int, card: str):
+    """(b) one data-parallel step of mamba2-1.3b at ``DRY_TRAIN`` by
+    :func:`dry_check` (K5 and its backward 48 times each).  Returns K5's
+    and its backward's launches."""
+    model = build_model("mamba2-1.3b", dev, seed)
+    b = dry_check(model, DRY_TRAIN, mesh, card, ("ssd_scan", "ssd_scan_bwd"))
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return b["ssd_scan"], b["ssd_scan_bwd"]
+
+
+def sweep_phase(card: str) -> None:
+    """(c) the production sweep, after the last timed phase (it needs no
+    card, and beside a timed phase it would load the host):
+    ``launch.dryrun`` over every assigned arch x shape on the
+    ``SWEEP_MESHES``, one process per arch, ``SWEEP_PROCS`` at a time, the
+    largest models (the slowest traces) first, each writing its records
+    under ``build/dryrun/``.  Prints each cell's bottleneck and trace
+    seconds and the ok, failed and skipped counts; a failed cell, or an
+    applicable cell without a record, fails the run."""
+    from concurrent.futures import ThreadPoolExecutor
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import ALL_SHAPES, shape_applicable
+    from repro_torch.models.model import build
+    from repro_torch.models.params import param_count
+    out = ROOT / "build" / "dryrun"
+    out.mkdir(parents=True, exist_ok=True)
+    archs = sorted(registry.ASSIGNED_ARCHS,
+                   key=lambda a: -param_count(build(registry.get(a)).defs))
+
+    def sweep(arch: str) -> dict:
+        path = out / f"{arch}.json"
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", "all", "--mesh", ",".join(SWEEP_MESHES),
+             "--out", str(path), "--force"], cwd=str(ROOT),
+            capture_output=True, text=True, timeout=600,
+            env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+        check(proc.returncode == 0, f"the sweep of {arch} exited "
+              f"{proc.returncode}:\n{proc.stdout[-2000:]}"
+              f"{proc.stderr[-2000:]}")
+        return json.loads(path.read_text())
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(SWEEP_PROCS) as pool:
+        records = {k: r for part in pool.map(sweep, archs)
+                   for k, r in part.items()}
+    secs = time.perf_counter() - t0
+    cells = [(a, s, m) for a in registry.ASSIGNED_ARCHS for s in ALL_SHAPES
+             for m in SWEEP_MESHES]
+    applicable = [f"{a}|{s.name}|{m}" for a, s, m in cells
+                  if shape_applicable(registry.get(a), s)[0]]
+    errors = {k: r["error"] for k, r in records.items() if "error" in r}
+    ok = [k for k in applicable if k in records and "error" not in
+          records[k] and "skipped" not in records[k]]
+    for key in sorted(ok):
+        r = records[key]
+        peak = r["memory_analysis"]["peak_memory_in_bytes"]
+        analytic = r["analytic_bytes_per_device"]["total"]
+        print(f"dry-run cell {key}: bottleneck {r['bottleneck']}, traced in "
+              f"{r['lower_s']:.1f} s, peak {peak / 1e9:.1f} GB (analytic "
+              f"{analytic / 1e9:.1f} GB)", flush=True)
+    print(f"dry-run sweep, {' and '.join(SWEEP_MESHES)} mesh: {len(ok)} ok, "
+          f"{len(errors)} failed, {len(cells) - len(applicable)} skipped, "
+          f"{secs:.1f} s in {SWEEP_PROCS} processes ({card})", flush=True)
+    check(not errors, f"dry-run cells failed: {errors}")
+    check(len(ok) == len(applicable), f"dry-run cells without a record: "
+          f"{sorted(set(applicable) - set(ok))}")
+
+
 def _leaves(tree):
     if isinstance(tree, torch.Tensor):
         return [tree]
@@ -3997,9 +4223,15 @@ def main(argv=None) -> int:
         "pipeline, qwen3-8b", pp_phase, model, args.seed, card)
     phase("elastic resharding, qwen3-8b", elastic_phase, model, tokens,
           logits, card)
+    rows["flash_attention"]["launches_dry"] = phase(
+        "dry-run against the run, qwen3-8b prefill", dryrun_phase, model,
+        mesh, card)
     del model, tokens, logits
     gc.collect()
     torch.cuda.empty_cache()
+    rows["ssd_scan"]["launches_dry"], rows["ssd_scan_bwd"]["launches_dry"] \
+        = phase("dry-run against the run, mamba2-1.3b step",
+                dryrun_train_phase, dev, mesh, args.seed, card)
     rows["ssd_scan"]["launches"], sp_launches = phase(
         "serving, mamba2-1.3b", ssm_phase, dev, args.seed, card, mesh)
     rows["ssd_scan"]["launches_sp"] = sp_launches
@@ -4037,6 +4269,9 @@ def main(argv=None) -> int:
             rows["flash_attention" + suffix]["launches"] = fwd
             rows["flash_attention_bwd" + suffix]["launches"] = bwd
 
+    phase(f"dry-run sweep, {' and '.join(SWEEP_MESHES)} mesh", sweep_phase,
+          card)
+
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -4046,8 +4281,10 @@ def main(argv=None) -> int:
               f"plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms",
               flush=True)
     # launches on the mesh layer's paths (sequence-, data-, expert-
-    # parallel, pipeline), beside the row's own main-path count
-    keys += ("launches_sp", "launches_dp", "launches_ep", "launches_pp")
+    # parallel, pipeline) and in the dry-run's real runs, beside the row's
+    # own main-path count
+    keys += ("launches_sp", "launches_dp", "launches_ep", "launches_pp",
+             "launches_dry")
     kernels = [{k: rows[name][k] for k in keys if k in rows[name]}
                for name in ("decode_augment", "augment", "decode",
                             "flash_attention", "flash_attention_bwd",

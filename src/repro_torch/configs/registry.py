@@ -4,6 +4,7 @@
 the smoke-test config, as in the reference.  Every arch the reference
 knows resolves, of every family: dense, moe, vlm, encdec, ssm, hybrid
 and encoder; an unknown arch raises ``KeyError``.
+``ASSIGNED_ARCHS`` are the archs the dry-run sweeps (``launch/dryrun.py``).
 ``default_parallelism(model, shape)`` is the reference's layout policy
 for one (arch x shape) cell, which ``distributed.sharding.make_rules``
 turns into sharding rules.
@@ -11,7 +12,7 @@ turns into sharding rules.
 from __future__ import annotations
 
 import importlib
-from typing import Dict, List
+from typing import Dict, List, Tuple
 
 from repro_torch.configs.base import ModelConfig, ParallelismConfig, ShapeConfig
 
@@ -29,6 +30,10 @@ _MODULES: Dict[str, str] = {
     "mamba2-1.3b": "repro_torch.configs.mamba2_1_3b",
     "vit-huge": "repro_torch.configs.vit_huge",
 }
+
+#: the archs of the dry-run's sweep (``--arch all``): all but vit-huge, in
+#: the reference's order
+ASSIGNED_ARCHS: Tuple[str, ...] = tuple(k for k in _MODULES if k != "vit-huge")
 
 
 def list_archs() -> List[str]:

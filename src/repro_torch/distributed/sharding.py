@@ -139,6 +139,20 @@ def shard(x: torch.Tensor, *axes: Optional[str]) -> torch.Tensor:
     return x.redistribute(rules.mesh, rules.placements(rules.mesh, *axes))
 
 
+def group_of(mesh, axes):
+    """The process group of this rank's peers over the mesh axes ``axes``
+    (one name, or several taken together: their flattened dimension,
+    ``DeviceMesh._flatten``, checked on torch 2.11 and 2.13)."""
+    names = _names(axes)
+    if len(names) == 1:
+        return mesh.get_group(names[0])
+    from torch._subclasses.fake_tensor import unset_fake_temporarily
+    # the flattened mesh's rank bookkeeping is host tensors of its own,
+    # real ones also inside a trace's fake tensors (launch/dryrun.py)
+    with unset_fake_temporarily():
+        return mesh[names]._flatten().get_group()
+
+
 def axis_rank(mesh, axes) -> Tuple[int, int]:
     """(this rank's index, count) over the mesh axes ``axes`` taken
     together, the first axis major, as a ``PartitionSpec`` entry orders

@@ -12,11 +12,17 @@ at the repository root, and loaded with :mod:`ctypes`.  Library names
 carry a hash of the sources, so an edited source is rebuilt and a stale
 library is never loaded.  There is no ``interpret``-style knob: a
 wrapper takes its plain PyTorch version for a CPU tensor, and launches
-its kernel (or raises) for a CUDA tensor.
+its kernel (or raises) for a CUDA tensor (:func:`takes_plain`).  K4, K5
+and their backwards launch through ``torch.library`` ops with fake
+implementations and FLOP formulas (:func:`plain_flops`), so a trace of
+fake tensors goes through them (``launch/dryrun.py``; :func:`as_card`).
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import ctypes
+import functools
 import hashlib
 import os
 import subprocess
@@ -53,6 +59,40 @@ def concrete_device(device) -> torch.device:
     if dev.type == "cuda" and dev.index is None:
         return torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+_AS_CARD: contextvars.ContextVar[bool] = contextvars.ContextVar(
+    "repro_torch_as_card", default=False)
+
+
+@contextlib.contextmanager
+def as_card():
+    """Inside a trace of fake tensors (a ``FakeTensorMode``), route CPU
+    tensors to the kernels' ops, as CUDA tensors are routed: the dry-run's
+    stand-in for fake CUDA tensors on a torch built without CUDA
+    (``launch/dryrun.py``).  The ops have no CPU implementation, so a
+    real CPU tensor that reached one would raise; outside a
+    ``FakeTensorMode`` this raises at once."""
+    if torch._C._get_dispatch_mode(
+            torch._C._TorchDispatchModeKey.FAKE) is None:
+        raise RuntimeError("as_card() routes fake tensors only: open a "
+                           "FakeTensorMode first")
+    token = _AS_CARD.set(True)
+    try:
+        yield
+    finally:
+        _AS_CARD.reset(token)
+
+
+def takes_plain(t: torch.Tensor, kernel: str) -> bool:
+    """A wrapper's route for its tensor ``t``: True for the plain version
+    (a CPU tensor), False for the kernel's op (a CUDA tensor, or a CPU one
+    under :func:`as_card`); any other device raises ``ValueError``."""
+    if t.device.type == "cpu" and not _AS_CARD.get():
+        return True
+    if t.device.type in ("cuda", "cpu"):
+        return False
+    raise ValueError(f"no {kernel} kernel for device {t.device}")
 
 
 def _nvcc() -> str:
@@ -121,6 +161,29 @@ def check_launch(name: str, err: int) -> None:
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: "
                            f"cudaError {err}")
+
+
+@functools.lru_cache(maxsize=256)
+def _plain_flops(fn, shapes, args) -> int:
+    from torch.utils._python_dispatch import _disable_current_modes
+    from torch.utils.flop_counter import FlopCounterMode
+    # the caller may be inside a trace's modes (fake tensors, a flop
+    # counter): the count runs outside them, on meta tensors of its own
+    with _disable_current_modes():
+        tensors = [None if s is None else torch.empty(s, device="meta")
+                   for s in shapes]
+        with FlopCounterMode(display=False) as counter:
+            fn(*tensors, *args)
+    return counter.get_total_flops()
+
+
+def plain_flops(fn, shapes, *args) -> int:
+    """The FLOPs ``FlopCounterMode`` counts for the plain version ``fn``
+    called on float32 ``meta`` tensors of ``shapes`` (None passes None)
+    and ``args``: a kernel op's FLOP formula, so that a trace through the
+    op counts what a trace through the plain version counts."""
+    return _plain_flops(fn, tuple(None if s is None else tuple(s)
+                                  for s in shapes), args)
 
 
 def check_tensor(name: str, t: torch.Tensor, dtype: torch.dtype,

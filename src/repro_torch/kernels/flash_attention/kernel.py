@@ -36,6 +36,14 @@ and dS carried as hi + lo bfloat16 parts), float32 the CUDA-core form.
 :class:`FlashAttention` joins the two for autograd: its forward is K4,
 its backward the backward kernel, so a gradient on the card never drops
 silently through a kernel's output.
+
+On the card both launch through ``torch.library`` ops,
+``repro_torch::flash_attention`` and ``repro_torch::flash_attention_bwd``
+(the backward's op also returns its per-row scratch, lse and delta): the
+implementation is the ``ctypes`` launch with its ``launches`` count; a
+fake implementation gives the outputs' shapes, so a trace of fake
+tensors (``launch/dryrun.py``) goes through the op; a FLOP formula
+counts the products of the plain version at the same arguments.
 """
 from __future__ import annotations
 
@@ -43,9 +51,11 @@ import ctypes
 import math
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels.device import (check_launch, check_tensor,
-                                        library, stream_ptr)
+                                        library, plain_flops, stream_ptr,
+                                        takes_plain)
 
 _DTYPES = (torch.float32, torch.bfloat16)
 NEG_INF = -1e30
@@ -137,14 +147,23 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """K4: q (B, Sq, H, hd), k/v (B, Sk, K, hd) (Sk = Sq under the causal
     mask), float32 or bfloat16, all contiguous -> (B, Sq, H, hd) in q's
     type; ``window > 0`` (causal only) limits query i to keys ``i -
-    window < j <= i``.  A CUDA tensor launches the kernel (or raises); a
-    CPU tensor takes the plain version."""
+    window < j <= i``.  A CUDA tensor goes through the op
+    ``repro_torch::flash_attention``, which launches the kernel (or
+    raises); a CPU tensor takes the plain version."""
     _check(q, k, v)
     _check_mask(causal, window, q, k)
-    if q.device.type == "cpu":
+    if takes_plain(q, "flash_attention"):
         return flash_attention_plain(q, k, v, causal, window)
-    if q.device.type != "cuda":
-        raise ValueError(f"no flash_attention kernel for device {q.device}")
+    return torch.ops.repro_torch.flash_attention(q, k, v, causal, window)
+
+
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=(),
+                         device_types="cuda")
+def _flash_attention_launch(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, causal: bool,
+                            window: int) -> torch.Tensor:
+    """K4's launch, the op's implementation (arguments checked by
+    :func:`flash_attention`)."""
     B, S, H, hd = q.shape
     if B * H > 65_535:
         raise ValueError(f"B*H = {B * H} exceeds the kernel's grid")
@@ -163,6 +182,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise RuntimeError(f"CUDA kernel flash_attention: {_TMA_ERRORS[err]}")
     check_launch("flash_attention", err)
     return out
+
+
+@_flash_attention_launch.register_fake
+def _(q, k, v, causal, window):
+    return torch.empty_like(q)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention)
+def _(q, k, v, causal, window, *, out_shape=None):
+    return plain_flops(flash_attention_plain, (q, k, v), causal, window)
 
 
 flash_attention.launches = 0
@@ -211,9 +240,9 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
     """K4's backward: K4's arguments plus its output ``out`` and the
     output's gradient ``dout`` (both (B, Sq, H, hd), q's type, contiguous)
     -> ``(dq, dk, dv)`` in the inputs' types, dk and dv (B, Sk, K, hd).
-    A CUDA tensor launches the kernels (or raises): bfloat16 the
-    tensor-core ones, float32 the CUDA-core ones; a CPU tensor takes the
-    plain version."""
+    A CUDA tensor goes through the op ``repro_torch::flash_attention_bwd``,
+    which launches the kernels (or raises): bfloat16 the tensor-core ones,
+    float32 the CUDA-core ones; a CPU tensor takes the plain version."""
     _check(q, k, v)
     _check_mask(causal, window, q, k)
     for name, t in (("out", out), ("dout", dout)):
@@ -221,12 +250,31 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
         if t.shape != q.shape:
             raise ValueError(f"{name} must have q's shape {tuple(q.shape)}, "
                              f"got {tuple(t.shape)}")
-    if q.device.type == "cpu":
+    if takes_plain(q, "flash_attention_bwd"):
         return flash_attention_backward_plain(q, k, v, out, dout, causal,
                                               window)
-    if q.device.type != "cuda":
-        raise ValueError(f"no flash_attention_bwd kernel for device "
-                         f"{q.device}")
+    dq, dk, dv, _, _ = torch.ops.repro_torch.flash_attention_bwd(
+        q, k, v, out, dout, causal, window)
+    return dq, dk, dv
+
+
+def bwd_rows(S: int) -> int:
+    """Rows of the backward's per-row scratch for S query rows: whole
+    128-row tiles (``repro_torch_flash_attention_bwd_rows``)."""
+    return -(-S // 128) * 128
+
+
+@torch.library.custom_op("repro_torch::flash_attention_bwd", mutates_args=(),
+                         device_types="cuda")
+def _flash_attention_bwd_launch(
+        q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+        dout: torch.Tensor, causal: bool, window: int
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
+           torch.Tensor]:
+    """K4's backward launch, the op's implementation: ``(dq, dk, dv, lse,
+    delta)``, lse and delta the per query row log-sum-exp and
+    ``rowsum(dout * out)`` the first pass fills (arguments checked by
+    :func:`flash_attention_backward`)."""
     B, S, H, hd = q.shape
     if B * H > 65_535:
         raise ValueError(f"B*H = {B * H} exceeds the kernel's grid")
@@ -255,7 +303,22 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
         raise RuntimeError(f"CUDA kernel flash_attention_bwd: "
                            f"{_TMA_ERRORS[err]}")
     check_launch("flash_attention_bwd", err)
-    return dq, dk, dv
+    return dq, dk, dv, lse, delta
+
+
+@_flash_attention_bwd_launch.register_fake
+def _(q, k, v, out, dout, causal, window):
+    B, S, H, _ = q.shape
+    lse = torch.empty((B, H, bwd_rows(S)), dtype=torch.float32,
+                      device=q.device)
+    return (*(torch.empty_like(t) for t in (q, k, v)), lse,
+            torch.empty_like(lse))
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention_bwd)
+def _(q, k, v, out, dout, causal, window, *, out_shape=None):
+    return plain_flops(flash_attention_backward_plain, (q, k, v, out, dout),
+                       causal, window)
 
 
 flash_attention_backward.launches = 0

@@ -19,6 +19,12 @@ rounding.  Unlike the reference (which asserts ``S % chunk == 0``) both
 take any S: the plain version pads the last
 chunk with ``x = B = C = 0`` and ``dt = 0``, which leaves the state
 unchanged and contributes nothing.
+
+On the card K5 and its backward launch through ``torch.library`` ops,
+``repro_torch::ssd_scan`` and ``repro_torch::ssd_scan_bwd``, as K4's do
+(``kernels/flash_attention/kernel.py``): the ``ctypes`` launch, a fake
+implementation for a trace, the plain version's products as the FLOP
+formula.
 """
 from __future__ import annotations
 
@@ -26,9 +32,11 @@ import ctypes
 from typing import Optional, Tuple
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels.device import (check_launch, check_tensor,
-                                        library, stream_ptr)
+                                        library, plain_flops, stream_ptr,
+                                        takes_plain)
 
 _DTYPES = (torch.float32, torch.bfloat16)
 #: a block's shared memory on an H100 (bytes)
@@ -208,12 +216,20 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     its own 32-row sub-chunks.  The kernel's outputs carry no gradient:
     :class:`SsdScan` is the differentiable entry."""
     _check(x, dt, A, Bm, Cm)
+    if takes_plain(x, "ssd_scan"):
+        return ssd_scan_plain(x, dt, A, Bm, Cm, chunk)
+    return torch.ops.repro_torch.ssd_scan(x, dt, A, Bm, Cm, chunk)
+
+
+@torch.library.custom_op("repro_torch::ssd_scan", mutates_args=(),
+                         device_types="cuda")
+def _ssd_scan_launch(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                     Bm: torch.Tensor, Cm: torch.Tensor,
+                     chunk: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """K5's launch, the op's implementation (arguments checked by
+    :func:`ssd_scan`)."""
     Bsz, S, nh, P = x.shape
     N = Bm.shape[-1]
-    if x.device.type == "cpu":
-        return ssd_scan_plain(x, dt, A, Bm, Cm, chunk)
-    if x.device.type != "cuda":
-        raise ValueError(f"no ssd_scan kernel for device {x.device}")
     bf16 = x.dtype == torch.bfloat16
     lib = library("ssd_scan")
     if bf16:
@@ -255,6 +271,18 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     return y, h
 
 
+@_ssd_scan_launch.register_fake
+def _(x, dt, A, Bm, Cm, chunk):
+    Bsz, _, nh, P = x.shape
+    return torch.empty_like(x), torch.empty((Bsz, nh, P, Bm.shape[-1]),
+                                            dtype=F32, device=x.device)
+
+
+@register_flop_formula(torch.ops.repro_torch.ssd_scan)
+def _(x, dt, A, Bm, Cm, chunk, *, out_shape=None):
+    return plain_flops(ssd_scan_plain, (x, dt, A, Bm, Cm), chunk)
+
+
 ssd_scan.launches = 0
 
 
@@ -284,10 +312,22 @@ def ssd_scan_backward(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         if tuple(dh.shape) != (Bsz, nh, P, N):
             raise ValueError(f"dh must be {(Bsz, nh, P, N)}, got "
                              f"{tuple(dh.shape)}")
-    if x.device.type == "cpu":
+    if takes_plain(x, "ssd_scan_bwd"):
         return ssd_scan_backward_plain(x, dt, A, Bm, Cm, dy, dh, chunk)
-    if x.device.type != "cuda":
-        raise ValueError(f"no ssd_scan_bwd kernel for device {x.device}")
+    return torch.ops.repro_torch.ssd_scan_bwd(x, dt, A, Bm, Cm, dy, dh, chunk)
+
+
+@torch.library.custom_op("repro_torch::ssd_scan_bwd", mutates_args=(),
+                         device_types="cuda")
+def _ssd_scan_bwd_launch(
+        x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
+        Cm: torch.Tensor, dy: torch.Tensor, dh: Optional[torch.Tensor],
+        chunk: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                             torch.Tensor, torch.Tensor]:
+    """K5's backward launch, the op's implementation (arguments checked
+    by :func:`ssd_scan_backward`)."""
+    Bsz, S, nh, P = x.shape
+    N = Bm.shape[-1]
     if P % 16 or N % 16 or P > MAX_P_BF16 or N > MAX_N_BF16:
         raise ValueError(
             f"state width P={P}, N={N}: the backward takes P and N "
@@ -331,6 +371,17 @@ def ssd_scan_backward(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
             dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(), dB.data_ptr(),
             dC.data_ptr(), scratch.data_ptr(), *shape, bf16, stream_ptr(x)))
     return dx, ddt, dA, dB, dC
+
+
+@_ssd_scan_bwd_launch.register_fake
+def _(x, dt, A, Bm, Cm, dy, dh, chunk):
+    return tuple(torch.empty_like(t) for t in (x, dt, A, Bm, Cm))
+
+
+@register_flop_formula(torch.ops.repro_torch.ssd_scan_bwd)
+def _(x, dt, A, Bm, Cm, dy, dh, chunk, *, out_shape=None):
+    return plain_flops(ssd_scan_backward_plain, (x, dt, A, Bm, Cm, dy, dh),
+                       chunk)
 
 
 ssd_scan_backward.launches = 0

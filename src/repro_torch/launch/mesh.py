@@ -8,11 +8,15 @@ the slow (inter-host) dimension.
 A mesh is a ``DeviceMesh`` over an initialised ``torch.distributed``
 world (:func:`init_world`).  ``device=None`` means CUDA, one card per
 rank, over NCCL, and raises where CUDA is missing; ``device="cpu"``
-means gloo.  Nothing falls back from one to the other.
+means gloo.  Nothing falls back from one to the other.  A world of
+torch's ``fake`` backend (the dry-run's, ``launch/dryrun.py``) runs
+nothing, so its meshes take the device named, CUDA by default, on a
+machine without one too.
 """
 from __future__ import annotations
 
 from datetime import timedelta
+from typing import Dict
 
 import numpy as np
 import torch
@@ -44,9 +48,15 @@ def init_world(init_method: str, rank: int = 0, world_size: int = 1, *,
     return dev
 
 
+def _device_type(device) -> str:
+    if dist.is_initialized() and dist.get_backend() == "fake":
+        return torch.device("cuda" if device is None else device).type
+    return resolve_device(device).type
+
+
 def _mesh(device, shape, axes):
     from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
-    kind = resolve_device(device).type
+    kind = _device_type(device)
     n = int(np.prod(shape))
     if n == dist.get_world_size():
         return init_device_mesh(kind, tuple(shape), mesh_dim_names=tuple(axes))
@@ -59,9 +69,16 @@ def _world() -> int:
     return dist.get_world_size() if dist.is_initialized() else 0
 
 
+def production_axes(multi_pod: bool = False) -> Dict[str, int]:
+    """The production mesh's axes and their sizes."""
+    if multi_pod:
+        return {"pod": 2, "data": 16, "model": 16}
+    return {"data": 16, "model": 16}
+
+
 def make_production_mesh(*, multi_pod: bool = False, device=None):
-    shape = (2, 16, 16) if multi_pod else (16, 16)
-    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    sizes = production_axes(multi_pod)
+    shape, axes = tuple(sizes.values()), tuple(sizes)
     n = int(np.prod(shape))
     have = _world()
     if have < n:

@@ -14,7 +14,11 @@ derives
   initializers and scales (fan-in scaled normal, ``embed`` x0.02,
   ``zeros``, ``ones``).  The numbers differ from ``jax.random``'s; tests
   that compare with the reference load its parameters instead
-  (:mod:`repro_torch.models.convert`).
+  (:mod:`repro_torch.models.convert`);
+* :func:`abstract_params` and :func:`abstract_tree` — the same shapes and
+  types with no data (fake tensors under a ``FakeTensorMode``, else
+  ``meta`` ones), for the dry-run (``launch/dryrun.py``), and
+  :func:`param_bytes`.
 
 The logical axes are read by the distributed layer
 (``distributed.sharding.distribute_model``).  Parameters are created
@@ -124,6 +128,52 @@ def init_tree(tree: ParamTree, generator: torch.Generator,
             init_tree(tree[name], generator, dtype)
 
 
+def _fake_mode_active() -> bool:
+    return torch._C._get_dispatch_mode(
+        torch._C._TorchDispatchModeKey.FAKE) is not None
+
+
+def _abstract_leaf(d: ParamDef, dtype: torch.dtype, device, lead=()):
+    return torch.empty(lead + tuple(d.shape), dtype=d.dtype or dtype,
+                       device=device if _fake_mode_active() else "meta")
+
+
+def abstract_params(defs, dtype: torch.dtype = torch.bfloat16,
+                    device="cuda") -> Any:
+    """The reference's ``abstract_params``: ``defs`` as a tree of tensors
+    with no data, each of its def's shape and type (``dtype`` where the
+    def names none), as ``init_tree`` would make them.  Nested dicts; a
+    :class:`Stacked` entry gives its defs with the ``layers`` axis in
+    front, one leaf each, as the reference stacks them.  Under a
+    ``FakeTensorMode`` the leaves are fake tensors on ``device``; with no
+    such mode, ``meta`` tensors.  Nothing is allocated either way."""
+    def walk(d, lead: Tuple):
+        if isinstance(d, ParamDef):
+            return _abstract_leaf(d, dtype, device, lead)
+        if isinstance(d, Stacked):
+            return walk(d.defs, lead + (d.n,))
+        return {k: walk(v, lead) for k, v in d.items()}
+
+    return walk(defs, ())
+
+
+def abstract_tree(tree: ParamTree, dtype: torch.dtype = torch.bfloat16,
+                  device="cuda") -> None:
+    """Give every leaf of ``tree`` a tensor with no data, as
+    :func:`abstract_params` makes them, one per layer as
+    :func:`init_tree` makes them: the dry-run's model."""
+    for name in tree.keys():
+        d = tree.defs[name]
+        if isinstance(d, ParamDef):
+            setattr(tree, name, nn.Parameter(_abstract_leaf(d, dtype, device),
+                                             requires_grad=False))
+        elif isinstance(d, Stacked):
+            for layer in tree[name]:
+                abstract_tree(layer, dtype, device)
+        else:
+            abstract_tree(tree[name], dtype, device)
+
+
 def partition_specs(defs, rules) -> Any:
     """Map logical axes -> mesh axes via ``rules`` (a mapping, or
     ``ShardingRules`` for its ``mapping``; missing/None -> replicated):
@@ -174,6 +224,16 @@ def param_count(defs) -> int:
     if isinstance(defs, Stacked):
         return defs.n * param_count(defs.defs)
     return sum(param_count(d) for d in defs.values())
+
+
+def param_bytes(defs, dtype: torch.dtype = torch.bfloat16) -> int:
+    """Bytes of ``defs``' parameters, each in its def's type or
+    ``dtype``."""
+    if isinstance(defs, ParamDef):
+        return int(np.prod(defs.shape)) * (defs.dtype or dtype).itemsize
+    if isinstance(defs, Stacked):
+        return defs.n * param_bytes(defs.defs, dtype)
+    return sum(param_bytes(d, dtype) for d in defs.values())
 
 
 def round_up(x: int, m: int) -> int:

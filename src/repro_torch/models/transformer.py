@@ -7,7 +7,8 @@ The reference scans over stacked per-layer params (``lax.scan``); the
 port loops over the ``nn.ModuleList`` of layers.  ``remat != "none"``
 recomputes each block in the backward
 (``torch.utils.checkpoint.checkpoint(..., use_reentrant=False)`` per
-block, as the reference's ``jax.checkpoint`` of the scan body).
+block, as the reference's ``jax.checkpoint`` of the scan body), under
+the sharding rules the forward ran under.
 
 The vlm family is the dense stack with ``patch_embeds`` (B, P, d), cast
 to the activations' type, in front of the token embeddings; positions
@@ -56,13 +57,14 @@ types.  Two differences of form, neither of result:
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import FAMILIES, ModelConfig
-from repro_torch.distributed.sharding import current_rules
+from repro_torch.distributed.sharding import current_rules, use_rules
 from repro_torch.models import layers as lyr
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
@@ -175,9 +177,15 @@ def _ssm_block(lp, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 
 def _run(body, x: torch.Tensor, remat: str):
-    """One block, recomputed in the backward under remat."""
+    """One block, recomputed in the backward under remat.  The recompute
+    runs under the sharding rules of the forward: on the card the
+    backward runs in autograd's device thread, which sees no context
+    variable of this one, and would otherwise take the local paths
+    (the moe's over all experts, the SSD's over the whole sequence)."""
     if remat != "none":
-        return checkpoint(body, x, use_reentrant=False)
+        rules = current_rules()
+        return checkpoint(body, x, use_reentrant=False, context_fn=lambda: (
+            contextlib.nullcontext(), use_rules(rules)))
     return body(x)
 
 

@@ -34,6 +34,13 @@ moments in place (memory: no second copy of an 8 B-parameter model), and
 it walks a leaf in pieces where the blocking allows — one layer at a
 time, and rows of at most ``CHUNK`` elements — so the float32
 transients stay small.
+
+A parameter that ``distributed.sharding.distribute_model`` placed as a
+DTensor (the experts of the expert-parallel moe) is held and updated as
+its local block: its state has the block's shape, and its squared
+gradient is summed over the groups of the mesh dimensions it is sharded
+on, so that ``gnorm`` (and the clipping) is the whole model's on every
+rank.
 """
 from __future__ import annotations
 
@@ -41,6 +48,7 @@ import math
 from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
+import torch.distributed
 
 from repro_torch.models.params import ParamDef, ParamTree, Stacked
 
@@ -88,6 +96,36 @@ def param_leaves(tree: ParamTree) -> List[Leaf]:
             else:
                 yield from walk(d, f"{p}/", f"{n}.")
     return list(walk(tree.defs, "", ""))
+
+
+def local_tensor(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local block (its storage, updated in place); any other
+    tensor as it is."""
+    from torch.distributed.tensor import DTensor
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def _shard_groups(t: torch.Tensor) -> Tuple:
+    """The process groups of the mesh dimensions a DTensor is sharded on
+    (none for a plain tensor)."""
+    from torch.distributed.tensor import DTensor, Shard
+    if not isinstance(t, DTensor):
+        return ()
+    return tuple(t.device_mesh.get_group(i)
+                 for i, pl in enumerate(t.placements) if isinstance(pl, Shard))
+
+
+def local_leaves(tree: ParamTree) -> List[Leaf]:
+    """:func:`param_leaves` with each leaf's shape that of the tensors the
+    rank holds (a DTensor parameter's local block)."""
+    named = dict(tree.named_parameters())
+    out = []
+    for leaf in param_leaves(tree):
+        t = named[leaf.names[0]]
+        shape = tuple(local_tensor(t).shape)
+        out.append(leaf._replace(
+            shape=(len(leaf.names), *shape) if leaf.stacked else shape))
+    return out
 
 
 def _structured(shape: Tuple[int, ...]) -> bool:
@@ -184,7 +222,7 @@ class AdamW:
         parameters' device."""
         named = dict(params.named_parameters())
         m, v = {}, {}
-        for leaf in param_leaves(params):
+        for leaf in local_leaves(params):
             dev = named[leaf.names[0]].device
             m[leaf.path] = self._zero_state(leaf.shape, dev, torch.int8)
             v[leaf.path] = self._zero_state(leaf.shape, dev, torch.uint8)
@@ -213,20 +251,29 @@ class AdamW:
         parameters and the moments in place and returns ``(params,
         state', gnorm)`` as the reference returns ``(params', state',
         gnorm)``."""
-        named = dict(params.named_parameters())
-        leaves = param_leaves(params)
+        placed = dict(params.named_parameters())
+        named = {n: local_tensor(p) for n, p in placed.items()}
+        leaves = local_leaves(params)
         step = state.step + 1
         s = step.to(F32)
         lr = self.lr if self.schedule is None else self.schedule(step)
 
         dev = named[leaves[0].names[0]].device
-        sq = torch.zeros((), dtype=F32, device=dev)
+        # squared gradients, apart by the groups their blocks shard over
+        sqs = {(): torch.zeros((), dtype=F32, device=dev)}
         for leaf in leaves:
             for n in leaf.names:
-                g = grads[n]
+                groups = _shard_groups(placed[n])
+                g = local_tensor(grads[n])
                 g2 = _rows(g, g.shape[-1] if g.dim() else 1)
                 for sl in _pieces(*g2.shape):
-                    sq = sq + torch.sum(torch.square(g2[sl].to(F32)))
+                    sqs[groups] = self._sq_piece(sqs.get(groups, 0.0), g2,
+                                                 sl)
+        sq = sqs.pop(())
+        for groups, part in sqs.items():
+            for group in groups:
+                torch.distributed.all_reduce(part, group=group)
+            sq = sq + part
         gnorm = torch.sqrt(sq)
         scale = torch.clamp(self.clip / torch.clamp(gnorm, min=1e-12),
                             max=1.0) if self.clip else 1.0
@@ -242,6 +289,10 @@ class AdamW:
                 self._update_leaf(leaf, named, grads, state, scale, lr,
                                   b1c, b2c)
         return params, AdamWState(step, state.m, state.v), gnorm
+
+    def _sq_piece(self, acc, g2: torch.Tensor, sl: slice):
+        """``acc`` plus the squared sum of rows ``sl`` of ``g2``."""
+        return acc + torch.sum(torch.square(g2[sl].to(F32)))
 
     def _step(self, p, g, mf, vf, scale, lr, b1c, b2c, decay: bool):
         """The reference's ``upd`` on float32 moments: (new p, m, v)."""
@@ -261,7 +312,7 @@ class AdamW:
         decay = len(leaf.shape) >= 2
         m, v = state.m[leaf.path], state.v[leaf.path]
         tensors = [named[n] for n in leaf.names]
-        gs = [grads[n] for n in leaf.names]
+        gs = [local_tensor(grads[n]) for n in leaf.names]
         quant = self.state_dtype == "int8"
         per_layer = math.prod(leaf.shape[1:] if leaf.stacked else leaf.shape)
         if quant and not _structured(leaf.shape) and per_layer % QBLOCK == 0:
@@ -315,23 +366,30 @@ class AdamW:
         else:
             m, v = _rows(m, width), _rows(v, width)
         for sl in _pieces(*t2.shape):
-            p = t2[sl]
-            ms = Quantized(m.q[sl], m.scale[sl]) if quant else m[sl]
-            vs = Quantized(v.q[sl], v.scale[sl]) if quant else v[sl]
-            mf = self._from_state(ms, tuple(p.shape))
-            vf = self._from_state(vs, tuple(p.shape), positive=True)
-            new_p, mf, vf = self._step(p, g2[sl], mf, vf, scale, lr, b1c,
-                                       b2c, decay)
-            p.copy_(new_p)
-            new_m = self._to_state(mf)
-            new_v = self._to_state(vf, positive=True)
-            if quant:
-                for dst, src in ((ms, new_m), (vs, new_v)):
-                    dst.q.copy_(src.q)
-                    dst.scale.copy_(src.scale)
-            else:
-                ms.copy_(new_m)
-                vs.copy_(new_v)
+            self._update_piece(t2, g2, m, v, sl, scale, lr, b1c, b2c, decay)
+
+    def _update_piece(self, t2, g2, m, v, sl: slice, scale, lr, b1c, b2c,
+                      decay) -> None:
+        """Update rows ``sl`` of ``t2`` and of its state ``m``, ``v`` in
+        place (:meth:`_update_rows`' rows)."""
+        quant = self.state_dtype == "int8"
+        p = t2[sl]
+        ms = Quantized(m.q[sl], m.scale[sl]) if quant else m[sl]
+        vs = Quantized(v.q[sl], v.scale[sl]) if quant else v[sl]
+        mf = self._from_state(ms, tuple(p.shape))
+        vf = self._from_state(vs, tuple(p.shape), positive=True)
+        new_p, mf, vf = self._step(p, g2[sl], mf, vf, scale, lr, b1c, b2c,
+                                   decay)
+        p.copy_(new_p)
+        new_m = self._to_state(mf)
+        new_v = self._to_state(vf, positive=True)
+        if quant:
+            for dst, src in ((ms, new_m), (vs, new_v)):
+                dst.q.copy_(src.q)
+                dst.scale.copy_(src.scale)
+        else:
+            ms.copy_(new_m)
+            vs.copy_(new_v)
 
 
 def warmup_cosine(base_lr: float, warmup: int, total: int,

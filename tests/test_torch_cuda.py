@@ -19,7 +19,8 @@ weights.  The reduced moe models run forward and backward on the card
 against the same parameters on the CPU, and two bf16 prefills on the
 card give the same bits; so do the reduced vlm and encdec models, whose
 cross-attention runs K4 and its backward at Sq != Sk (checked on their
-own at ragged lengths too).
+own at ragged lengths too).  The kernels' ``torch.library`` ops give, in
+their fake implementations, the layouts their launches give.
 """
 import numpy as np
 import pytest
@@ -1487,3 +1488,37 @@ def test_dispatch_over_expert_ranges_sums_to_local_on_card(cuda, n_ranges,
         assert d <= 1e-5 * float(want.abs().max()), d
     else:
         assert _rel_rms(got, want) <= 2.0 ** -6
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_kernel_ops_fake_outputs_match_launches(cuda, dtype):
+    """Each kernel op's fake implementation (what a dry-run trace sees)
+    gives the shapes, dtypes, strides and device of the launch's outputs
+    on the card: K4, its backward (lse and delta at the library's row
+    count), K5 and its backward."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.kernels.flash_attention import kernel as fa
+    gen = torch.Generator(device=cuda).manual_seed(0)
+
+    def r(*shape, dt=dtype):
+        return torch.randn(shape, generator=gen, device=cuda).to(dt)
+    q, k, v = r(2, 200, 4, 64), r(2, 200, 2, 64), r(2, 200, 2, 64)
+    out = fa.flash_attention(q, k, v, causal=True)
+    x, Bm, Cm = r(2, 100, 3, 16), r(2, 100, 16), r(2, 100, 16)
+    dt = r(2, 100, 3, dt=torch.float32).abs() * 0.1
+    A = -r(3, dt=torch.float32).abs()
+    ops = torch.ops.repro_torch
+    calls = [(ops.flash_attention, (q, k, v, True, 0)),
+             (ops.flash_attention_bwd, (q, k, v, out, out, True, 0)),
+             (ops.ssd_scan, (x, dt, A, Bm, Cm, 64)),
+             (ops.ssd_scan_bwd, (x, dt, A, Bm, Cm, x, None, 64))]
+    for op, args in calls:
+        real = op(*args)
+        with FakeTensorMode() as mode:
+            fake = op(*(mode.from_tensor(a) if isinstance(a, torch.Tensor)
+                        else a for a in args))
+        real, fake = ((t,) if isinstance(t, torch.Tensor) else t
+                      for t in (real, fake))
+        assert [(t.shape, t.dtype, t.stride(), t.device.type)
+                for t in fake] == [(t.shape, t.dtype, t.stride(),
+                                    t.device.type) for t in real], op

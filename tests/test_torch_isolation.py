@@ -17,9 +17,10 @@ world of one and takes a compressed data-parallel step, a
 sequence-parallel mamba2 forward and an expert-parallel moe forward
 under the mesh layer's rules, runs a one-stage pipeline with its
 collectives recorded, reshards the qwen3-8b model onto a one-rank mesh,
-computes a roofline term and a memory ledger, and exits 0.  A static
-scan of the port's sources backs it up for modules the run does not
-import.
+computes a roofline term and a memory ledger, traces one reduced qwen3-8b
+prefill with the dry-run (``launch/dryrun.py``) on a fake world of 4
+ranks, and exits 0.  A static scan of the port's sources backs it up for
+modules the run does not import, the dry-run's named.
 """
 import ast
 import os
@@ -209,6 +210,20 @@ with tempfile.TemporaryDirectory() as d:
         model.cfg, PREFILL_32K, default_parallelism(model.cfg, PREFILL_32K)
     ).fits()
     dist.destroy_process_group()
+
+from torch.distributed.device_mesh import init_device_mesh
+from torch.testing._internal.distributed.fake_pg import FakeStore
+from repro_torch.configs.base import ShapeConfig
+from repro_torch.launch import dryrun
+dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=4)
+fake_mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
+registry.get = registry.get_reduced
+rec = dryrun.lower_cell("qwen3-8b", ShapeConfig("prefill_32k", 32, 4,
+                                                "prefill"),
+                        multi_pod=False, mesh=fake_mesh)
+assert rec["trace"]["kernel_calls"] == {{
+    "flash_attention": registry.get("qwen3-8b").n_layers}}, rec["trace"]
+dist.destroy_process_group()
 held = sorted(m for m in sys.modules if m.split(".")[0] in {blocked!r})
 assert not held, held
 print("ok")
@@ -234,7 +249,8 @@ def _imports(path: Path):
             yield node.module or ""
 
 
-@pytest.mark.parametrize("where", ["src/repro_torch", "chip_smoke.py"])
+@pytest.mark.parametrize("where", ["src/repro_torch", "chip_smoke.py",
+                                   "src/repro_torch/launch/dryrun.py"])
 def test_sources_import_nothing_of_jax_or_reference(where):
     target = ROOT / where
     files = sorted(target.rglob("*.py")) if target.is_dir() else [target]

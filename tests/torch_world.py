@@ -1,6 +1,6 @@
 """Small worlds of ranks for the port's multi-rank tests (not a test
-module: the ``test_torch_{mesh,dp,ep_sp,pp_elastic}.py`` files import
-it).
+module: the ``test_torch_{mesh,dp,ep_sp,pp_elastic,dryrun_trace}.py``
+files import it).
 
 :func:`spawn` starts ``world`` Python processes of this file, one per
 rank.  Each joins a process group that meets on a file store under the
@@ -521,9 +521,75 @@ def case_nccl_world_of_one(rank, world, inputs, device):
     return out
 
 
+def case_dryrun(rank, world, inputs, device):
+    """The dry-run's step run for real: each cell of ``inputs["cells"]``
+    (arch, (shape name, seq, batch, kind), mesh shape), on the reduced
+    config with seeded weights, through ``launch.dryrun.trace_step``
+    under the cell's rules on a ``("data", "model")`` mesh; returns each
+    cell's counts (FLOPs, bytes accessed, collectives, kernel calls).
+    Then one data-parallel step of the reduced deepseek-moe-16b, expert
+    parallel on a (2, 2) mesh, on ``inputs["ep_batch"]`` with
+    ``AdamW(**inputs["ep_opt"])``: its gradient norm, its replicated
+    parameters and its experts (gathered over ``model``) after the
+    step."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed.sharding import distribute_model, make_rules
+    from repro_torch.launch.dryrun import trace_step
+    from repro_torch.models.model import build
+
+    out = {}
+    for arch, shape, mesh_shape in inputs["cells"]:
+        cfg = registry.get_reduced(arch)
+        shape = ShapeConfig(*shape)
+        parallel = registry.default_parallelism(cfg, shape)
+        mesh = init_device_mesh(device, tuple(mesh_shape),
+                                mesh_dim_names=("data", "model"))
+        rules = make_rules(cfg, shape, parallel, tp_size=mesh_shape[1],
+                           dp_size=mesh_shape[0], mesh=mesh)
+        model = distribute_model(build(cfg).init(seed=rank, device=device),
+                                 rules)
+        res = trace_step(model, shape, parallel, rules, device)
+        out[arch] = {k: res[k] for k in ("flops", "bytes", "collectives",
+                                         "collective_counts",
+                                         "kernel_calls")}
+
+    # one data-parallel step of the expert-parallel moe: the same weights
+    # on every rank, each model rank its own experts
+    import torch
+    from torch.distributed.tensor import DTensor
+    from repro_torch.configs.base import TRAIN_4K, ParallelismConfig
+    from repro_torch.distributed.sharding import use_rules
+    from repro_torch.train.dp_shard import build_dp_train_step
+    from repro_torch.train.optimizer import AdamW
+    cfg = registry.get_reduced("deepseek-moe-16b")
+    mesh = init_device_mesh(device, (2, 2), mesh_dim_names=("data", "model"))
+    rules = make_rules(cfg, TRAIN_4K, ParallelismConfig(ep=True), tp_size=2,
+                       dp_size=2, mesh=mesh)
+    model = distribute_model(build(cfg).init(seed=0, dtype=torch.float32,
+                                             device=device), rules)
+    opt = AdamW(**inputs["ep_opt"])
+    step = build_dp_train_step(model, opt, mesh, rules.batch_axes)
+    with use_rules(rules):
+        _, _, _, metrics = step(model, opt.init(model), None,
+                                inputs["ep_batch"])
+    out["ep_step"] = {
+        "grad_norm": float(metrics["grad_norm"]),
+        "replicated": {n: p.detach().clone() for n, p in
+                       model.named_parameters()
+                       if not isinstance(p, DTensor)},
+        # the experts whole: every model rank's updated blocks
+        "experts": {n: p.detach().full_tensor() for n, p in
+                    model.named_parameters() if isinstance(p, DTensor)},
+        "n_local": model.blocks[0].moe.we_gate.to_local().shape[0]}
+    return out
+
+
 CASES = {"mesh": case_mesh, "dp": case_dp, "ep_sp": case_ep_sp,
          "pp_elastic": case_pp_elastic,
-         "nccl_world_of_one": case_nccl_world_of_one}
+         "nccl_world_of_one": case_nccl_world_of_one,
+         "dryrun": case_dryrun}
 
 
 def _main(case: str, rank: int, world: int, d: str, device: str) -> int:
