@@ -127,7 +127,18 @@ into ``build/repro_torch/``), then:
    each) equal to the launches, the traced peak within ``DRY_PEAK_TOL``
    of ``max_memory_allocated``, the record's terms on the H100 profile
    beside the measured seconds; (c) the production sweep comes after
-   the last timed phase (item 14);
+   the last timed phase (item 14); then the reference's sharded layout
+   (``layout_phase``): qwen3-8b at its published widths and
+   ``LAYOUT_LAYERS`` layers placed by ``distribute_model`` under
+   ``make_rules`` with FSDP, TP, 2 microbatches and block remat (int8
+   moments) on that mesh, ``LAYOUT_STEPS`` steps of 2 x 1024 through
+   ``build_train_step`` and a 4 x 1024 prefill, bitwise equal to the same
+   steps and prefill from the same seed with no rules (every parameter's
+   and moment's digest after each step, the loss, the gradient norm,
+   ``LAYOUT_WHOLE``'s parameters whole, the logits and the cache), K4
+   launched 4 x L and its backward 2 x L times a step on both paths,
+   then ``dry_check`` of that train cell under the same layout and
+   depth;
    then the serving path, ssm: mamba2-1.3b at full width:
    ``Model.forward`` of 4 x 1024 tokens (K5 launched once per layer),
    the same forward under the prefill rules of ``default_parallelism``
@@ -233,13 +244,18 @@ into ``build/repro_torch/``), then:
     ``SWEEP_MESHES`` (single and multi), one process per arch,
     ``SWEEP_PROCS`` at a time; each
     cell's bottleneck and trace seconds, ok, failed and skipped, 0
-    failed and every applicable cell recorded; then the kernel JSON line (one
+    failed and every applicable cell recorded; each dense cell's layout
+    and peak per rank and how many fit 80 GB, every sharded cell holding
+    its analytic bytes; then the kernel JSON line (one
     row per kernel and shape; the rows of K5, its backward and K4 at moe
     also carry ``launches_sp``, ``launches_dp`` and ``launches_ep``,
     their launches on the sequence-, data- and expert-parallel paths,
-    K4's qwen3-8b row ``launches_pp``, its launches in the pipeline, and
+    K4's qwen3-8b row ``launches_pp``, its launches in the pipeline,
     K4's, K5's and K5's backward's rows ``launches_dry``, their launches
-    in the dry-run's real runs), the card line, and the result line
+    in the dry-run's real runs, and K4's and its backward's qwen3-8b rows
+    ``launches_layout`` and ``launches_dry_layout``, theirs in the
+    sharded layout's run and in its dry-run check), the card line, and
+    the result line
     ``{"ok": true, "device": {...}}`` last.
 
 Float32 products on the card run in full float32: the script sets
@@ -2375,7 +2391,7 @@ def device_split(fn, label: str, dispatch: bool = False) -> None:
               "ssd_scan (K5)": 0.0, "ssd_scan backward (K5 bwd)": 0.0,
               "matmul (cuBLAS)": 0.0,
               "sort, gather and scatter (moe dispatch, embedding)": 0.0,
-              "other": 0.0}
+              "collectives (NCCL)": 0.0, "other": 0.0}
     for name, us in by_name.items():
         if "repro_torch::flash_bwd" in name:
             groups["flash_attention backward (K4 bwd)"] += us
@@ -2393,6 +2409,8 @@ def device_split(fn, label: str, dispatch: bool = False) -> None:
                 "searchsorted", "bincount")):
             groups["sort, gather and scatter (moe dispatch, embedding)"] \
                 += us
+        elif "nccl" in name.lower():
+            groups["collectives (NCCL)"] += us
         else:
             groups["other"] += us
     print(f"{label} device split (torch.profiler, one call): "
@@ -3964,28 +3982,40 @@ SWEEP_PROCS = 8
 SWEEP_MESHES = ("single", "multi")
 
 _DRY_CHILD = """
-import json, sys
+import dataclasses, json, sys
 import torch.distributed as dist
 from torch.distributed.device_mesh import init_device_mesh
 from torch.testing._internal.distributed.fake_pg import FakeStore
-from repro_torch.configs.base import ShapeConfig
+from repro_torch.configs import registry
+from repro_torch.configs.base import ParallelismConfig, ShapeConfig
 from repro_torch.launch.dryrun import lower_cell
+over = json.loads(sys.argv[3])
+if over["n_layers"]:
+    full = registry.get
+    registry.get = lambda arch: dataclasses.replace(
+        full(arch), n_layers=over["n_layers"])
+parallel = over["parallel"] and ParallelismConfig(**over["parallel"])
 dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=1)
 mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
 rec = lower_cell(sys.argv[1], ShapeConfig(*json.loads(sys.argv[2])),
-                 multi_pod=False, mesh=mesh)
+                 multi_pod=False, mesh=mesh, parallel=parallel)
 dist.destroy_process_group()
 print(json.dumps(rec))
 """
 
 
-def traced_cell(arch: str, shape) -> dict:
+def traced_cell(arch: str, shape, parallel=None, n_layers=None) -> dict:
     """``launch.dryrun.lower_cell`` of ``arch`` at ``shape`` on a fake
     world of one, a (1, 1) ``("data", "model")`` mesh, on CUDA (fake
     tensors: nothing runs), in a process of its own (a fake world and
-    this run's NCCL world cannot both be the default group)."""
+    this run's NCCL world cannot both be the default group); under
+    ``parallel`` (a ``ParallelismConfig``; the arch's default when None)
+    and at ``n_layers`` (full depth when None)."""
+    over = {"parallel": parallel and dataclasses.asdict(parallel),
+            "n_layers": n_layers}
     out = subprocess.run(
-        [sys.executable, "-c", _DRY_CHILD, arch, json.dumps(list(shape))],
+        [sys.executable, "-c", _DRY_CHILD, arch, json.dumps(list(shape)),
+         json.dumps(over)],
         cwd=str(ROOT), capture_output=True, text=True, timeout=600,
         env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
     check(out.returncode == 0, f"the trace of {arch} {shape} failed:\n"
@@ -3993,7 +4023,8 @@ def traced_cell(arch: str, shape) -> dict:
     return json.loads(out.stdout.strip().splitlines()[-1])
 
 
-def dry_check(model, shape_fields, mesh, card: str, kernels) -> dict:
+def dry_check(model, shape_fields, mesh, card: str, kernels,
+              parallel=None) -> dict:
     """One dry-run cell held against the real run: the child traces
     ``model``'s arch at ``shape_fields`` (:func:`traced_cell`); here the
     same step (``launch.dryrun.cell_step``) runs on ``model`` under the
@@ -4004,8 +4035,9 @@ def dry_check(model, shape_fields, mesh, card: str, kernels) -> dict:
     ``DRY_PEAK_TOL``, both as the arguments' bytes plus the most the step
     had allocated beyond them at once: on the card
     ``max_memory_allocated()`` after ``reset_peak_memory_stats()`` less
-    ``memory_allocated()`` before the step, its arguments made.  Returns
-    the launches."""
+    ``memory_allocated()`` before the step, its arguments made.
+    ``parallel`` is the cell's layout (the arch's default when None);
+    ``model``'s depth is the trace's.  Returns the launches."""
     from repro_torch.configs import registry
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.distributed.sharding import (distribute_model,
@@ -4014,9 +4046,11 @@ def dry_check(model, shape_fields, mesh, card: str, kernels) -> dict:
     cfg, dev = model.cfg, model.device
     shape = ShapeConfig(*shape_fields)
     t0 = time.perf_counter()
-    rec = traced_cell(cfg.name, shape_fields)
+    depth = registry.get(cfg.name).n_layers
+    rec = traced_cell(cfg.name, shape_fields, parallel,
+                      None if cfg.n_layers == depth else cfg.n_layers)
     child_s = time.perf_counter() - t0
-    parallel = registry.default_parallelism(cfg, shape)
+    parallel = parallel or registry.default_parallelism(cfg, shape)
     rules = make_rules(cfg, shape, parallel, tp_size=1, dp_size=1, mesh=mesh)
     distribute_model(model, rules)
     for _ in range(2):        # a warm-up run, then the one timed bare
@@ -4037,7 +4071,8 @@ def dry_check(model, shape_fields, mesh, card: str, kernels) -> dict:
     real = tr.result(out)
     del args, run, out
     traced = rec["trace"]
-    name = f"{cfg.name} {note} {shape.global_batch} x {shape.seq_len}"
+    name = (f"{cfg.name} {note} {shape.global_batch} x {shape.seq_len} "
+            f"({traced['layout']} layout)")
     check(traced["flops"] == real["flops"], f"{name}: traced FLOPs "
           f"{traced['flops']} against {real['flops']} run")
     check(traced["bytes"] == real["bytes"], f"{name}: traced bytes "
@@ -4098,6 +4133,216 @@ def dryrun_train_phase(dev, mesh, seed: int, card: str):
     return b["ssd_scan"], b["ssd_scan_bwd"]
 
 
+#: the reference's layout at one NCCL rank: qwen3-8b at its published
+#: widths cut to ``LAYOUT_LAYERS`` of its 36 layers (two full models'
+#: runs in turn, each with float32 microbatch accumulators, int8 moments
+#: and a microbatch's bf16 gradients live at once, ~83 GB at full depth),
+#: under FSDP and TP with 2 microbatches and block remat, int8 moments
+#: as ``train_phase``'s
+LAYOUT_LAYERS = 24
+LAYOUT_STEPS = 2
+LAYOUT_TRAIN = ("train", TRAIN_S, TRAIN_B, "train")
+LAYOUT_PREFILL = ("prefill", ATTN_S, ATTN_B, "prefill")
+#: parameters kept whole for the comparison (besides every tensor's digest)
+LAYOUT_WHOLE = ("blocks.0.attn.wq", "blocks.0.attn.q_norm",
+                f"blocks.{LAYOUT_LAYERS - 1}.mlp.wo", "final_norm")
+
+
+def layout_parallel():
+    from repro_torch.configs.base import ParallelismConfig
+    return ParallelismConfig(fsdp=True, tp=True, microbatches=2,
+                             remat="block", opt_state_dtype="int8")
+
+
+def digest(t: torch.Tensor) -> int:
+    """An exact digest of a tensor: the sum of its elements' bit
+    patterns as integers (a DTensor's local block's)."""
+    from repro_torch.train.optimizer import local_tensor
+    t = local_tensor(t).detach()
+    ints = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    return int(t.contiguous().view(ints[t.element_size()]).to(
+        torch.int64).sum())
+
+
+def state_digests(model, state) -> dict:
+    """Digests of every parameter and every moment (an int8 moment's
+    codes and scales)."""
+    out = {n: digest(p) for n, p in model.named_parameters()}
+    for part, moments in (("m", state.m), ("v", state.v)):
+        for path, st in moments.items():
+            for i, t in enumerate(st if isinstance(st, tuple) else (st,)):
+                out[f"{part}:{path}:{i}"] = digest(t)
+    return out
+
+
+def layout_run(dev, seed: int, mesh, sharded: bool) -> dict:
+    """``LAYOUT_STEPS`` steps of ``build_train_step`` on qwen3-8b at
+    ``LAYOUT_LAYERS`` layers, then a prefill of ``LAYOUT_PREFILL``: under
+    the cells' rules on ``mesh`` with the model placed by its specs
+    (``sharded``), or with no rules.  Returns per step the loss, gradient
+    norm, seconds and every tensor's digest, the ``LAYOUT_WHOLE``
+    parameters after the steps, the prefill's logits and cache on the
+    host, and K4's and its backward's launches in the steps and in the
+    prefill."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed.sharding import (distribute_model,
+                                                  make_rules, use_rules)
+    from repro_torch.launch.train import lm_batch_source
+    from repro_torch.train.optimizer import AdamW, local_tensor
+    from repro_torch.train.step import build_train_step
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    par = layout_parallel()
+    model = build_model("qwen3-8b", dev, seed, LAYOUT_LAYERS)
+    cfg = model.cfg
+    rules = make_rules(cfg, ShapeConfig(*LAYOUT_TRAIN), par, tp_size=1,
+                       dp_size=1, mesh=mesh)
+    prules = make_rules(cfg, ShapeConfig(*LAYOUT_PREFILL), par, tp_size=1,
+                        dp_size=1, mesh=mesh)
+    if sharded:
+        distribute_model(model, rules)
+    ctx = (lambda r: use_rules(r)) if sharded else \
+        (lambda r: contextlib.nullcontext())
+    batch = lm_batch_source(model, TRAIN_B, TRAIN_S, seed + 2)()
+    opt = AdamW(lr=TRAIN_LR, state_dtype=par.opt_state_dtype)
+    state = opt.init(model)
+    step = build_train_step(model, par, opt)
+    reset_counts()
+    steps = []
+    for _ in range(LAYOUT_STEPS):
+        with ctx(rules):
+            (model, state, m), secs = synced_seconds(
+                lambda: step(model, state, batch))
+        steps.append({"loss": float(m["loss"]),
+                      "grad_norm": float(m["grad_norm"]), "seconds": secs,
+                      "digests": state_digests(model, state)})
+    train_counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    whole = {n: local_tensor(p).detach().cpu()
+             for n, p in model.named_parameters() if n in LAYOUT_WHOLE}
+    gen = torch.Generator(device=dev).manual_seed(seed + 3)
+    tokens = torch.randint(0, cfg.vocab_size, (ATTN_B, ATTN_S),
+                           generator=gen, device=dev)
+    cache = model.init_cache(ATTN_B, ATTN_S)
+    reset_counts()
+    with ctx(prules):
+        (logits, cache), psecs = synced_seconds(
+            lambda: model.prefill({"tokens": tokens}, cache))
+    prefill_counts = read_counts()
+    # one more step, traced: where the step's time goes (nothing is
+    # compared after it)
+    with ctx(rules):
+        device_split(lambda: step(model, state, batch),
+                     f"qwen3-8b {'sharded' if sharded else 'unsharded'} "
+                     f"step ({LAYOUT_LAYERS} layers)")
+    del state, opt, step, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"steps": steps, "whole": whole, "peak": peak,
+           "logits": logits.cpu(), "cache": {k: c.cpu()
+                                             for k, c in cache.items()},
+           "prefill_s": psecs, "train_counts": train_counts,
+           "prefill_counts": prefill_counts, "model": model}
+    del logits, cache
+    return out
+
+
+def layout_phase(dev, seed: int, card: str, mesh):
+    """The reference's sharded program at one NCCL rank, on ``mesh`` =
+    ``make_mesh(1)`` ((1, 1) ``("data", "model")``): qwen3-8b at its
+    published widths and ``LAYOUT_LAYERS`` layers under ``make_rules``
+    with FSDP, TP, 2 microbatches and block remat, the model placed by
+    ``distribute_model`` (every parameter a DTensor of its spec), trained
+    ``LAYOUT_STEPS`` steps of 2 x 1024 through ``build_train_step``, then
+    a 4 x 1024 prefill; then the same from the same seed with no rules.
+    After every step every parameter and moment's digest (the sum of its
+    bit patterns), the loss and the gradient norm must be equal, and the
+    ``LAYOUT_WHOLE`` parameters bitwise: at one rank the sharded path runs
+    the same ops as the local one (the vocab-parallel CE takes
+    ``torch.logsumexp``'s steps and autograd's backward of it, AdamW sums
+    the squared gradients in the same order).  The prefill's logits and
+    cache equal bitwise.  K4 launches 4 x L times a step (2 microbatches,
+    remat) and its backward 2 x L, L in the prefill, on both paths.  Then
+    the train cell's dry-run against the run (``dry_check``, under the
+    same layout and depth).  Returns K4's and its backward's launches on
+    the sharded path (the steps and the prefill), and the dry-run
+    check's."""
+    runs = {}
+    for how in ("sharded", "plain"):
+        runs[how] = layout_run(dev, seed, mesh, how == "sharded")
+        if how == "sharded":
+            model = runs[how].pop("model")
+            del model
+        else:
+            model = runs[how].pop("model")
+    got, want = runs["sharded"], runs["plain"]
+    L = LAYOUT_LAYERS
+    expect = {"flash_attention": 4 * L * LAYOUT_STEPS,
+              "flash_attention_bwd": 2 * L * LAYOUT_STEPS}
+    for run in (got, want):
+        for k, n in expect.items():
+            check(run["train_counts"][k] == n, f"layout: {k} launched "
+                  f"{run['train_counts'][k]} times in {LAYOUT_STEPS} steps, "
+                  f"expected {n}")
+        check(run["prefill_counts"]["flash_attention"] == L,
+              f"layout: K4 launched {run['prefill_counts']['flash_attention']}"
+              f" times in the prefill, expected {L}")
+    for i, (g, w) in enumerate(zip(got["steps"], want["steps"])):
+        check(np.isfinite(g["loss"]) and g["loss"] == w["loss"]
+              and g["grad_norm"] == w["grad_norm"],
+              f"layout step {i + 1}: loss {g['loss']} / {w['loss']}, grad "
+              f"norm {g['grad_norm']} / {w['grad_norm']} (sharded / plain)")
+        differ = [k for k in w["digests"]
+                  if g["digests"][k] != w["digests"][k]]
+        check(g["digests"].keys() == w["digests"].keys() and not differ,
+              f"layout step {i + 1}: {len(differ)} of {len(w['digests'])} "
+              f"tensors differ from the plain step's: {differ[:6]}")
+    for n, t in want["whole"].items():
+        check(torch.equal(got["whole"][n], t), f"layout: {n} after the "
+              f"steps differs from the plain run's")
+    check(torch.equal(got["logits"], want["logits"])
+          and all(torch.equal(got["cache"][k], c)
+                  for k, c in want["cache"].items()),
+          "layout: the sharded prefill's logits or cache differ from the "
+          "plain prefill's")
+    n_tensors = len(want["steps"][0]["digests"])
+    losses = [round(s["loss"], 4) for s in got["steps"]]
+    print(f"reference layout, qwen3-8b ({L} of 36 layers, published widths; "
+          f"FSDP + TP, 2 microbatches, block remat, int8 moments) at one "
+          f"NCCL rank: {LAYOUT_STEPS} steps of {TRAIN_B} x {TRAIN_S} "
+          f"through build_train_step, losses {losses}, grad norms "
+          f"{[round(s['grad_norm'], 4) for s in got['steps']]}: **bitwise** "
+          f"equal to the unsharded steps (all {n_tensors} parameter and "
+          f"moment digests after each step, the loss, the gradient norm, "
+          f"{len(LAYOUT_WHOLE)} whole parameters; the vocab-parallel CE "
+          f"included); step seconds sharded "
+          f"{[round(s['seconds'], 3) for s in got['steps']]} against "
+          f"{[round(s['seconds'], 3) for s in want['steps']]} unsharded; "
+          f"peak {got['peak'] / 1e9:.2f} GB against {want['peak'] / 1e9:.2f}; "
+          f"prefill {ATTN_B} x {ATTN_S} logits and cache bitwise, "
+          f"{got['prefill_s']:.4f} s against {want['prefill_s']:.4f} s; K4 "
+          f"launches {got['train_counts']['flash_attention']} and its "
+          f"backward {got['train_counts']['flash_attention_bwd']} "
+          f"(expected {expect['flash_attention']} and "
+          f"{expect['flash_attention_bwd']}), K4 in the prefill "
+          f"{got['prefill_counts']['flash_attention']} (expected {L}) "
+          f"({card})", flush=True)
+    launches = (got["train_counts"]["flash_attention"]
+                + got["prefill_counts"]["flash_attention"],
+                got["train_counts"]["flash_attention_bwd"])
+    del runs, got, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    dry = dry_check(model, LAYOUT_TRAIN, mesh, card,
+                    ("flash_attention", "flash_attention_bwd"),
+                    layout_parallel())
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches + (dry["flash_attention"], dry["flash_attention_bwd"])
+
+
 def sweep_phase(card: str) -> None:
     """(c) the production sweep, after the last timed phase (it needs no
     card, and beside a timed phase it would load the host):
@@ -4155,6 +4400,27 @@ def sweep_phase(card: str) -> None:
     check(not errors, f"dry-run cells failed: {errors}")
     check(len(ok) == len(applicable), f"dry-run cells without a record: "
           f"{sorted(set(applicable) - set(ok))}")
+    # the dense family's cells: train and prefill on the reference's
+    # sharded layout, whose held bytes must be the analytic ones
+    dense = [k for k in sorted(ok)
+             if registry.get(k.split("|")[0]).family == "dense"]
+    fit = 0
+    for key in dense:
+        r = records[key]
+        peak = r["memory_analysis"]["peak_memory_in_bytes"]
+        fit += peak <= 80e9
+        if r["trace"]["layout"] == "sharded":
+            check(r["trace"]["held_bytes"] == r["analytic_bytes_per_device"],
+                  f"dry-run {key}: held bytes {r['trace']['held_bytes']} "
+                  f"against analytic {r['analytic_bytes_per_device']}")
+        print(f"dry-run dense cell {key} ({r['trace']['layout']} layout, "
+              f"microbatches {r['parallelism']['microbatches']}, remat "
+              f"{r['parallelism']['remat']}): peak per rank "
+              f"{peak / 1e9:.1f} GB, held "
+              f"{r['trace']['held_bytes']['total'] / 1e9:.2f} GB", flush=True)
+    print(f"dry-run dense cells: {fit} of {len(dense)} fit 80 GB a rank; "
+          f"every sharded cell holds its analytic bytes ({card})",
+          flush=True)
 
 
 def _leaves(tree):
@@ -4232,6 +4498,12 @@ def main(argv=None) -> int:
     rows["ssd_scan"]["launches_dry"], rows["ssd_scan_bwd"]["launches_dry"] \
         = phase("dry-run against the run, mamba2-1.3b step",
                 dryrun_train_phase, dev, mesh, args.seed, card)
+    (rows["flash_attention"]["launches_layout"],
+     rows["flash_attention_bwd"]["launches_layout"],
+     rows["flash_attention"]["launches_dry_layout"],
+     rows["flash_attention_bwd"]["launches_dry_layout"]) = phase(
+        "reference layout (FSDP + TP), qwen3-8b", layout_phase, dev,
+        args.seed, card, mesh)
     rows["ssd_scan"]["launches"], sp_launches = phase(
         "serving, mamba2-1.3b", ssm_phase, dev, args.seed, card, mesh)
     rows["ssd_scan"]["launches_sp"] = sp_launches
@@ -4281,10 +4553,10 @@ def main(argv=None) -> int:
               f"plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms",
               flush=True)
     # launches on the mesh layer's paths (sequence-, data-, expert-
-    # parallel, pipeline) and in the dry-run's real runs, beside the row's
-    # own main-path count
+    # parallel, pipeline, the reference's FSDP + TP layout) and in the
+    # dry-run's real runs, beside the row's own main-path count
     keys += ("launches_sp", "launches_dp", "launches_ep", "launches_pp",
-             "launches_dry")
+             "launches_dry", "launches_layout", "launches_dry_layout")
     kernels = [{k: rows[name][k] for k in keys if k in rows[name]}
                for name in ("decode_augment", "augment", "decode",
                             "flash_attention", "flash_attention_bwd",

@@ -26,18 +26,33 @@ block of each array:
 * :func:`shard` leaves a plain tensor as it is, as
   ``with_sharding_constraint`` leaves values, and redistributes a
   DTensor on the rules' mesh to the spec's placements;
-* :func:`distribute_model` places the parameters whose layers read a
-  local shard: of the rules' parameter axes only ``expert`` has such a
-  reader (the expert-parallel moe, ``models/moe.py``), which takes its
-  ``Shard(0)`` block with ``.to_local()``.  Every other parameter stays a
-  plain tensor, replicated on every rank.
+* :func:`distribute_model` places the parameters by their specs: every
+  parameter of a family in :data:`LAYOUT_FAMILIES` (the dense family)
+  whose spec names a mesh axis becomes a DTensor with
+  :func:`placements_of` its spec, holding only this rank's block: the
+  reference's FSDP (``embed`` over ``data``) and tensor parallelism
+  (``q_heads``, ``kv_heads`` where the kv heads divide, ``mlp``,
+  ``vocab`` over ``model``).  Of the other families only the experts
+  are placed (``Shard(0)`` on ``model``, read by the expert-parallel
+  moe, ``models/moe.py``); their other parameters stay plain tensors,
+  replicated on every rank.
 
-Only two reads of the rules change what a model computes: the
-expert-parallel branch of ``moe_ffn`` and the sequence-parallel SSD of
-``transformer._ssm_block`` (``models/ssm_sp.py``).  Their collectives
+The layers read a placed parameter through :func:`take`: its local
+block, with its shards over every mesh axis but ``model`` gathered (the
+FSDP gather, :class:`_GatherShards`: an all-gather in the forward, a
+reduce-scatter of the gradient in the backward); :func:`model_split`
+says which block of the ``model`` axis it is.  Their collectives
 differentiate: :func:`all_reduce_over` for a mean over ranks that each
-hold their own loss term, and the pair :func:`replicated_to_partial` /
-:func:`sum_to_replicated` around work split over ranks that share one.
+hold their own loss term; the pair :func:`replicated_to_partial` /
+:func:`sum_to_replicated` around work split over ranks that share one
+(tensor parallelism's input and output, the expert-parallel dispatch);
+:func:`regroup` for columns of heads moved between ranks; and the
+vocab-parallel reductions of ``transformer.cross_entropy``
+(:func:`vocab_parallel_nll`).  Every collective goes through
+``torch.distributed``, so ``roofline.hlo_collectives.record()`` sees it.
+Whether a model runs the sharded program at all is
+:func:`layout_rules`: rules with a mesh, and a family of
+:data:`LAYOUT_FAMILIES`.
 """
 from __future__ import annotations
 
@@ -58,8 +73,15 @@ PARAM_AXES = ("layers", "embed", "q_heads", "kv_heads", "mlp", "vocab",
 ACT_AXES = ("batch", "act_seq", "kv_seq", "act_heads", "act_kv", "act_mlp",
             "act_embed", "act_vocab", "act_expert", "act_inner")
 
-#: the parameter axes whose layers read a local shard (``distribute_model``)
-LOCAL_PARAM_AXES = ("expert",)
+#: the families whose layers run the reference's whole layout: every
+#: parameter placed by its spec (:func:`distribute_model`), the layers
+#: tensor-parallel and FSDP-gathered, the loss over the global batch
+#: (:func:`layout_rules`)
+LAYOUT_FAMILIES = ("dense",)
+#: the parameter axes whose layers read a local shard, by family
+#: (``distribute_model``): the dense family's every axis the rules map;
+#: any other family's experts (the leading ``expert`` axis of ``we_*``)
+LOCAL_PARAM_AXES = {"dense": PARAM_AXES, "other": ("expert",)}
 
 
 def _names(entry) -> Tuple[str, ...]:
@@ -107,6 +129,27 @@ def placements_of(mesh, spec: Sequence) -> Tuple:
             dims[name] = d
     return tuple(Shard(dims[name]) if name in dims else Replicate()
                  for name in mesh.mesh_dim_names)
+
+
+_IN_COLLECTIVE: contextvars.ContextVar[bool] = contextvars.ContextVar(
+    "in_collective", default=False)
+
+
+@contextlib.contextmanager
+def collective():
+    """Marks a ``torch.distributed`` call of the layers' collectives: the
+    ops its backend issues while it completes (gloo copies into an
+    all-gather's output at ``wait``) are the collective's own, and the
+    dry-run's counts leave them out (:func:`in_collective`)."""
+    tok = _IN_COLLECTIVE.set(True)
+    try:
+        yield
+    finally:
+        _IN_COLLECTIVE.reset(tok)
+
+
+def in_collective() -> bool:
+    return _IN_COLLECTIVE.get()
 
 
 _NULL = ShardingRules(mapping={}, enabled=False)
@@ -188,33 +231,50 @@ def block_of(x: torch.Tensor, mesh, spec: Sequence) -> torch.Tensor:
     return x
 
 
+def _placed_spec(d, mapping, family: str):
+    """The spec a parameter of ``family`` with def ``d`` is placed by
+    (None: it stays plain): the dense family's whole spec; another
+    family's leading ``expert`` axis alone (the router, whose expert
+    axis is its last, is read whole by every rank, as the reference's
+    ``shard_map`` takes it, ``P(None, None)``)."""
+    if family in LAYOUT_FAMILIES:
+        spec = tuple(_entry(mapping.get(a)) if a is not None else None
+                     for a in d.axes)
+    elif d.axes and d.axes[0] in LOCAL_PARAM_AXES["other"]:
+        spec = (_entry(mapping.get(d.axes[0])),) + (None,) * (
+            len(d.axes) - 1)
+    else:
+        return None
+    return spec if any(e is not None for e in spec) else None
+
+
 def distribute_model(model: nn.Module, rules: ShardingRules) -> nn.Module:
     """Place ``model``'s full parameters (each rank holding all of them,
     as ``models/convert.py`` loads them) by ``rules`` on ``rules.mesh``.
-    A parameter whose leading logical axis is one of ``LOCAL_PARAM_AXES``
-    and mapped to a mesh axis (the experts' ``we_*``) becomes a DTensor
-    ``Shard(0)`` on that axis holding only this rank's block, cut locally
-    with no communication.  The rest stay plain and whole: the router,
-    whose expert axis is its last, is read whole by every rank, as the
-    reference's ``shard_map`` takes it (``P(None, None)``).  Returns
+    A parameter whose spec (:func:`_placed_spec`) names a mesh axis
+    becomes a DTensor with :func:`placements_of` that spec, holding only
+    this rank's block, cut locally with no communication: in the dense
+    family every such parameter (the reference's FSDP and tensor
+    parallelism, ``partition_specs`` of its defs), in the others the
+    experts' ``we_*``.  The rest stay plain and whole.  Returns
     ``model``."""
     from torch.distributed.tensor import DTensor
     from repro_torch.models.params import ParamDef, ParamTree
     mesh = rules.mesh
     if not rules.enabled or mesh is None:
         return model
+    cfg = getattr(model, "cfg", None)
+    family = cfg.family if cfg is not None else None
     for tree in model.modules():
         if not isinstance(tree, ParamTree):
             continue
         for name, d in tree.defs.items():
-            if not (isinstance(d, ParamDef) and d.axes
-                    and d.axes[0] in LOCAL_PARAM_AXES
-                    and rules.mapping.get(d.axes[0])):
+            if not isinstance(d, ParamDef):
                 continue
+            spec = _placed_spec(d, rules.mapping, family)
             p = tree[name]
-            if isinstance(p.data, DTensor):
+            if spec is None or isinstance(p.data, DTensor):
                 continue
-            spec = (rules.mapping[d.axes[0]],) + (None,) * (len(d.axes) - 1)
             local = block_of(p.detach(), mesh, spec)
             if local.numel() < p.numel():
                 local = local.clone()     # lets the whole tensor go
@@ -223,6 +283,201 @@ def distribute_model(model: nn.Module, rules: ShardingRules) -> nn.Module:
                                    run_check=False),
                 requires_grad=p.requires_grad))
     return model
+
+
+def layout_rules(cfg: ModelConfig) -> Optional["ShardingRules"]:
+    """The rules in force when a model of ``cfg`` runs the reference's
+    sharded program (rules with a mesh, a family of
+    ``LAYOUT_FAMILIES``), else None: its loss is then the mean over the
+    global batch, each rank's loss its term of it, and the training
+    step sums the gradients over the batch axes."""
+    rules = _current.get()
+    if not rules.enabled or rules.mesh is None \
+            or cfg.family not in LAYOUT_FAMILIES:
+        return None
+    return rules
+
+
+def laid_out(model: nn.Module) -> bool:
+    """Whether any of ``model``'s parameters is placed (a DTensor)."""
+    from torch.distributed.tensor import DTensor
+    return any(isinstance(p, DTensor) for p in model.parameters())
+
+
+# ---------------------------------------------------------------------------
+# Local blocks of placed parameters
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class Split:
+    """A parameter's block of the ``model`` axis: the axis's process
+    group, this rank's index on it and the axis's size."""
+    group: Any
+    rank: int
+    size: int
+
+
+def model_split(p) -> Optional[Split]:
+    """The ``model`` axis a placed parameter (a DTensor) is sharded over,
+    None for a plain tensor or one replicated over ``model``."""
+    from torch.distributed.tensor import DTensor, Shard
+    if not isinstance(p, DTensor):
+        return None
+    mesh = p.device_mesh
+    for i, pl in enumerate(p.placements):
+        if isinstance(pl, Shard) and mesh.mesh_dim_names[i] == "model":
+            return Split(mesh.get_group(i), mesh.get_local_rank(i),
+                         mesh.size(i))
+    return None
+
+
+def take(p) -> torch.Tensor:
+    """A parameter as the layers compute with it: a plain tensor as it
+    is; a DTensor's local block (``to_local``: its gradient comes back as
+    a DTensor of the same placements) with its shards over every mesh
+    axis but ``model`` gathered (:class:`_GatherShards`).  Called inside
+    the block that ``transformer._run`` checkpoints, so remat gathers
+    again in the recompute, as XLA does."""
+    from torch.distributed.tensor import DTensor, Shard
+    if not isinstance(p, DTensor):
+        return p
+    mesh = p.device_mesh
+    t = p.to_local()
+    for i, pl in enumerate(p.placements):
+        if isinstance(pl, Shard) and mesh.mesh_dim_names[i] != "model":
+            t = _GatherShards.apply(t, pl.dim, mesh.get_group(i))
+    return t
+
+
+class _GatherShards(torch.autograd.Function):
+    """The FSDP gather: forward, the all-gather over ``group`` of each
+    rank's block along ``dim``; backward, the reduce-scatter (sum) of the
+    gradient, each rank keeping its block's: the sum of every rank's
+    term of the loss."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        n = dist.get_world_size(group)
+        xm = x.movedim(dim, 0).contiguous()
+        out = xm.new_empty((n * xm.shape[0], *xm.shape[1:]))
+        with collective():
+            dist.all_gather_into_tensor(out, xm, group=group)
+        return out.movedim(0, dim).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        n = dist.get_world_size(ctx.group)
+        gm = g.movedim(ctx.dim, 0).contiguous()
+        out = gm.new_empty((gm.shape[0] // n, *gm.shape[1:]))
+        with collective():
+            dist.reduce_scatter_tensor(out, gm, group=ctx.group)
+        return out.movedim(0, ctx.dim).contiguous(), None, None
+
+
+def head_range(n_heads: int, split: Split) -> Tuple[int, int]:
+    """This rank's whole heads ``[start, end)`` of ``n_heads`` over the
+    ``model`` axis: contiguous blocks, the first ``n_heads % size`` ranks
+    one head more (the blocks of the spec's columns when the heads
+    divide)."""
+    base, extra = divmod(n_heads, split.size)
+    start = split.rank * base + min(split.rank, extra)
+    return start, start + base + (split.rank < extra)
+
+
+def _overlaps(lo: int, hi: int, ranges) -> list:
+    return [max(0, min(hi, b) - max(lo, a)) for a, b in ranges]
+
+
+def regroup(x: torch.Tensor, n_heads: int, hd: int, split: Split,
+            to_heads: bool = True) -> torch.Tensor:
+    """Move the last dimension of ``x`` between two blocks of the
+    ``n_heads * hd`` columns over the ``model`` axis, by one all-to-all:
+    from the spec's equal column blocks (the ``q_heads`` shard, which may
+    cut a head) to this rank's whole heads (:func:`head_range`), or back
+    with ``to_heads=False``.  Differentiable: the backward is the
+    all-to-all the other way."""
+    width = n_heads * hd // split.size
+    cols = [(r * width, (r + 1) * width) for r in range(split.size)]
+    heads = [tuple(c * hd for c in head_range(n_heads, Split(
+        split.group, r, split.size))) for r in range(split.size)]
+    src, dst = (cols, heads) if to_heads else (heads, cols)
+    send = _overlaps(*src[split.rank], dst)
+    recv = _overlaps(*dst[split.rank], src)
+    return _AllToAll.apply(x, send, recv, split.group)
+
+
+class _AllToAll(torch.autograd.Function):
+    """An all-to-all of the last dimension's columns: ``send[j]`` of this
+    rank's columns (in order) go to rank ``j``, ``recv[i]`` come from
+    rank ``i`` (in rank order); the backward sends them back."""
+
+    @staticmethod
+    def forward(ctx, x, send, recv, group):
+        ctx.send, ctx.recv, ctx.group = send, recv, group
+        return _all_to_all_cols(x, send, recv, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_all_to_all_cols(g, ctx.recv, ctx.send, ctx.group), None,
+                None, None)
+
+
+def _all_to_all_cols(x, send, recv, group):
+    lead = x.shape[:-1]
+    rows = x.reshape(-1, x.shape[-1]).t().contiguous()
+    out = rows.new_empty((sum(recv), rows.shape[1]))
+    with collective():
+        dist.all_to_all_single(out, rows, output_split_sizes=list(recv),
+                               input_split_sizes=list(send), group=group)
+    return out.t().reshape(*lead, sum(recv))
+
+
+class _VocabParallelNll(torch.autograd.Function):
+    """The negative log-likelihood of ``labels`` under logits split over
+    the vocab: this rank's block ``lf`` (..., V_l) float32, its columns
+    from ``offset`` of the whole vocab.  The max, the sum of
+    exponentials and the target's logit go through the model group, in
+    ``torch.logsumexp``'s steps (max, ``exp(x - max)``, sum, log, + max),
+    and the backward is autograd's of the local path (``exp(x - lse)``
+    times the gradient, less it at the target), so at one rank of
+    ``model`` both paths give the same bits."""
+
+    @staticmethod
+    def forward(ctx, lf, labels, offset, v_pad, group):
+        # the reference's mask of the padded vocab is the caller's (global
+        # indices); the max's guard against infinities is logsumexp's
+        m = torch.amax(lf, dim=-1, keepdim=True)
+        with collective():
+            dist.all_reduce(m, op=dist.ReduceOp.MAX, group=group)
+        m_sq = m.squeeze(-1).masked_fill(m.squeeze(-1).abs() == float("inf"),
+                                         0.0)
+        s = torch.sum(torch.exp(lf - m), dim=-1)
+        with collective():
+            dist.all_reduce(s, group=group)
+        lse = torch.log(s) + m_sq
+        idx = labels.clamp(0, v_pad - 1).long() - offset
+        inside = (idx >= 0) & (idx < lf.shape[-1])
+        idx = idx.clamp(0, lf.shape[-1] - 1)
+        tgt = torch.gather(lf, -1, idx[..., None])[..., 0]
+        tgt = tgt.masked_fill(~inside, 0.0)
+        with collective():
+            dist.all_reduce(tgt, group=group)
+        ctx.save_for_backward(lf, lse, idx, inside)
+        return lse - tgt
+
+    @staticmethod
+    def backward(ctx, g):
+        lf, lse, idx, inside = ctx.saved_tensors
+        d = g[..., None] * torch.exp(lf - lse[..., None])
+        at = torch.zeros_like(d).scatter_add_(
+            -1, idx[..., None], (-g).masked_fill(~inside, 0.0)[..., None])
+        return d + at, None, None, None, None
+
+
+def vocab_parallel_nll(lf: torch.Tensor, labels: torch.Tensor, offset: int,
+                       v_pad: int, split: Split) -> torch.Tensor:
+    return _VocabParallelNll.apply(lf, labels, offset, v_pad, split.group)
 
 
 def make_rules(model: ModelConfig, shape: ShapeConfig,
@@ -314,7 +569,8 @@ class _SumToReplicated(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
         x = x.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(x, group=group)
+        with collective():
+            dist.all_reduce(x, group=group)
         return x
 
     @staticmethod
@@ -335,7 +591,8 @@ class _ReplicatedToPartial(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         g = g.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(g, group=ctx.group)
+        with collective():
+            dist.all_reduce(g, group=ctx.group)
         return g, None
 
 

@@ -9,11 +9,24 @@ The port's twin of ``repro.launch.dryrun``.  The reference lowers and
 compiles each cell with XLA over 512 fake host devices, and reads the
 compiled program's FLOPs and bytes (``cost_analysis``), its memory
 (``memory_analysis``) and its collectives (the HLO).  The port has no
-compiler, and its program is not XLA's: it shards the experts
-(``distribute_model``), the batch and, for the ssm prefill, the
-sequence, but executes no FSDP or tensor parallelism of the parameters.
-So the port's dry-run prices the port's own program, run once as rank 0
-of the cell's world under the cell's rules:
+compiler: its dry-run runs the port's own program once, as rank 0 of
+the cell's world under the cell's rules, and counts what it does.  Two
+programs, by cell (:func:`sharded_cell`):
+
+* the dense family's train and prefill cells run the reference's
+  layout, as its ``lower_cell`` jits them: every parameter, moment and
+  cache block placed by its spec (``distribute_model``: FSDP of
+  ``embed`` over ``data``, tensor parallelism of the heads, the MLP and
+  the vocab over ``model``), activations laid out as the rules say,
+  training through ``train.step.build_train_step`` with the cell's
+  microbatches and remat;
+* every other cell runs the replicated program: the experts placed
+  (``distribute_model``), the batch and, for the ssm prefill, the
+  sequence split, no FSDP or tensor parallelism of the parameters;
+  training through ``train.dp_shard.build_dp_train_step``, the
+  reference's ``shard_map`` twin, with no microbatches.
+
+Either is traced so:
 
 * the world: a process group of torch's ``fake`` backend (``FakeStore``,
   from ``torch.testing._internal.distributed.fake_pg``, checked on torch
@@ -28,15 +41,16 @@ of the cell's world under the cell's rules:
   devices need no TPU (on a torch built without CUDA, fake CPU tensors
   stand in, :func:`_trace_device`).  ``device="cpu"`` traces the CPU
   program, whose attention and scan are the plain versions;
-* the step: training is ``train.dp_shard.build_dp_train_step`` over the
-  rules' batch axes, AdamW included (its row pieces of one signature
-  traced once and counted for each, :class:`PieceOnceAdamW`); prefill
-  ``Model.prefill``; decode ``Model.decode_step`` at the last position
-  (``seq_len - 1``).  Each runs under ``use_rules(make_rules(...))``
-  after ``distribute_model``, on the inputs' local blocks along the axes
-  the port splits: the batch and the rules' ``act_seq``; the decode
-  cache's sequence and heads stay whole, as the port's decode reads
-  them;
+* the step: training as above, AdamW included (its row pieces of one
+  signature traced once and counted for each, :class:`PieceOnceAdamW`;
+  the sharded step's microbatches likewise, :class:`MicrobatchOnceStep`);
+  prefill ``Model.prefill``; decode ``Model.decode_step`` at the last
+  position (``seq_len - 1``).  Each runs under
+  ``use_rules(make_rules(...))`` after ``distribute_model``, on the
+  inputs' local blocks: under the sharded layout by their whole specs;
+  else along the axes the replicated program splits, the batch and the
+  rules' ``act_seq`` (the decode cache's sequence and heads whole, as
+  the port's decode reads them);
 * the counts: FLOPs by ``torch.utils.flop_counter.FlopCounterMode`` (the
   kernels' ops count their plain versions' products); bytes accessed by
   a dispatch mode, each op's input and output bytes, 0 for a view; the
@@ -45,13 +59,16 @@ of the cell's world under the cell's rules:
 
 The record has the reference's keys.  ``analytic_bytes_per_device`` is
 the reference's spec arithmetic over the reference's specs, so it equals
-the reference's exactly; where the port's layout differs from the specs
-(every FSDP or TP cell), its traced memory and collectives differ from
-the reference's compiled ones.  ``lower_s`` is the trace's seconds;
-nothing compiles, so ``compile_s`` is 0.0.  The record adds ``trace``:
-the traced FLOPs and bytes as counted (``build_record`` puts the
-analytic FLOPs in their place where they are under half of them, as the
-reference does) and ``kernel_calls``, the calls of each kernel op.
+the reference's exactly; on a sharded cell the rank holds exactly those
+bytes (``trace["held_bytes"]``, equal float for float), and its traced
+memory and collectives are those of the reference's layout run as the
+port runs it; on a replicated cell they differ from the reference's
+compiled ones.  ``lower_s`` is the trace's seconds; nothing compiles, so
+``compile_s`` is 0.0.  The record adds ``trace``: the traced FLOPs and
+bytes as counted (``build_record`` puts the analytic FLOPs in their
+place where they are under half of them, as the reference does),
+``kernel_calls``, the calls of each kernel op, ``layout``
+(``"sharded"`` or ``"replicated"``) and ``held_bytes``.
 
 Running a cell raises if the default process group is a real backend
 (the trace needs a fake world): the CLI runs in a process of its own.
@@ -81,7 +98,8 @@ from repro_torch.configs import registry
 from repro_torch.configs.base import (ALL_SHAPES, SHAPES_BY_NAME,
                                       ParallelismConfig, ShapeConfig,
                                       shape_applicable)
-from repro_torch.distributed.sharding import (axis_rank, distribute_model,
+from repro_torch.distributed.sharding import (LAYOUT_FAMILIES, axis_rank,
+                                              distribute_model, in_collective,
                                               make_rules, use_rules)
 from repro_torch.kernels.device import as_card
 from repro_torch.launch.mesh import make_production_mesh, production_axes
@@ -92,7 +110,8 @@ from repro_torch.roofline import hlo_collectives
 from repro_torch.train import compression
 from repro_torch.train.dp_shard import build_dp_train_step
 from repro_torch.train.optimizer import (AdamW, AdamWState, Quantized,
-                                         param_leaves)
+                                         local_tensor, param_leaves)
+from repro_torch.train.step import TrainStep
 
 #: the logical axes of an input that the port's program splits
 SPLIT_AXES = ("batch", "act_seq")
@@ -279,6 +298,12 @@ class Tally(TorchDispatchMode):
         kwargs = kwargs or {}
         if any(issubclass(t, _dtensor()) for t in types):
             return NotImplemented
+        if func.namespace != "c10d" and in_collective():
+            # an op a collective's backend issues while it completes
+            # (gloo's copies into an all-gather's output at ``wait``): the
+            # collective's, not the step's; NCCL and the fake backend
+            # issue none
+            return func(*args, **kwargs)
         out = func(*args, **kwargs)
         if func.namespace == "repro_torch":
             self.calls[func._opname] += 1
@@ -427,9 +452,10 @@ class PieceOnceAdamW(AdamW):
     traced and each later one counts the first's FLOPs, bytes, kernel
     calls and collectives again (:meth:`Trace.add`) without running.  A
     piece writes in place and leaves no storage behind (a squared sum
-    leaves its new total, as the total it replaces is freed), so the live
-    bytes and their peak are the first piece's.  On real tensors, or
-    outside a trace, every piece runs."""
+    goes into its slot of one vector; adding it to the norm leaves the
+    new total, as the total it replaces is freed), so the live bytes and
+    their peak are the first piece's.  On real tensors, or outside a
+    trace, every piece runs."""
 
     def __init__(self, *args, **kwargs):
         super().__init__(*args, **kwargs)
@@ -447,10 +473,15 @@ class PieceOnceAdamW(AdamW):
         self._seen[key] = tr.since(before)
         return out
 
-    def _sq_piece(self, acc, g2, sl):
-        key = ("sq",) + tuple(_signature(x, g2.shape[0])
-                              for x in (acc, g2, sl))
-        return self._once(key, g2, partial(super()._sq_piece, acc, g2, sl),
+    def _sq_into(self, sums, i, g2, sl):
+        key = ("sq_into",) + tuple(_signature(x, g2.shape[0])
+                                   for x in (sums, g2, sl))
+        return self._once(key, g2, partial(super()._sq_into, sums, i, g2, sl),
+                          None)
+
+    def _add_sum(self, acc, sums, i):
+        key = ("add_sum",) + tuple(_signature(x, 0) for x in (acc, sums))
+        return self._once(key, sums, partial(super()._add_sum, acc, sums, i),
                           acc)
 
     def _update_piece(self, t2, g2, *rest):
@@ -458,6 +489,28 @@ class PieceOnceAdamW(AdamW):
                                   for x in (t2, g2, *rest))
         return self._once(key, t2,
                           partial(super()._update_piece, t2, g2, *rest), None)
+
+
+class MicrobatchOnceStep(TrainStep):
+    """``train.step.TrainStep`` as the trace runs it: every microbatch
+    runs the same ops on tensors of the same shapes, so inside a
+    :class:`Trace`, on fake tensors, the first is traced and each later
+    one counts its FLOPs, bytes, kernel calls and collectives again
+    (:meth:`Trace.add`) without running.  A microbatch leaves no storage
+    behind (its gradients go into the accumulators, its loss into its
+    slot), so the live bytes and their peak are the first's.  On real
+    tensors, or outside a trace, every microbatch runs."""
+
+    def microbatch(self, model, params, mb, acc, losses, i):
+        tr = _OPEN.get()
+        if tr is None or not isinstance(acc[0], FakeTensor):
+            return super().microbatch(model, params, mb, acc, losses, i)
+        if i == 0:
+            before = tr.counts()
+            super().microbatch(model, params, mb, acc, losses, i)
+            self._first = tr.since(before)
+        else:
+            tr.add(self._first)
 
 
 # ---------------------------------------------------------------------------
@@ -512,10 +565,23 @@ def _trace_device(device):
     return dev, contextlib.nullcontext()
 
 
-def _port_spec(rules, axes) -> tuple:
+def _port_spec(rules, axes, sharded: bool = False) -> tuple:
     """The spec of an input with logical ``axes`` on the port's program:
-    the rules' spec on the axes it splits, None elsewhere."""
+    the rules' whole spec under the reference's layout (``sharded``),
+    else the rules' spec on the axes the replicated program splits, None
+    elsewhere."""
+    if sharded:
+        return rules.spec(*axes)
     return rules.spec(*(a if a in SPLIT_AXES else None for a in axes))
+
+
+def sharded_cell(cfg, shape: ShapeConfig) -> bool:
+    """Whether a cell runs the reference's sharded layout (every
+    parameter, moment and cache block placed by its spec; the training
+    step ``train.step.build_train_step``): the dense family's train and
+    prefill cells.  Every other cell runs the replicated program (only
+    experts placed; training through ``build_dp_train_step``)."""
+    return cfg.family in LAYOUT_FAMILIES and shape.kind != "decode"
 
 
 def _local_zeros(dims, dtype, spec, mesh, device) -> torch.Tensor:
@@ -532,36 +598,70 @@ def _local_zeros(dims, dtype, spec, mesh, device) -> torch.Tensor:
     return torch.zeros(shape, dtype=dtype, device=device)
 
 
-def _inputs(model, shape: ShapeConfig, rules, device) -> Dict:
+def _inputs(model, shape: ShapeConfig, rules, device,
+            sharded: bool = False) -> Dict:
     """The batch: zeros of ``input_specs``' shapes and types, this rank's
     block of each."""
     axes = model.batch_logical_axes(shape)
-    return {k: _local_zeros(dims, dtype, _port_spec(rules, axes[k]),
+    return {k: _local_zeros(dims, dtype, _port_spec(rules, axes[k], sharded),
                             rules.mesh, device)
             for k, (dims, dtype) in model.input_specs(shape).items()}
 
 
-def _cache(model, shape: ShapeConfig, rules, device) -> Dict:
+def _cache(model, shape: ShapeConfig, rules, device,
+           sharded: bool = False) -> Dict:
     """The decode cache: zeros, this rank's block of each along the axes
-    the port splits (the batch)."""
-    return {name: _local_zeros(d.shape, d.dtype, _port_spec(rules, d.axes),
+    the port splits (under the reference's layout, by the cache's whole
+    spec; else the batch)."""
+    return {name: _local_zeros(d.shape, d.dtype,
+                               _port_spec(rules, d.axes, sharded),
                                rules.mesh, device)
             for name, d in model.cache_defs(shape.global_batch,
                                             shape.seq_len).items()}
 
 
+def held_bytes(args) -> Dict[str, float]:
+    """The bytes this rank holds of a step's parameters and of its
+    optimizer state (train) or cache (prefill, decode): the local blocks
+    of :func:`cell_step`'s arguments, beside the reference's
+    ``analytic_bytes_per_device``."""
+    params, extra = args[0], args[1] if isinstance(args[1], AdamWState) \
+        else args[2]
+    p = float(sum(local_tensor(t).numel() * t.element_size()
+                  for t in params))
+    e = float(sum(t.numel() * t.element_size() for t in _leaves(extra)))
+    return {"params": p, "state_or_cache": e, "total": p + e}
+
+
 def cell_step(model, shape: ShapeConfig, parallel: ParallelismConfig,
-              rules, device, optimizer=AdamW):
+              rules, device, optimizer=AdamW, train_step=TrainStep):
     """The cell's step on ``model`` (already placed by
     ``distribute_model``): ``(args, run, note)``, the step's arguments
     (made here: inputs, cache or optimizer state, on ``device``) and a
     thunk that runs it once, to be called under ``use_rules(rules)``.
     Fake or real tensors alike: the card check runs it on real ones to
     hold a trace against.  ``optimizer`` is the class of the training
-    step's optimizer (:class:`PieceOnceAdamW` in :func:`lower_cell`)."""
+    step's optimizer (:class:`PieceOnceAdamW` in :func:`lower_cell`),
+    ``train_step`` that of the sharded cells' step
+    (:class:`MicrobatchOnceStep` there).
+
+    A sharded cell (:func:`sharded_cell`) runs the reference's program:
+    training ``train.step.build_train_step`` (the cell's microbatches
+    and remat) on this rank's block of the batch, prefill
+    ``Model.prefill`` on the blocks of the batch and of the cache by
+    their specs.  The others run the replicated program: training
+    ``build_dp_train_step`` over the rules' batch axes on the global
+    batch (each rank takes its block), prefill and decode on the batch's
+    blocks with the cache's sequence and heads whole."""
+    sharded = sharded_cell(model.cfg, shape)
     if shape.is_train:
         opt = optimizer(state_dtype=parallel.opt_state_dtype)
         state = opt.init(model)
+        if sharded:
+            step = train_step(model, parallel, opt)
+            batch = _inputs(model, shape, rules, device, sharded=True)
+            return ((list(model.parameters()), state, batch),
+                    lambda: step(model, state, batch), "train_step")
         compress = parallel.grad_compression == "int8_ef"
         step = build_dp_train_step(model, opt, rules.mesh, rules.batch_axes,
                                    compress_grads=compress,
@@ -572,8 +672,8 @@ def cell_step(model, shape: ShapeConfig, parallel: ParallelismConfig,
                  for k, (dims, dtype) in model.input_specs(shape).items()}
         return ((list(model.parameters()), state, ef, batch),
                 lambda: step(model, state, ef, batch), "train_step")
-    batch = _inputs(model, shape, rules, device)
-    cache = _cache(model, shape, rules, device)
+    batch = _inputs(model, shape, rules, device, sharded)
+    cache = _cache(model, shape, rules, device, sharded)
     args = (list(model.parameters()), batch, cache)
     if shape.kind == "prefill":
         return args, lambda: model.prefill(batch, cache), "prefill_step"
@@ -582,14 +682,21 @@ def cell_step(model, shape: ShapeConfig, parallel: ParallelismConfig,
 
 
 def trace_step(model, shape: ShapeConfig, parallel: ParallelismConfig,
-               rules, device, optimizer=AdamW) -> Dict[str, Any]:
+               rules, device, optimizer=AdamW,
+               train_step=TrainStep) -> Dict[str, Any]:
     """Run the cell's step (:func:`cell_step`) once under ``rules`` inside
-    a :class:`Trace`; returns its counts plus ``note``."""
+    a :class:`Trace`; returns its counts plus ``note``, the layout it ran
+    (``"sharded"``: the reference's, or ``"replicated"``) and the bytes
+    of parameters and state or cache this rank held
+    (:func:`held_bytes`)."""
     args, run, note = cell_step(model, shape, parallel, rules, device,
-                                optimizer)
+                                optimizer, train_step)
+    held = held_bytes(args)
     with use_rules(rules), Trace(args) as tr:
         out = run()
-    return {**tr.result(out), "note": note}
+    layout = "sharded" if sharded_cell(model.cfg, shape) else "replicated"
+    return {**tr.result(out), "note": note, "layout": layout,
+            "held_bytes": held}
 
 
 def lower_cell(arch: str, shape: ShapeConfig, *, multi_pod: bool,
@@ -616,9 +723,10 @@ def lower_cell(arch: str, shape: ShapeConfig, *, multi_pod: bool,
                 _StaticShapes():
             model = build(cfg)
             abstract_tree(model, getattr(torch, parallel.param_dtype), dev)
-            distribute_model(model, rules)
+            if sharded_cell(cfg, shape) or cfg.family not in LAYOUT_FAMILIES:
+                distribute_model(model, rules)
             tr = trace_step(model, shape, parallel, rules, dev,
-                            PieceOnceAdamW)
+                            PieceOnceAdamW, MicrobatchOnceStep)
     finally:
         if started:
             dist.destroy_process_group()
@@ -636,7 +744,8 @@ def lower_cell(arch: str, shape: ShapeConfig, *, multi_pod: bool,
         "lower_s": tr["seconds"],
         "compile_s": 0.0,
         "parallelism": parallel.__dict__,
-        "trace": {k: tr[k] for k in ("flops", "bytes", "kernel_calls")},
+        "trace": {k: tr[k] for k in ("flops", "bytes", "kernel_calls",
+                                     "layout", "held_bytes")},
     }
 
 

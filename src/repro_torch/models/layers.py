@@ -17,7 +17,33 @@ tiles outside it.  Cross-attention (``kv_x``, the encdec family's
 decoder over its encoder's output) runs through K4 too, non-causal with
 Sq decoder rows over Sk encoder rows.  One-token decode stays plain
 torch (``_sdpa``), windowed, cross or not: the reference has no kernel
-for it.  There is no sharding: the port runs on one device.
+for it.
+
+Under the reference's layout (a dense model placed by
+``distributed.sharding.distribute_model``; each parameter a DTensor of
+its spec), the layers compute on each rank's local blocks, as XLA lays
+out the reference's arrays by ``make_rules``: a parameter is read
+through ``sharding.take`` (its local block, FSDP shards over ``data``
+gathered), and a parameter sharded over ``model`` makes its layer
+tensor-parallel (Megatron's column and row split).  Attention: q is
+column-parallel (the rank's heads); k and v are the rank's kv heads when
+``kv_heads`` maps to ``model``, else every kv head, computed on every
+rank (their weights replicated) and cut to the kv heads the rank's q
+heads read under GQA (by the global head index); K4 runs on the local
+heads; ``wo`` is row-parallel, summed over ``model``.  Where the heads
+do not divide the ``model`` axis (qwen1.5-32b: 40 over 16), ``wq``'s
+columns stay split as the spec splits them (2.5 heads a rank) and q,
+and the attention's output before ``wo``, are regrouped into whole
+heads by an all-to-all (``sharding.regroup``; each rank 3 or 2 heads,
+not every head on every rank).  The MLP's gate and up projections are
+column-parallel and ``wo`` row-parallel; the embedding is a masked
+lookup in the rank's vocab rows summed over ``model``; the logits are
+the rank's vocab block.  A replicated input of a tensor-parallel layer
+enters through ``sharding.replicated_to_partial`` (its gradient summed
+over ``model``), and so does a replicated weight that each rank uses
+for its own heads only (``wk``/``wv`` when the kv heads do not divide,
+``q_norm``, ``k_norm``).  With no placed parameter every path computes
+what it computes on one device.
 
 Where a bf16 activation meets float32 weights (the encdec family's
 encoder takes its frame embeddings as bf16 whatever the parameters'
@@ -33,6 +59,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import (head_range, model_split,
+                                              regroup, replicated_to_partial,
+                                              sum_to_replicated, take)
 from repro_torch.kernels.flash_attention.ops import flash_mha
 from repro_torch.models.params import ParamDef
 
@@ -49,6 +78,7 @@ def rmsnorm_def(d: int) -> ParamDef:
 
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
+    scale = take(scale)
     xf = x.to(F32)
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
@@ -116,11 +146,11 @@ def _project_qkv(p, x: torch.Tensor, kv_x: torch.Tensor, cfg: ModelConfig,
     B = x.shape[0]
     hd = cfg.resolved_head_dim
     H, K = cfg.n_heads, cfg.n_kv_heads
-    q = _mm(x, p["wq"])
-    k = _mm(kv_x, p["wk"])
-    v = _mm(kv_x, p["wv"])
+    q = _mm(x, take(p["wq"]))
+    k = _mm(kv_x, take(p["wk"]))
+    v = _mm(kv_x, take(p["wv"]))
     if "bq" in p:
-        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+        q, k, v = q + take(p["bq"]), k + take(p["bk"]), v + take(p["bv"])
     q = q.reshape(B, -1, H, hd)
     k = k.reshape(B, -1, K, hd)
     v = v.reshape(B, -1, K, hd)
@@ -169,17 +199,94 @@ def attention(p, x: torch.Tensor, cfg: ModelConfig, *,
     ``window > 0`` (with ``causal``) limits query i to keys
     ``i - window < j <= i``.  With ``kv_x`` (B, Sk, d) the keys and values
     come from it, at ``kv_positions`` (default ``positions``); Sk may
-    differ from the query length only without ``causal``, as K4 asks."""
+    differ from the query length only without ``causal``, as K4 asks.
+    With ``wq`` sharded over ``model``, tensor-parallel
+    (:func:`_attention_tp`)."""
     kv_x = x if kv_x is None else kv_x
     kv_positions = positions if kv_positions is None else kv_positions
+    split = model_split(p["wq"])
+    if split is not None:
+        return _attention_tp(p, x, kv_x, cfg, positions, kv_positions,
+                             causal, window, use_rope, return_kv, split)
     q, k, v = _project_qkv(p, x, kv_x, cfg, positions, kv_positions,
                            use_rope=use_rope)
     out = flash_mha(q, k, v, causal=causal, window=window)
     out = out.reshape(x.shape[0], -1, cfg.n_heads * cfg.resolved_head_dim)
-    y = torch.matmul(out, p["wo"])
+    y = torch.matmul(out, take(p["wo"]))
     if return_kv:
         return y, k, v
     return y
+
+
+def _attention_tp(p, x, kv_x, cfg: ModelConfig, positions, kv_positions,
+                  causal: bool, window: int, use_rope: bool,
+                  return_kv: bool, split):
+    """Tensor-parallel attention on this rank's heads (the module's
+    docstring).  ``return_kv`` gives the keys and values the cache holds:
+    the rank's kv heads when they are sharded, else all of them."""
+    B, hd = x.shape[0], cfg.resolved_head_dim
+    H, K = cfg.n_heads, cfg.n_kv_heads
+    grp = split.group
+    self_attn = kv_x is x
+    x = replicated_to_partial(x, grp)
+    kv_x = x if self_attn else replicated_to_partial(kv_x, grp)
+    q = _mm(x, take(p["wq"]))
+    if "bq" in p:
+        q = q + take(p["bq"])
+    s, e = head_range(H, split)
+    if H % split.size:
+        q = regroup(q, H, hd, split)
+    q = q.reshape(B, -1, e - s, hd)
+
+    kv_sharded = model_split(p["wk"]) is not None
+
+    def kv_weight(name):
+        w = take(p[name])
+        return w if kv_sharded else replicated_to_partial(w, grp)
+
+    k = _mm(kv_x, kv_weight("wk"))
+    v = _mm(kv_x, kv_weight("wv"))
+    if "bk" in p:
+        k, v = k + kv_weight("bk"), v + kv_weight("bv")
+    k = k.reshape(B, -1, k.shape[-1] // hd, hd)
+    v = v.reshape(B, -1, v.shape[-1] // hd, hd)
+    if "q_norm" in p:
+        q = rmsnorm(q, replicated_to_partial(take(p["q_norm"]), grp),
+                    cfg.norm_eps)
+        k = rmsnorm(k, replicated_to_partial(take(p["k_norm"]), grp),
+                    cfg.norm_eps)
+    if use_rope:
+        q = rotary(q, positions, cfg.rope_theta)
+        k = rotary(k, kv_positions, cfg.rope_theta)
+    ka, va = (k, v) if kv_sharded else _kv_for_heads(k, v, s, e, H // K)
+    if e > s:
+        out = flash_mha(q, ka, va, causal=causal, window=window)
+    else:          # a rank past the last head (heads fewer than ranks)
+        out = q
+    out = out.reshape(B, -1, (e - s) * hd)
+    if H % split.size:
+        out = regroup(out, H, hd, split, to_heads=False)
+    y = sum_to_replicated(torch.matmul(out, take(p["wo"])), grp)
+    if return_kv:
+        return y, k, v
+    return y
+
+
+def _kv_for_heads(k, v, start: int, end: int, group: int):
+    """Of every kv head (B, S, K, hd), those the q heads ``[start, end)``
+    read under GQA (q head h reads kv head ``h // group``): a contiguous
+    slice when each of them serves the same number of the rank's heads
+    in order, as K4's grouping asks, else one kv head per q head."""
+    idx = [h // group for h in range(start, end)]
+    if not idx:
+        return k[:, :, :0], v[:, :, :0]
+    first, n = idx[0], idx[-1] - idx[0] + 1
+    per = len(idx) // n
+    if per * n == len(idx) and idx == [first + i // per
+                                       for i in range(len(idx))]:
+        return k[:, :, first:first + n], v[:, :, first:first + n]
+    sel = torch.tensor(idx, device=k.device)
+    return k.index_select(2, sel), v.index_select(2, sel)
 
 
 def write_kv(cache_k: torch.Tensor, cache_v: torch.Tensor, k: torch.Tensor,
@@ -240,10 +347,16 @@ def mlp_defs(cfg: ModelConfig, d_ff: Optional[int] = None) -> Dict:
 
 
 def mlp(p, x: torch.Tensor) -> torch.Tensor:
-    g = torch.matmul(x, p["wi_gate"])
-    u = torch.matmul(x, p["wi_up"])
+    """The gated MLP; column- then row-parallel when ``wi_gate`` is
+    sharded over ``model``."""
+    split = model_split(p["wi_gate"])
+    if split is not None:
+        x = replicated_to_partial(x, split.group)
+    g = torch.matmul(x, take(p["wi_gate"]))
+    u = torch.matmul(x, take(p["wi_up"]))
     h = F.silu(g.to(F32)).to(x.dtype) * u
-    return torch.matmul(h, p["wo"])
+    y = torch.matmul(h, take(p["wo"]))
+    return y if split is None else sum_to_replicated(y, split.group)
 
 
 # ---------------------------------------------------------------------------
@@ -259,9 +372,31 @@ def embed_defs(cfg: ModelConfig, v_pad: int) -> Dict:
 
 
 def embed(p, tokens: torch.Tensor) -> torch.Tensor:
-    return p["tok"][tokens]
+    """The token embeddings; with the table's vocab sharded over
+    ``model``, each rank looks up the tokens in its rows (the others
+    zero) and the rows are summed over ``model``."""
+    split = model_split(p["tok"])
+    tok = take(p["tok"])
+    if split is None:
+        return tok[tokens]
+    n = tok.shape[0]
+    idx = tokens - split.rank * n
+    inside = (idx >= 0) & (idx < n)
+    y = tok[idx.clamp(0, n - 1)].masked_fill(~inside[..., None], 0)
+    return sum_to_replicated(y, split.group)
 
 
 def logits(p, x: torch.Tensor) -> torch.Tensor:
-    w = p["head"] if "head" in p else p["tok"].T
+    """The logits; with the head's vocab sharded over ``model``, this
+    rank's block of the vocab (:func:`vocab_split` says which)."""
+    split = vocab_split(p)
+    w = take(p["head"]) if "head" in p else take(p["tok"]).T
+    if split is not None:
+        x = replicated_to_partial(x, split.group)
     return torch.matmul(x, w)
+
+
+def vocab_split(p):
+    """The ``model`` split of the logits' vocab (its blocks in rank
+    order), or None when the logits hold the whole vocab."""
+    return model_split(p["head"] if "head" in p else p["tok"])

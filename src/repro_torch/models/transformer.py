@@ -10,6 +10,17 @@ recomputes each block in the backward
 block, as the reference's ``jax.checkpoint`` of the scan body), under
 the sharding rules the forward ran under.
 
+The dense family runs the reference's sharded program when its
+parameters are placed (``sharding.distribute_model``) and the rules hold
+a mesh: the layers compute on local blocks (``models/layers.py``); each
+block's FSDP shards are gathered inside the body that ``_run``
+checkpoints, so remat gathers them again in the recompute; the loss is
+this rank's term of the mean over the global batch, its CE over the
+logits' vocab block (:func:`cross_entropy`); prefill writes the cache's
+local blocks.  Decode of a placed model raises ``ValueError`` (the
+reference's sharded decode puts the cache's sequence on ``model``, which
+is not ported).
+
 The vlm family is the dense stack with ``patch_embeds`` (B, P, d), cast
 to the activations' type, in front of the token embeddings; positions
 run over the P + S_text rows, and its cache and decode are the dense
@@ -61,10 +72,14 @@ import contextlib
 from typing import Dict, Tuple
 
 import torch
+import torch.distributed as dist
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import FAMILIES, ModelConfig
-from repro_torch.distributed.sharding import current_rules, use_rules
+from repro_torch.distributed.sharding import (LAYOUT_FAMILIES,
+                                              current_rules, group_of,
+                                              laid_out, layout_rules,
+                                              use_rules, vocab_parallel_nll)
 from repro_torch.models import layers as lyr
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
@@ -281,30 +296,58 @@ def forward(params, cfg: ModelConfig, batch: Dict, *,
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
-                  vocab_size: int) -> torch.Tensor:
-    """Masked CE over a padded vocab. labels < 0 are ignored."""
-    v_pad = logits.shape[-1]
+                  vocab_size: int, *, vocab=None,
+                  batch_group=None) -> torch.Tensor:
+    """Masked CE over a padded vocab. labels < 0 are ignored.
+
+    ``vocab``: the ``model`` split (``lyr.vocab_split``) whose rank's
+    block of the vocab ``logits`` are, in rank order; the padding mask is
+    in global indices and the log-sum-exp and the target's logit go
+    through the ``model`` group (``sharding.vocab_parallel_nll``).
+    ``batch_group``: the labels are this rank's block of the batch, and
+    the count of labels >= 0 is summed over the group, so that the loss
+    is this rank's term of the masked mean over the global batch (the
+    terms of the group's ranks sum to it)."""
     lf = logits.to(F32)
+    offset = 0 if vocab is None else vocab.rank * logits.shape[-1]
+    v_pad = logits.shape[-1] * (1 if vocab is None else vocab.size)
     if vocab_size and v_pad > vocab_size:
-        pad_mask = torch.arange(v_pad, device=lf.device) >= vocab_size
+        pad_mask = torch.arange(offset, offset + lf.shape[-1],
+                                device=lf.device) >= vocab_size
         lf = lf.masked_fill(pad_mask, lyr.NEG_INF)
-    lse = torch.logsumexp(lf, dim=-1)
-    tgt = torch.gather(lf, -1, labels.clamp(0, v_pad - 1).long()[..., None])
-    nll = lse - tgt[..., 0]
+    if vocab is None:
+        lse = torch.logsumexp(lf, dim=-1)
+        tgt = torch.gather(lf, -1,
+                           labels.clamp(0, v_pad - 1).long()[..., None])
+        nll = lse - tgt[..., 0]
+    else:
+        nll = vocab_parallel_nll(lf, labels, offset, v_pad, vocab)
     mask = (labels >= 0).to(F32)
-    return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    count = torch.sum(mask)
+    if batch_group is not None:
+        dist.all_reduce(count, group=batch_group)
+    return torch.sum(nll * mask) / torch.clamp(count, min=1.0)
 
 
 def loss_fn(params, cfg: ModelConfig, batch: Dict, *,
             remat: str = "none") -> torch.Tensor:
     """Next-token CE (batch: tokens and labels, (B, S) int), or for the
     encoder family the class CE (labels (B,) int), plus the blocks'
-    auxiliary loss."""
+    auxiliary loss.  Under the reference's layout
+    (``sharding.layout_rules``) the CE runs over the logits' vocab block
+    and is this rank's term of the mean over the global batch."""
     logits, aux = forward(params, cfg, batch, remat=remat)
     if cfg.family == "encoder":
         return cross_entropy(logits[:, None, :], batch["labels"][:, None],
                              cfg.n_classes) + aux
-    return cross_entropy(logits, batch["labels"], cfg.vocab_size) + aux
+    rules = layout_rules(cfg)
+    if rules is None:
+        return cross_entropy(logits, batch["labels"], cfg.vocab_size) + aux
+    group = group_of(rules.mesh, rules.batch_axes) if rules.batch_axes \
+        else None
+    return cross_entropy(logits, batch["labels"], cfg.vocab_size,
+                         vocab=lyr.vocab_split(params["embed"]),
+                         batch_group=group) + aux
 
 
 # ---------------------------------------------------------------------------
@@ -401,6 +444,11 @@ def decode_step(params, cfg: ModelConfig, cache: Dict, tokens: torch.Tensor,
     parameters raise ``TypeError`` on the bf16 attention cache.
     """
     index = int(index)
+    if cfg.family in LAYOUT_FAMILIES and laid_out(params["embed"]):
+        raise ValueError(
+            "decode_step runs on a model whose parameters are whole: "
+            "the reference's sharded decode (kv_seq over model) is not "
+            "ported; decode a model that distribute_model did not place")
     x = lyr.embed(params["embed"], tokens)
     if cfg.family in ("dense", "moe", "vlm") + ENCDEC:
         for l, lp in enumerate(params["blocks"]):
@@ -450,7 +498,13 @@ def prefill(params, cfg: ModelConfig, batch: Dict,
     encdec also replaces ``ck``/``cv`` with the cross keys and values of
     its ``encdec_src_len(S)`` encoder rows, those its cross-attention
     projected: the reference's ``einsum`` of the encoder's output, as the
-    cross projections have no bias and no encdec config has qk_norm)."""
+    cross projections have no bias and no encdec config has qk_norm).
+
+    Under the reference's layout the batch and ``cache`` are this rank's
+    blocks (the cache's by its specs: batch over ``data``, ``act_kv``
+    over ``model`` where the kv heads divide), the attention writes the
+    rank's kv heads, or all of them where they are replicated, and the
+    logits are the rank's block of the vocab."""
     if cfg.family in ("ssm", "hybrid"):
         logits, _ = forward(params, cfg, batch)
         return logits, cache
@@ -459,21 +513,24 @@ def prefill(params, cfg: ModelConfig, batch: Dict,
     x = _embed_inputs(params, cfg, batch)
     S = x.shape[1]
     positions = torch.arange(S, device=x.device)
-    kvs = {"k": [], "v": [], "ck": [], "cv": []}
-    for lp in params["blocks"]:
+    # each layer's keys and values go into the new cache as they come
+    # (no per-layer list to stack: the cache's bytes once, not twice)
+    new_cache = dict(cache)
+    for name in ("k", "v"):
+        new_cache[name] = torch.zeros_like(cache[name])
+    cross = {"ck": [], "cv": []}
+    for l, lp in enumerate(params["blocks"]):
         x, _, kv = _attn_block(lp, x, cfg, positions, causal=True,
                                enc_out=enc_out, return_kv=True)
         for name, t in kv.items():
-            kvs[name].append(t)
+            if name in cross:
+                cross[name].append(t)
+            else:
+                new_cache[name][l, :, :S] = t.to(new_cache[name].dtype)
+        del kv
     x = lyr.rmsnorm(x, params["final_norm"], cfg.norm_eps)
     logits = lyr.logits(params["embed"], x)
-
-    new_cache = dict(cache)
-    for name in ("k", "v"):
-        full = torch.zeros_like(cache[name])
-        full[:, :, :S] = torch.stack(kvs[name]).to(full.dtype)
-        new_cache[name] = full
     if enc_out is not None:
         for name in ("ck", "cv"):
-            new_cache[name] = torch.stack(kvs[name]).to(cache[name].dtype)
+            new_cache[name] = torch.stack(cross[name]).to(cache[name].dtype)
     return logits, new_cache

@@ -36,11 +36,14 @@ time, and rows of at most ``CHUNK`` elements — so the float32
 transients stay small.
 
 A parameter that ``distributed.sharding.distribute_model`` placed as a
-DTensor (the experts of the expert-parallel moe) is held and updated as
-its local block: its state has the block's shape, and its squared
-gradient is summed over the groups of the mesh dimensions it is sharded
-on, so that ``gnorm`` (and the clipping) is the whole model's on every
-rank.
+DTensor (the dense family's FSDP and tensor-parallel blocks, the experts
+of the expert-parallel moe) is held and updated as its local block: its
+state has the block's shape (the reference's ``_opt_specs``: a moment
+takes its parameter's spec), and its squared gradient is summed over the
+groups of the mesh dimensions it is sharded on, so that ``gnorm`` (and
+the clipping) is the whole model's on every rank, each element counted
+once; a replicated parameter, whose gradient every rank holds whole, is
+counted once (:meth:`AdamW._sq_norm`).
 """
 from __future__ import annotations
 
@@ -259,21 +262,15 @@ class AdamW:
         lr = self.lr if self.schedule is None else self.schedule(step)
 
         dev = named[leaves[0].names[0]].device
-        # squared gradients, apart by the groups their blocks shard over
-        sqs = {(): torch.zeros((), dtype=F32, device=dev)}
+        # the squared gradients, piece by piece in leaf order
+        pieces = []
         for leaf in leaves:
             for n in leaf.names:
                 groups = _shard_groups(placed[n])
                 g = local_tensor(grads[n])
                 g2 = _rows(g, g.shape[-1] if g.dim() else 1)
-                for sl in _pieces(*g2.shape):
-                    sqs[groups] = self._sq_piece(sqs.get(groups, 0.0), g2,
-                                                 sl)
-        sq = sqs.pop(())
-        for groups, part in sqs.items():
-            for group in groups:
-                torch.distributed.all_reduce(part, group=group)
-            sq = sq + part
+                pieces += [(groups, g2, sl) for sl in _pieces(*g2.shape)]
+        sq = self._sq_norm(pieces, torch.zeros((), dtype=F32, device=dev))
         gnorm = torch.sqrt(sq)
         scale = torch.clamp(self.clip / torch.clamp(gnorm, min=1e-12),
                             max=1.0) if self.clip else 1.0
@@ -290,9 +287,38 @@ class AdamW:
                                   b1c, b2c)
         return params, AdamWState(step, state.m, state.v), gnorm
 
-    def _sq_piece(self, acc, g2: torch.Tensor, sl: slice):
-        """``acc`` plus the squared sum of rows ``sl`` of ``g2``."""
-        return acc + torch.sum(torch.square(g2[sl].to(F32)))
+    def _sq_norm(self, pieces, sq):
+        """``sq`` plus the squared norm of ``pieces`` (groups, rows,
+        slice), a placed parameter's pieces summed over the groups of the
+        mesh dimensions it is sharded on (so each element counts once
+        across shards, and a replicated parameter once, not once per
+        rank): each piece's sum into one vector, one all-reduce per group
+        of its entries, then added to ``sq`` one after another in the
+        pieces' order (so at one rank a placed model's norm has the
+        bits of the unplaced one's)."""
+        dev = sq.device
+        sums = torch.empty(len(pieces), dtype=F32, device=dev)
+        by_groups: Dict[tuple, list] = {}
+        for i, (groups, g2, sl) in enumerate(pieces):
+            self._sq_into(sums, i, g2, sl)
+            if groups:
+                by_groups.setdefault(groups, []).append(i)
+        for groups, idx in by_groups.items():
+            sel = torch.tensor(idx, device=dev)
+            part = sums.index_select(0, sel)
+            for group in groups:
+                torch.distributed.all_reduce(part, group=group)
+            sums.index_copy_(0, sel, part)
+        for i in range(len(pieces)):
+            sq = self._add_sum(sq, sums, i)
+        return sq
+
+    def _sq_into(self, sums, i: int, g2: torch.Tensor, sl: slice) -> None:
+        """``sums[i]`` = the squared sum of rows ``sl`` of ``g2``."""
+        sums[i] = torch.sum(torch.square(g2[sl].to(F32)))
+
+    def _add_sum(self, acc, sums, i: int):
+        return acc + sums[i]
 
     def _step(self, p, g, mf, vf, scale, lr, b1c, b2c, decay: bool):
         """The reference's ``upd`` on float32 moments: (new p, m, v)."""

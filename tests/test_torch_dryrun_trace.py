@@ -22,8 +22,12 @@ it goes through (``repro_torch::flash_attention``, ``::flash_attention_bwd``,
   on five families' train cells with pieces of 4096 elements;
 * the trace against real execution: one spawn of 4 gloo ranks
   (``tests/torch_world.py``, case ``dryrun``) runs a reduced qwen3-8b
-  prefill on a (2, 2) mesh and a reduced mamba2-1.3b data-parallel step
-  (batch 256: pure data parallelism over both axes) for real; rank 0's
+  prefill on a (2, 2) mesh (the reference's layout: tensor parallelism
+  over ``model``), a reduced mamba2-1.3b data-parallel step (batch 256:
+  pure data parallelism over both axes) and a reduced llama3-405b
+  training step on the reference's layout (FSDP and TP, 4 microbatches,
+  block remat; the trace runs the first microbatch and counts it for the
+  rest) for real; rank 0's
   FLOPs, bytes accessed and collectives per kind (count and wire bytes)
   **equal** those of ``lower_cell`` on a fake world of 4 with the same
   mesh; in the same spawn one data-parallel step of the expert-parallel
@@ -73,7 +77,8 @@ K5_CASES = {
 SEQ = 64
 #: the real-execution cells: (arch, shape, mesh)
 REAL_CELLS = [("qwen3-8b", ("prefill_32k", 32, 4, "prefill"), (2, 2)),
-              ("mamba2-1.3b", ("train_4k", 16, 256, "train"), (2, 2))]
+              ("mamba2-1.3b", ("train_4k", 16, 256, "train"), (2, 2)),
+              ("llama3-405b", ("train_4k", 16, 8, "train"), (2, 2))]
 
 
 def _k4_inputs(case):
@@ -246,8 +251,11 @@ def test_pieces_traced_once_count_as_every_piece(arch, state, monkeypatch):
     every leaf has many."""
     from repro_torch.train import optimizer
     monkeypatch.setattr(registry, "get", _reduced(registry.get_reduced))
-    monkeypatch.setattr(optimizer, "CHUNK", 4096)
     shape = ShapeConfig("train_4k", SEQ, 256, "train")
+    # a sharded cell's rank holds a 16th of most leaves (tensor
+    # parallelism over model): pieces of 256 elements give it as many
+    monkeypatch.setattr(optimizer, "CHUNK", 256 if dryrun.sharded_cell(
+        registry.get(arch), shape) else 4096)
     par = registry.default_parallelism(registry.get(arch), shape).replace(
         opt_state_dtype=state)
     added = []

@@ -1,6 +1,6 @@
 """Small worlds of ranks for the port's multi-rank tests (not a test
-module: the ``test_torch_{mesh,dp,ep_sp,pp_elastic,dryrun_trace}.py``
-files import it).
+module: the ``test_torch_{mesh,dp,ep_sp,pp_elastic,dryrun_trace,
+fsdp_tp}.py`` files import it).
 
 :func:`spawn` starts ``world`` Python processes of this file, one per
 rank.  Each joins a process group that meets on a file store under the
@@ -586,10 +586,110 @@ def case_dryrun(rank, world, inputs, device):
     return out
 
 
+def _gather_placed(t, mesh, placements):
+    """The whole tensor of a local block ``t`` under ``placements``."""
+    from torch.distributed.tensor import Shard
+    if not any(isinstance(p, Shard) for p in placements):
+        return t.detach().clone()
+    return _gather(t.detach().contiguous(), mesh, placements)
+
+
+def case_fsdp_tp(rank, world, inputs, device):
+    """The reference's sharded program: for each case of ``inputs`` (a
+    config, a ``("data", "model")`` mesh shape, the reference's initial
+    parameters, a global batch), ``build_train_step`` under the cell's
+    rules on the placed model (FSDP and TP, the case's microbatches and
+    remat) for ``steps`` steps on this rank's block of each microbatch,
+    then ``Model.prefill`` of the initial parameters on the rank's blocks
+    of the batch and the cache.  Returns the losses and gradient norms,
+    the parameters and moments after the steps, the prefill's logits
+    and cache, each gathered whole, and the rank's local shapes."""
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor, Shard
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed.sharding import (distribute_model,
+                                                  local_block, make_rules,
+                                                  placements_of, use_rules)
+    from repro_torch.models.params import partition_specs
+    from repro_torch.train.optimizer import AdamW, param_leaves
+    from repro_torch.train.step import build_train_step
+
+    out = {}
+    for key, case in inputs["cases"].items():
+        dp, tp = case["mesh"]
+        mesh = init_device_mesh(device, (dp, tp),
+                                mesh_dim_names=("data", "model"))
+        cfg = case["cfg"]
+        par = case["parallel"]
+        B, S = case["batch"]["tokens"].shape
+        shape = ShapeConfig("train_4k", S, B, "train")
+        rules = make_rules(cfg, shape, par, tp_size=tp, dp_size=dp,
+                           mesh=mesh)
+        model = distribute_model(_model(None, case["state"], cfg=cfg,
+                                        device=device), rules)
+        opt = AdamW(**case["opt"])
+        state = opt.init(model)
+        step = build_train_step(model, par, opt)
+        n = par.microbatches
+        mbs = [{k: v.reshape(n, B // n, *v.shape[1:])[i]
+                for k, v in case["batch"].items()} for i in range(n)]
+        batch = {k: torch.cat([local_block(mb[k], rules, "batch", "act_seq")
+                               for mb in mbs]) for k in case["batch"]}
+        hist = []
+        for _ in range(case["steps"]):
+            with use_rules(rules):
+                model, state, m = step(model, state, batch)
+            hist.append((float(m["loss"]), float(m["grad_norm"])))
+        placed = dict(model.named_parameters())
+        params = {n_: (p.detach().full_tensor() if isinstance(p, DTensor)
+                       else p.detach().clone()) for n_, p in placed.items()}
+        moments = {}
+        for leaf in param_leaves(model):
+            p = placed[leaf.names[0]]
+            pl = p.placements if isinstance(p, DTensor) else ()
+            if leaf.stacked and pl:
+                pl = tuple(Shard(x.dim + 1) if isinstance(x, Shard) else x
+                           for x in pl)
+            moments[leaf.path] = tuple(
+                _gather_placed(s[leaf.path], mesh, pl) if pl else
+                s[leaf.path].detach().clone() for s in (state.m, state.v))
+        local_shapes = {n_: tuple(p.to_local().shape) if isinstance(
+            p, DTensor) else tuple(p.shape) for n_, p in placed.items()}
+
+        # the prefill of the initial parameters
+        pshape = ShapeConfig("prefill", S, B, "prefill")
+        prules = make_rules(cfg, pshape, par, tp_size=tp, dp_size=dp,
+                            mesh=mesh)
+        model = distribute_model(_model(None, case["state"], cfg=cfg,
+                                        device=device), prules)
+        cdefs = model.cache_defs(B, S)
+        cspecs = partition_specs(cdefs, prules.mapping)
+        cache = {k: torch.zeros(d.shape, dtype=d.dtype, device=device)
+                 for k, d in cdefs.items()}
+        cache = {k: local_block(c, prules, *cdefs[k].axes).clone()
+                 for k, c in cache.items()}
+        tokens = local_block(case["batch"]["tokens"], prules, "batch",
+                             "act_seq")
+        with use_rules(prules):
+            logits, new_cache = model.prefill({"tokens": tokens}, cache)
+        logits = _gather_placed(logits, mesh, prules.placements(
+            mesh, "batch", "act_seq", "act_vocab"))
+        new_cache = {k: _gather_placed(c, mesh, placements_of(mesh,
+                                                              cspecs[k]))
+                     for k, c in new_cache.items()}
+        out[key] = {"hist": hist, "params": params, "moments": moments,
+                    "local_shapes": local_shapes, "logits": logits,
+                    "cache": new_cache,
+                    "cache_local": {k: tuple(c.shape)
+                                    for k, c in cache.items()}}
+    return out
+
+
 CASES = {"mesh": case_mesh, "dp": case_dp, "ep_sp": case_ep_sp,
          "pp_elastic": case_pp_elastic,
          "nccl_world_of_one": case_nccl_world_of_one,
-         "dryrun": case_dryrun}
+         "dryrun": case_dryrun, "fsdp_tp": case_fsdp_tp}
 
 
 def _main(case: str, rank: int, world: int, d: str, device: str) -> int:
