@@ -136,9 +136,15 @@ into ``build/repro_torch/``), then:
    steps and prefill from the same seed with no rules (every parameter's
    and moment's digest after each step, the loss, the gradient norm,
    ``LAYOUT_WHOLE``'s parameters whole, the logits and the cache), K4
-   launched 4 x L and its backward 2 x L times a step on both paths,
-   then ``dry_check`` of that train cell under the same layout and
-   depth;
+   launched 4 x L and its backward 2 x L times a step on both paths;
+   ``LAYOUT_DECODE`` decode steps after each prefill, the sharded ones
+   under the decode_32k cell's production mapping (``DECODE_TP``: the
+   cache's sequence on ``model``, re-laid from the prefill's spec by
+   ``sharding.relayout``; the flash-decoding combine over one block),
+   each step's logits and new keys and values bitwise or within
+   ``depth_tolerance`` of the plain decode's (``compare_decode``, which
+   the line states), K4 not launched; then ``dry_check`` of that train
+   cell and of the decode cell under the same layout and depth;
    then the serving path, ssm: mamba2-1.3b at full width:
    ``Model.forward`` of 4 x 1024 tokens (K5 launched once per layer),
    the same forward under the prefill rules of ``default_parallelism``
@@ -204,6 +210,17 @@ into ``build/repro_torch/``), then:
     layers (8.65 B parameters): every layer's attention, router, expert
     and shared-expert weights with finite non-zero gradients at every
     step, K4 launched 2 x 14 times and its backward 14 times per step;
+    (c) the reference's layout at one NCCL rank (``moe_layout_phase``):
+    the same 14 layers placed by ``distribute_model`` under
+    ``make_rules`` with expert and tensor parallelism (the attention,
+    the shared experts and the vocab over ``model`` beside the experts,
+    the router read whole), one step of 2 x 1024 through
+    ``build_train_step`` (block remat, int8 moments), a 4 x 1024
+    prefill and ``MOE_LAYOUT_DECODE`` decode steps, then the same from
+    the same seed with no rules: every parameter's and moment's digest,
+    the loss, the gradient norm, the prefill's logits and cache equal,
+    the decode steps by ``compare_decode``; K4 2 x 14 and its backward
+    14 times in the step, 14 in the prefill, none in decode;
 11. the hybrid family, zamba2-1.2b at its published widths and full
     depth (38 mamba2 layers, the shared attention block after every 6,
     1.17 B parameters; ``hybrid_phase``): (a) ``Model.prefill`` of 1 x
@@ -244,9 +261,10 @@ into ``build/repro_torch/``), then:
     ``SWEEP_MESHES`` (single and multi), one process per arch,
     ``SWEEP_PROCS`` at a time; each
     cell's bottleneck and trace seconds, ok, failed and skipped, 0
-    failed and every applicable cell recorded; each dense cell's layout
-    and peak per rank and how many fit 80 GB, every sharded cell holding
-    its analytic bytes; then the kernel JSON line (one
+    failed and every applicable cell recorded; each dense and moe
+    cell's peak per rank on the sharded layout, each holding its
+    analytic bytes, and how many of all the cells fit 80 GB; then the
+    kernel JSON line (one
     row per kernel and shape; the rows of K5, its backward and K4 at moe
     also carry ``launches_sp``, ``launches_dp`` and ``launches_ep``,
     their launches on the sequence-, data- and expert-parallel paths,
@@ -254,7 +272,9 @@ into ``build/repro_torch/``), then:
     K4's, K5's and K5's backward's rows ``launches_dry``, their launches
     in the dry-run's real runs, and K4's and its backward's qwen3-8b rows
     ``launches_layout`` and ``launches_dry_layout``, theirs in the
-    sharded layout's run and in its dry-run check), the card line, and
+    sharded layout's run and in its dry-run check, their moe rows
+    ``launches_layout``, theirs in ``moe_layout_phase``'s sharded run),
+    the card line, and
     the result line
     ``{"ok": true, "device": {...}}`` last.
 
@@ -3478,11 +3498,12 @@ def moe_phase(dev, seed: int, card: str, mesh):
 def ep_part(model, tokens, want, secs: float, mesh, card: str) -> int:
     """The expert-parallel moe over the NCCL world of one: the experts'
     weights placed by deepseek-moe-16b's prefill rules
-    (``distribute_model``: ``Shard(0)`` on ``model``, all 64 experts on
-    this rank from offset 0), one ``Model.prefill`` of the same tokens
-    under them, K4 once per layer, logits equal to the local prefill's
-    ``want``.  The model's parameters are put back after.  Returns K4's
-    launches in the prefill."""
+    (``distribute_model(..., experts_only=True)``, the data-parallel
+    step's expert-parallel program: ``Shard(0)`` on ``model``, all 64
+    experts on this rank from offset 0), one ``Model.prefill`` of the
+    same tokens under them, K4 once per layer, logits equal to the local
+    prefill's ``want``.  The model's parameters are put back after.
+    Returns K4's launches in the prefill."""
     from torch.distributed.tensor import DTensor
     from repro_torch.distributed.sharding import (distribute_model,
                                                   local_block, use_rules)
@@ -3494,7 +3515,7 @@ def ep_part(model, tokens, want, secs: float, mesh, card: str) -> int:
     whole = [(tree, name, tree[name]) for tree in model.modules()
              if isinstance(tree, ParamTree)
              for name, d in tree.defs.items() if isinstance(d, ParamDef)]
-    distribute_model(model, rules)
+    distribute_model(model, rules, experts_only=True)
     placed = [n for n, p in model.named_parameters()
               if isinstance(p, DTensor)]
     check(len(placed) == 3 * cfg.n_layers,
@@ -3515,6 +3536,7 @@ def ep_part(model, tokens, want, secs: float, mesh, card: str) -> int:
     finally:
         for tree, name, p in whole:
             setattr(tree, name, p)
+        model.experts_only = False
     check(launches == cfg.n_layers, f"K4 launched {launches} times in the "
           f"expert-parallel prefill, expected {cfg.n_layers}")
     check(torch.equal(got, want), "expert-parallel prefill logits differ "
@@ -4143,6 +4165,19 @@ LAYOUT_LAYERS = 24
 LAYOUT_STEPS = 2
 LAYOUT_TRAIN = ("train", TRAIN_S, TRAIN_B, "train")
 LAYOUT_PREFILL = ("prefill", ATTN_S, ATTN_B, "prefill")
+#: decode steps after each layout run's prefill, and the decode cell (its
+#: cache holds the prefill and the decoded tokens)
+LAYOUT_DECODE = 8
+LAYOUT_DECODE_CELL = ("decode", ATTN_S + LAYOUT_DECODE, ATTN_B, "decode")
+#: the decode rules' model axis: the production mesh's 16, whose split of
+#: the kv heads decides the cache's layout (qwen3-8b's 8 do not divide
+#: it: its sequence goes to ``model``, the flash-decoding combine runs,
+#: with one block at one rank)
+DECODE_TP = 16
+#: the moe layout run: deepseek-moe-16b at ``MOE_TRAIN_LAYERS`` layers,
+#: one step, a prefill and this many decode steps
+MOE_LAYOUT_DECODE = 4
+MOE_DECODE_CELL = ("decode", ATTN_S + MOE_LAYOUT_DECODE, ATTN_B, "decode")
 #: parameters kept whole for the comparison (besides every tensor's digest)
 LAYOUT_WHOLE = ("blocks.0.attn.wq", "blocks.0.attn.q_norm",
                 f"blocks.{LAYOUT_LAYERS - 1}.mlp.wo", "final_norm")
@@ -4221,15 +4256,13 @@ def layout_run(dev, seed: int, mesh, sharded: bool) -> dict:
     peak = torch.cuda.max_memory_allocated()
     whole = {n: local_tensor(p).detach().cpu()
              for n, p in model.named_parameters() if n in LAYOUT_WHOLE}
+    drules = make_rules(cfg, ShapeConfig(*LAYOUT_DECODE_CELL), par,
+                        tp_size=DECODE_TP, dp_size=1, mesh=mesh)
     gen = torch.Generator(device=dev).manual_seed(seed + 3)
     tokens = torch.randint(0, cfg.vocab_size, (ATTN_B, ATTN_S),
                            generator=gen, device=dev)
-    cache = model.init_cache(ATTN_B, ATTN_S)
-    reset_counts()
-    with ctx(prules):
-        (logits, cache), psecs = synced_seconds(
-            lambda: model.prefill({"tokens": tokens}, cache))
-    prefill_counts = read_counts()
+    served = prefill_decode(model, prules, drules, mesh, tokens,
+                            LAYOUT_DECODE, seed, sharded)
     # one more step, traced: where the step's time goes (nothing is
     # compared after it)
     with ctx(rules):
@@ -4240,12 +4273,96 @@ def layout_run(dev, seed: int, mesh, sharded: bool) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     out = {"steps": steps, "whole": whole, "peak": peak,
-           "logits": logits.cpu(), "cache": {k: c.cpu()
-                                             for k, c in cache.items()},
-           "prefill_s": psecs, "train_counts": train_counts,
-           "prefill_counts": prefill_counts, "model": model}
-    del logits, cache
+           "train_counts": train_counts, "model": model, **served}
     return out
+
+
+def prefill_decode(model, prules, drules, mesh, tokens, n_decode: int,
+                   seed: int, sharded: bool) -> dict:
+    """``Model.prefill`` of ``tokens`` into a cache of ``S + n_decode``
+    positions, then ``n_decode`` decode steps of tokens drawn from
+    ``seed``: under ``prules``, then ``drules`` with the cache carried
+    from the prefill's spec to the decode's by ``sharding.relayout`` (the
+    re-lay step, not part of the reference's program), or with no rules.
+    Returns the prefill's logits and cache on the host, per decode step
+    the logits and every layer's new key and value on the host, the
+    final cache's digests, the seconds and the kernel launches of the
+    prefill and of the decode steps."""
+    from repro_torch.distributed.sharding import relayout, use_rules
+    from repro_torch.models.params import partition_specs
+    cfg, dev = model.cfg, tokens.device
+    B, S = tokens.shape
+    ctx = (lambda r: use_rules(r)) if sharded else \
+        (lambda r: contextlib.nullcontext())
+    cache = model.init_cache(B, S + n_decode)
+    reset_counts()
+    with ctx(prules):
+        (logits, cache), psecs = synced_seconds(
+            lambda: model.prefill({"tokens": tokens}, cache))
+    # copies: decode then writes into the cache in place
+    out = {"logits": logits.to("cpu", copy=True),
+           "cache": {k: c.to("cpu", copy=True) for k, c in cache.items()},
+           "prefill_s": psecs, "prefill_counts": read_counts()}
+    del logits
+    if sharded:
+        cdefs = model.cache_defs(B, S + n_decode)
+        src = partition_specs(cdefs, prules.mapping)
+        dst = partition_specs(cdefs, drules.mapping)
+        cache = {k: relayout(c, mesh, src[k], dst[k])
+                 for k, c in cache.items()}
+    gen = torch.Generator(device=dev).manual_seed(seed + 4)
+    steps, secs = [], []
+    reset_counts()
+    for i in range(n_decode):
+        tok = torch.randint(0, cfg.vocab_size, (B, 1), generator=gen,
+                            device=dev)
+        with ctx(drules):
+            (lg, cache), t = synced_seconds(
+                lambda: model.decode_step(cache, tok, S + i))
+        steps.append({"logits": lg[:, 0].float().cpu(),
+                      "k": cache["k"][:, :, S + i].to("cpu", copy=True),
+                      "v": cache["v"][:, :, S + i].to("cpu", copy=True)})
+        secs.append(t)
+    out.update(decode=steps, decode_s=secs, decode_counts=read_counts(),
+               final={k: digest(c) for k, c in cache.items()})
+    del cache
+    return out
+
+
+def rel_rms(got: torch.Tensor, want: torch.Tensor) -> float:
+    got, want = got.float(), want.float()
+    return float((got - want).norm() / want.norm().clamp_min(1e-30))
+
+
+def compare_decode(got: dict, want: dict, n_layers: int, label: str) -> str:
+    """The decode steps of two :func:`prefill_decode` runs: bitwise (every
+    step's logits and new keys and values, the final cache's digests), or
+    else each step's logits within ``depth_tolerance(n_layers)`` relative
+    RMS with every row's argmax agreeing (near ties included,
+    ``compare_logits``) and its new keys and values within the same
+    relative RMS.  Returns which held, for the phase's line; fails the
+    run when neither did."""
+    pairs = list(zip(got["decode"], want["decode"], strict=True))
+    if all(torch.equal(g[x], w[x]) for g, w in pairs
+           for x in ("logits", "k", "v")) and got["final"] == want["final"]:
+        return f"**bitwise** ({len(pairs)} steps' logits, new keys and " \
+               f"values, the final cache's digests)"
+    tol = depth_tolerance(n_layers)
+    worst = {"logits": 0.0, "kv": 0.0, "abs": 0.0}
+    for i, (g, w) in enumerate(pairs):
+        rel, err, agree, exact = compare_logits(g["logits"], w["logits"])
+        kv = max(rel_rms(g[x], w[x]) for x in ("k", "v"))
+        check(rel <= tol and kv <= tol and agree == 1.0,
+              f"{label} decode step {i}: logits relative RMS {rel} "
+              f"(tolerance {tol}), argmax agreement {agree}, new keys and "
+              f"values relative RMS {kv}")
+        worst = {"logits": max(worst["logits"], rel),
+                 "kv": max(worst["kv"], kv), "abs": max(worst["abs"], err)}
+    return (f"within tolerance, not bitwise: logits relative RMS at most "
+            f"{worst['logits']:.3e}, max abs {worst['abs']:.4f}, new keys "
+            f"and values {worst['kv']:.3e} (tolerance "
+            f"depth_tolerance({n_layers}) = {tol:.4f}), argmax agreement "
+            f"1.0 with near ties at every step")
 
 
 def layout_phase(dev, seed: int, card: str, mesh):
@@ -4262,12 +4379,19 @@ def layout_phase(dev, seed: int, card: str, mesh):
     the same ops as the local one (the vocab-parallel CE takes
     ``torch.logsumexp``'s steps and autograd's backward of it, AdamW sums
     the squared gradients in the same order).  The prefill's logits and
-    cache equal bitwise.  K4 launches 4 x L times a step (2 microbatches,
-    remat) and its backward 2 x L, L in the prefill, on both paths.  Then
-    the train cell's dry-run against the run (``dry_check``, under the
-    same layout and depth).  Returns K4's and its backward's launches on
-    the sharded path (the steps and the prefill), and the dry-run
-    check's."""
+    cache equal bitwise.  Then ``LAYOUT_DECODE`` decode steps on each
+    path: the sharded one under the decode_32k cell's production mapping
+    (``DECODE_TP`` = 16: the cache's sequence on ``model``, the kv heads
+    replicated, so the flash-decoding combine runs, with one block), the
+    prefill's cache carried to its spec by ``sharding.relayout``; every
+    step's logits and new keys and values held against the plain
+    decode's (``compare_decode``: bitwise, or within
+    ``depth_tolerance``, printed).  K4 launches 4 x L times a step (2
+    microbatches, remat) and its backward 2 x L, L in the prefill and
+    none in decode, on both paths.  Then the train cell's and the decode
+    cell's dry-run against the run (``dry_check``, under the same layout
+    and depth).  Returns K4's and its backward's launches on the sharded
+    path (the steps and the prefill), and the train dry-run check's."""
     runs = {}
     for how in ("sharded", "plain"):
         runs[how] = layout_run(dev, seed, mesh, how == "sharded")
@@ -4288,6 +4412,9 @@ def layout_phase(dev, seed: int, card: str, mesh):
         check(run["prefill_counts"]["flash_attention"] == L,
               f"layout: K4 launched {run['prefill_counts']['flash_attention']}"
               f" times in the prefill, expected {L}")
+        check(run["decode_counts"]["flash_attention"] == 0,
+              f"layout: K4 launched {run['decode_counts']['flash_attention']}"
+              f" times in decode, expected none")
     for i, (g, w) in enumerate(zip(got["steps"], want["steps"])):
         check(np.isfinite(g["loss"]) and g["loss"] == w["loss"]
               and g["grad_norm"] == w["grad_norm"],
@@ -4306,6 +4433,7 @@ def layout_phase(dev, seed: int, card: str, mesh):
                   for k, c in want["cache"].items()),
           "layout: the sharded prefill's logits or cache differ from the "
           "plain prefill's")
+    decoded = compare_decode(got, want, L, "layout qwen3-8b")
     n_tensors = len(want["steps"][0]["digests"])
     losses = [round(s["loss"], 4) for s in got["steps"]]
     print(f"reference layout, qwen3-8b ({L} of 36 layers, published widths; "
@@ -4328,6 +4456,15 @@ def layout_phase(dev, seed: int, card: str, mesh):
           f"{expect['flash_attention_bwd']}), K4 in the prefill "
           f"{got['prefill_counts']['flash_attention']} (expected {L}) "
           f"({card})", flush=True)
+    print(f"reference layout, qwen3-8b decode: {LAYOUT_DECODE} steps after "
+          f"the prefill under the decode_32k cell's rules (tp_size "
+          f"{DECODE_TP}: kv_seq on model, the combine over one block; the "
+          f"cache re-laid from the prefill's spec by sharding.relayout) "
+          f"against the plain decode: {decoded}; seconds a step sharded "
+          f"{[round(x, 4) for x in got['decode_s']]} against "
+          f"{[round(x, 4) for x in want['decode_s']]}; K4 launches "
+          f"{got['decode_counts']['flash_attention']} (expected 0) "
+          f"({card})", flush=True)
     launches = (got["train_counts"]["flash_attention"]
                 + got["prefill_counts"]["flash_attention"],
                 got["train_counts"]["flash_attention_bwd"])
@@ -4337,10 +4474,155 @@ def layout_phase(dev, seed: int, card: str, mesh):
     dry = dry_check(model, LAYOUT_TRAIN, mesh, card,
                     ("flash_attention", "flash_attention_bwd"),
                     layout_parallel())
+    dry_check(model, LAYOUT_DECODE_CELL, mesh, card, (), layout_parallel())
     del model
     gc.collect()
     torch.cuda.empty_cache()
     return launches + (dry["flash_attention"], dry["flash_attention_bwd"])
+
+
+def moe_layout_parallel():
+    from repro_torch.configs.base import ParallelismConfig
+    return ParallelismConfig(ep=True, tp=True, remat="block",
+                             opt_state_dtype="int8")
+
+
+def moe_layout_run(dev, seed: int, mesh, sharded: bool) -> dict:
+    """deepseek-moe-16b at ``MOE_TRAIN_LAYERS`` layers: one step of
+    ``build_train_step`` (expert and tensor parallel, block remat, int8
+    moments), then a prefill of ``LAYOUT_PREFILL`` and
+    ``MOE_LAYOUT_DECODE`` decode steps (``prefill_decode``): under the
+    cells' rules on ``mesh`` with the model placed by its specs
+    (``sharded``), or with no rules.  Returns the loss, gradient norm,
+    seconds and every tensor's digest after the step, the step's kernel
+    launches and peak memory, and ``prefill_decode``'s results."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed.sharding import (distribute_model,
+                                                  make_rules, use_rules)
+    from repro_torch.launch.train import lm_batch_source
+    from repro_torch.train.optimizer import AdamW
+    from repro_torch.train.step import build_train_step
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    par = moe_layout_parallel()
+    model = build_model("deepseek-moe-16b", dev, seed, MOE_TRAIN_LAYERS)
+    cfg = model.cfg
+    rules, prules, drules = (
+        make_rules(cfg, ShapeConfig(*shape), par, tp_size=tp, dp_size=1,
+                   mesh=mesh)
+        for shape, tp in ((LAYOUT_TRAIN, 1), (LAYOUT_PREFILL, 1),
+                          (MOE_DECODE_CELL, DECODE_TP)))
+    if sharded:
+        distribute_model(model, rules)
+    ctx = use_rules(rules) if sharded else contextlib.nullcontext()
+    batch = lm_batch_source(model, TRAIN_B, TRAIN_S, seed + 2)()
+    opt = AdamW(lr=TRAIN_LR, state_dtype=par.opt_state_dtype)
+    state = opt.init(model)
+    step = build_train_step(model, par, opt)
+    reset_counts()
+    # deterministic algorithms for the step: the dispatch's gathers are
+    # ``index_select``s, whose backward, an ``index_add_``, sums a
+    # token's rows by atomics on the card, in an order that changes from
+    # run to run
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with ctx:
+            (model, state, m), secs = synced_seconds(
+                lambda: step(model, state, batch))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    out = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+           "seconds": secs, "digests": state_digests(model, state),
+           "train_counts": read_counts(),
+           "peak": torch.cuda.max_memory_allocated()}
+    del state, opt, step, batch, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev).manual_seed(seed + 3)
+    tokens = torch.randint(0, cfg.vocab_size, (ATTN_B, ATTN_S),
+                           generator=gen, device=dev)
+    out.update(prefill_decode(model, prules, drules, mesh, tokens,
+                              MOE_LAYOUT_DECODE, seed, sharded))
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_layout_phase(dev, seed: int, card: str, mesh):
+    """The moe family under the reference's layout at one NCCL rank:
+    deepseek-moe-16b at ``MOE_TRAIN_LAYERS`` layers placed by
+    ``distribute_model`` under ``make_rules`` with expert and tensor
+    parallelism (the attention, the shared experts and the vocab over
+    ``model`` beside the experts; the router read whole), one step of 2 x
+    1024 through ``build_train_step`` (block remat, int8 moments; under
+    ``torch.use_deterministic_algorithms``, as ``moe_layout_run`` says
+    why), a 4 x
+    1024 prefill and ``MOE_LAYOUT_DECODE`` decode steps under the
+    decode_32k cell's mapping (its 16 kv heads divide the production
+    axis: the heads split, no combine); then the same from the same seed
+    with no rules (two copies with moments do not fit at once).  Every
+    parameter's and moment's digest, the loss and the gradient norm
+    after the step, the prefill's logits and cache must be equal, the
+    decode steps bitwise or within tolerance (``compare_decode``,
+    printed); K4 2 x L and its backward L times in the step, L in the
+    prefill, none in decode, on both paths.  Returns K4's launches on
+    the sharded path (the step and the prefill) and its backward's."""
+    got = moe_layout_run(dev, seed, mesh, True)
+    want = moe_layout_run(dev, seed, mesh, False)
+    L = MOE_TRAIN_LAYERS
+    expect = {"flash_attention": 2 * L, "flash_attention_bwd": L}
+    for run in (got, want):
+        for k, n in expect.items():
+            check(run["train_counts"][k] == n, f"moe layout: {k} launched "
+                  f"{run['train_counts'][k]} times in the step, expected {n}")
+        check(run["prefill_counts"]["flash_attention"] == L
+              and run["decode_counts"]["flash_attention"] == 0,
+              f"moe layout: K4 launched "
+              f"{run['prefill_counts']['flash_attention']} times in the "
+              f"prefill (expected {L}) and "
+              f"{run['decode_counts']['flash_attention']} in decode "
+              f"(expected 0)")
+    check(np.isfinite(got["loss"]) and got["loss"] == want["loss"]
+          and got["grad_norm"] == want["grad_norm"],
+          f"moe layout step: loss {got['loss']} / {want['loss']}, grad norm "
+          f"{got['grad_norm']} / {want['grad_norm']} (sharded / plain)")
+    differ = [k for k in want["digests"]
+              if got["digests"].get(k) != want["digests"][k]]
+    check(got["digests"].keys() == want["digests"].keys() and not differ,
+          f"moe layout step: {len(differ)} of {len(want['digests'])} "
+          f"tensors differ from the plain step's: {differ[:6]}")
+    check(torch.equal(got["logits"], want["logits"])
+          and all(torch.equal(got["cache"][k], c)
+                  for k, c in want["cache"].items()),
+          "moe layout: the sharded prefill's logits or cache differ from "
+          "the plain prefill's")
+    decoded = compare_decode(got, want, L, "moe layout deepseek-moe-16b")
+    print(f"reference layout, deepseek-moe-16b ({L} of 28 layers, published "
+          f"widths; EP and TP on model, router read whole, block remat, "
+          f"int8 moments) at one NCCL rank: 1 step of {TRAIN_B} x {TRAIN_S} "
+          f"through build_train_step, loss {got['loss']:.4f}, grad norm "
+          f"{got['grad_norm']:.4f}: **bitwise** equal to the unsharded step "
+          f"(all {len(want['digests'])} parameter and moment digests, the "
+          f"loss, the gradient norm); step {got['seconds']:.3f} s against "
+          f"{want['seconds']:.3f} s (first steps), peak "
+          f"{got['peak'] / 1e9:.2f} GB against {want['peak'] / 1e9:.2f}; "
+          f"prefill {ATTN_B} x {ATTN_S} logits and cache bitwise, "
+          f"{got['prefill_s']:.4f} s against {want['prefill_s']:.4f} s; "
+          f"{MOE_LAYOUT_DECODE} decode steps under the decode_32k rules "
+          f"(tp_size {DECODE_TP}: kv heads on model, no combine): "
+          f"{decoded}, seconds a step {[round(x, 4) for x in got['decode_s']]}"
+          f" against {[round(x, 4) for x in want['decode_s']]}; K4 launches "
+          f"{got['train_counts']['flash_attention']} in the step (expected "
+          f"{2 * L}), its backward {got['train_counts']['flash_attention_bwd']}"
+          f" (expected {L}), K4 {got['prefill_counts']['flash_attention']} in "
+          f"the prefill (expected {L}), "
+          f"{got['decode_counts']['flash_attention']} in decode (expected 0) "
+          f"({card})", flush=True)
+    return (got["train_counts"]["flash_attention"]
+            + got["prefill_counts"]["flash_attention"],
+            got["train_counts"]["flash_attention_bwd"])
 
 
 def sweep_phase(card: str) -> None:
@@ -4400,27 +4682,30 @@ def sweep_phase(card: str) -> None:
     check(not errors, f"dry-run cells failed: {errors}")
     check(len(ok) == len(applicable), f"dry-run cells without a record: "
           f"{sorted(set(applicable) - set(ok))}")
-    # the dense family's cells: train and prefill on the reference's
-    # sharded layout, whose held bytes must be the analytic ones
-    dense = [k for k in sorted(ok)
-             if registry.get(k.split("|")[0]).family == "dense"]
-    fit = 0
-    for key in dense:
+    # every cell's peak against 80 GB; the dense and moe families' cells
+    # run the reference's sharded layout, whose held bytes must be the
+    # analytic ones
+    fit = sum(records[k]["memory_analysis"]["peak_memory_in_bytes"] <= 80e9
+              for k in ok)
+    moved = [k for k in sorted(ok) if registry.get(
+        k.split("|")[0]).family in ("dense", "moe")]
+    for key in moved:
         r = records[key]
         peak = r["memory_analysis"]["peak_memory_in_bytes"]
-        fit += peak <= 80e9
-        if r["trace"]["layout"] == "sharded":
-            check(r["trace"]["held_bytes"] == r["analytic_bytes_per_device"],
-                  f"dry-run {key}: held bytes {r['trace']['held_bytes']} "
-                  f"against analytic {r['analytic_bytes_per_device']}")
-        print(f"dry-run dense cell {key} ({r['trace']['layout']} layout, "
-              f"microbatches {r['parallelism']['microbatches']}, remat "
-              f"{r['parallelism']['remat']}): peak per rank "
+        check(r["trace"]["layout"] == "sharded",
+              f"dry-run {key}: layout {r['trace']['layout']}")
+        check(r["trace"]["held_bytes"] == r["analytic_bytes_per_device"],
+              f"dry-run {key}: held bytes {r['trace']['held_bytes']} "
+              f"against analytic {r['analytic_bytes_per_device']}")
+        print(f"dry-run sharded cell {key} (microbatches "
+              f"{r['parallelism']['microbatches']}, remat "
+              f"{r['parallelism']['remat']}, moments "
+              f"{r['parallelism']['opt_state_dtype']}): peak per rank "
               f"{peak / 1e9:.1f} GB, held "
               f"{r['trace']['held_bytes']['total'] / 1e9:.2f} GB", flush=True)
-    print(f"dry-run dense cells: {fit} of {len(dense)} fit 80 GB a rank; "
-          f"every sharded cell holds its analytic bytes ({card})",
-          flush=True)
+    print(f"dry-run: {fit} of {len(ok)} cells fit 80 GB a rank; the "
+          f"{len(moved)} dense and moe cells run the sharded layout, each "
+          f"holding its analytic bytes ({card})", flush=True)
 
 
 def _leaves(tree):
@@ -4527,6 +4812,10 @@ def main(argv=None) -> int:
             "serving and training, deepseek-moe-16b", moe_phase, dev,
             args.seed, card, mesh)
     rows["flash_attention_moe"]["launches_ep"] = ep_launches
+    (rows["flash_attention_moe"]["launches_layout"],
+     rows["flash_attention_bwd_moe"]["launches_layout"]) = phase(
+        "reference layout (EP + TP), deepseek-moe-16b", moe_layout_phase,
+        dev, args.seed, card, mesh)
     counts, train = phase("serving and training, zamba2-1.2b", hybrid_phase,
                           dev, args.seed, card)
     rows["flash_attention_zamba2"]["launches"] = counts["flash_attention"]
@@ -4553,8 +4842,8 @@ def main(argv=None) -> int:
               f"plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms",
               flush=True)
     # launches on the mesh layer's paths (sequence-, data-, expert-
-    # parallel, pipeline, the reference's FSDP + TP layout) and in the
-    # dry-run's real runs, beside the row's own main-path count
+    # parallel, pipeline, the reference's FSDP + TP and EP + TP layouts)
+    # and in the dry-run's real runs, beside the row's own main-path count
     keys += ("launches_sp", "launches_dp", "launches_ep", "launches_pp",
              "launches_dry", "launches_layout", "launches_dry_layout")
     kernels = [{k: rows[name][k] for k in keys if k in rows[name]}

@@ -27,32 +27,40 @@ block of each array:
   ``with_sharding_constraint`` leaves values, and redistributes a
   DTensor on the rules' mesh to the spec's placements;
 * :func:`distribute_model` places the parameters by their specs: every
-  parameter of a family in :data:`LAYOUT_FAMILIES` (the dense family)
-  whose spec names a mesh axis becomes a DTensor with
-  :func:`placements_of` its spec, holding only this rank's block: the
-  reference's FSDP (``embed`` over ``data``) and tensor parallelism
-  (``q_heads``, ``kv_heads`` where the kv heads divide, ``mlp``,
-  ``vocab`` over ``model``).  Of the other families only the experts
-  are placed (``Shard(0)`` on ``model``, read by the expert-parallel
-  moe, ``models/moe.py``); their other parameters stay plain tensors,
-  replicated on every rank.
+  parameter of a family in :data:`LAYOUT_FAMILIES` (dense and moe) whose
+  spec names a mesh axis becomes a DTensor with :func:`placements_of`
+  its spec, holding only this rank's block: the reference's FSDP
+  (``embed`` over ``data``), tensor parallelism (``q_heads``,
+  ``kv_heads`` where the kv heads divide, ``mlp``, ``vocab`` over
+  ``model``) and expert parallelism (``expert`` over ``model``).  With
+  ``experts_only``, and in the other families, only the experts are
+  placed (``Shard(0)`` on ``model``): the expert-parallel program of the
+  data-parallel step (``train/dp_shard.py``), whose other parameters
+  stay plain tensors, replicated on every rank.
 
 The layers read a placed parameter through :func:`take`: its local
 block, with its shards over every mesh axis but ``model`` gathered (the
 FSDP gather, :class:`_GatherShards`: an all-gather in the forward, a
-reduce-scatter of the gradient in the backward); :func:`model_split`
-says which block of the ``model`` axis it is.  Their collectives
-differentiate: :func:`all_reduce_over` for a mean over ranks that each
-hold their own loss term; the pair :func:`replicated_to_partial` /
+reduce-scatter of the gradient in the backward); :func:`take_whole`
+gathers it over ``model`` too (the moe router, which the reference's
+``shard_map`` reads whole); :func:`model_split` says which block of the
+``model`` axis it is.  Their collectives differentiate:
+:func:`all_reduce_over` for a mean over ranks that each hold their own
+loss term; the pair :func:`replicated_to_partial` /
 :func:`sum_to_replicated` around work split over ranks that share one
 (tensor parallelism's input and output, the expert-parallel dispatch);
 :func:`regroup` for columns of heads moved between ranks; and the
 vocab-parallel reductions of ``transformer.cross_entropy``
-(:func:`vocab_parallel_nll`).  Every collective goes through
-``torch.distributed``, so ``roofline.hlo_collectives.record()`` sees it.
-Whether a model runs the sharded program at all is
-:func:`layout_rules`: rules with a mesh, and a family of
-:data:`LAYOUT_FAMILIES`.
+(:func:`vocab_parallel_nll`).  Decode's collectives (the combine of a
+cache whose sequence is split, :func:`seq_split`) are in
+``models/layers.py``.  Every collective goes through
+``torch.distributed`` inside :func:`collective`, so
+``roofline.hlo_collectives.record()`` sees it and the dry-run counts
+none of the ops its backend issues.  Whether a model runs the sharded
+program at all is :func:`layout_rules`: rules with a mesh, a family of
+:data:`LAYOUT_FAMILIES`, the model not placed ``experts_only``.
+:func:`relayout` moves a block from one spec to another (a prefill's
+cache to the decode layout's).
 """
 from __future__ import annotations
 
@@ -77,11 +85,7 @@ ACT_AXES = ("batch", "act_seq", "kv_seq", "act_heads", "act_kv", "act_mlp",
 #: parameter placed by its spec (:func:`distribute_model`), the layers
 #: tensor-parallel and FSDP-gathered, the loss over the global batch
 #: (:func:`layout_rules`)
-LAYOUT_FAMILIES = ("dense",)
-#: the parameter axes whose layers read a local shard, by family
-#: (``distribute_model``): the dense family's every axis the rules map;
-#: any other family's experts (the leading ``expert`` axis of ``we_*``)
-LOCAL_PARAM_AXES = {"dense": PARAM_AXES, "other": ("expert",)}
+LAYOUT_FAMILIES = ("dense", "moe")
 
 
 def _names(entry) -> Tuple[str, ...]:
@@ -231,16 +235,15 @@ def block_of(x: torch.Tensor, mesh, spec: Sequence) -> torch.Tensor:
     return x
 
 
-def _placed_spec(d, mapping, family: str):
-    """The spec a parameter of ``family`` with def ``d`` is placed by
-    (None: it stays plain): the dense family's whole spec; another
-    family's leading ``expert`` axis alone (the router, whose expert
-    axis is its last, is read whole by every rank, as the reference's
-    ``shard_map`` takes it, ``P(None, None)``)."""
-    if family in LAYOUT_FAMILIES:
+def _placed_spec(d, mapping, whole: bool):
+    """The spec a parameter with def ``d`` is placed by (None: it stays
+    plain): its whole spec, or with ``whole`` false its leading
+    ``expert`` axis alone (the experts' ``we_*``; the router, whose
+    expert axis is its last, stays whole)."""
+    if whole:
         spec = tuple(_entry(mapping.get(a)) if a is not None else None
                      for a in d.axes)
-    elif d.axes and d.axes[0] in LOCAL_PARAM_AXES["other"]:
+    elif d.axes and d.axes[0] == "expert":
         spec = (_entry(mapping.get(d.axes[0])),) + (None,) * (
             len(d.axes) - 1)
     else:
@@ -248,30 +251,34 @@ def _placed_spec(d, mapping, family: str):
     return spec if any(e is not None for e in spec) else None
 
 
-def distribute_model(model: nn.Module, rules: ShardingRules) -> nn.Module:
+def distribute_model(model: nn.Module, rules: ShardingRules, *,
+                     experts_only: bool = False) -> nn.Module:
     """Place ``model``'s full parameters (each rank holding all of them,
     as ``models/convert.py`` loads them) by ``rules`` on ``rules.mesh``.
     A parameter whose spec (:func:`_placed_spec`) names a mesh axis
     becomes a DTensor with :func:`placements_of` that spec, holding only
     this rank's block, cut locally with no communication: in the dense
-    family every such parameter (the reference's FSDP and tensor
-    parallelism, ``partition_specs`` of its defs), in the others the
-    experts' ``we_*``.  The rest stay plain and whole.  Returns
-    ``model``."""
+    and moe families every such parameter (the reference's FSDP, tensor
+    and expert parallelism, ``partition_specs`` of its defs); with
+    ``experts_only``, and in the other families, the experts' ``we_*``
+    (the model is marked so, and :func:`layout_rules` then leaves it
+    out).  The rest stay plain and whole.  Returns ``model``."""
     from torch.distributed.tensor import DTensor
     from repro_torch.models.params import ParamDef, ParamTree
     mesh = rules.mesh
     if not rules.enabled or mesh is None:
         return model
     cfg = getattr(model, "cfg", None)
-    family = cfg.family if cfg is not None else None
+    whole = (cfg is not None and cfg.family in LAYOUT_FAMILIES
+             and not experts_only)
+    model.experts_only = experts_only
     for tree in model.modules():
         if not isinstance(tree, ParamTree):
             continue
         for name, d in tree.defs.items():
             if not isinstance(d, ParamDef):
                 continue
-            spec = _placed_spec(d, rules.mapping, family)
+            spec = _placed_spec(d, rules.mapping, whole)
             p = tree[name]
             if spec is None or isinstance(p.data, DTensor):
                 continue
@@ -285,23 +292,28 @@ def distribute_model(model: nn.Module, rules: ShardingRules) -> nn.Module:
     return model
 
 
-def layout_rules(cfg: ModelConfig) -> Optional["ShardingRules"]:
-    """The rules in force when a model of ``cfg`` runs the reference's
-    sharded program (rules with a mesh, a family of
-    ``LAYOUT_FAMILIES``), else None: its loss is then the mean over the
-    global batch, each rank's loss its term of it, and the training
+def layout_rules(model: nn.Module) -> Optional["ShardingRules"]:
+    """The rules in force when ``model`` runs the reference's sharded
+    program (rules with a mesh, a family of ``LAYOUT_FAMILIES``, not
+    placed ``experts_only``), else None: its loss is then the mean over
+    the global batch, each rank's loss its term of it, and the training
     step sums the gradients over the batch axes."""
     rules = _current.get()
     if not rules.enabled or rules.mesh is None \
-            or cfg.family not in LAYOUT_FAMILIES:
+            or model.cfg.family not in LAYOUT_FAMILIES \
+            or getattr(model, "experts_only", False):
         return None
     return rules
 
 
-def laid_out(model: nn.Module) -> bool:
-    """Whether any of ``model``'s parameters is placed (a DTensor)."""
-    from torch.distributed.tensor import DTensor
-    return any(isinstance(p, DTensor) for p in model.parameters())
+def seq_split(rules: ShardingRules) -> Optional["Split"]:
+    """The split of the decode cache's sequence (``kv_seq``) over the
+    rules' mesh, None where the rules keep it whole."""
+    entry = rules.mapping.get("kv_seq")
+    if not entry or rules.mesh is None:
+        return None
+    return Split(group_of(rules.mesh, entry), *axis_rank(rules.mesh, entry),
+                 axes=_names(entry))
 
 
 # ---------------------------------------------------------------------------
@@ -310,11 +322,13 @@ def laid_out(model: nn.Module) -> bool:
 
 @dataclass(frozen=True)
 class Split:
-    """A parameter's block of the ``model`` axis: the axis's process
-    group, this rank's index on it and the axis's size."""
+    """A block of a mesh axis (``model``, or the ``axes`` taken
+    together): the axis's process group, this rank's index on it and
+    the axis's size."""
     group: Any
     rank: int
     size: int
+    axes: Tuple[str, ...] = ("model",)
 
 
 def model_split(p) -> Optional[Split]:
@@ -349,6 +363,42 @@ def take(p) -> torch.Tensor:
     return t
 
 
+def take_whole(p) -> torch.Tensor:
+    """A parameter whole on every rank: a plain tensor as it is; a
+    DTensor's blocks gathered over every mesh axis its placements shard
+    (:class:`_GatherWhole`).  For a weight that every rank of ``model``
+    applies alike to the tokens they share (the moe router), so that
+    each holds its whole gradient."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(p, DTensor):
+        return p
+    return _GatherWhole.apply(p.to_local(), p.device_mesh,
+                              tuple(p.placements))
+
+
+def gather_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The all-gather over ``group`` of each rank's block of ``x`` along
+    ``dim``, the blocks in the group's rank order (not differentiable)."""
+    n = dist.get_world_size(group)
+    xm = x.movedim(dim, 0).contiguous()
+    out = xm.new_empty((n * xm.shape[0], *xm.shape[1:]))
+    with collective():
+        dist.all_gather_into_tensor(out, xm, group=group)
+    return out.movedim(0, dim).contiguous()
+
+
+def reduce_scatter_dim(g: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The reduce-scatter (sum) over ``group`` of ``g`` along ``dim``:
+    each rank keeps its block of the sum, in the group's rank order (not
+    differentiable)."""
+    n = dist.get_world_size(group)
+    gm = g.movedim(dim, 0).contiguous()
+    out = gm.new_empty((gm.shape[0] // n, *gm.shape[1:]))
+    with collective():
+        dist.reduce_scatter_tensor(out, gm, group=group)
+    return out.movedim(0, dim).contiguous()
+
+
 class _GatherShards(torch.autograd.Function):
     """The FSDP gather: forward, the all-gather over ``group`` of each
     rank's block along ``dim``; backward, the reduce-scatter (sum) of the
@@ -358,21 +408,62 @@ class _GatherShards(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, dim, group):
         ctx.dim, ctx.group = dim, group
-        n = dist.get_world_size(group)
-        xm = x.movedim(dim, 0).contiguous()
-        out = xm.new_empty((n * xm.shape[0], *xm.shape[1:]))
-        with collective():
-            dist.all_gather_into_tensor(out, xm, group=group)
-        return out.movedim(0, dim).contiguous()
+        return gather_dim(x, dim, group)
 
     @staticmethod
     def backward(ctx, g):
-        n = dist.get_world_size(ctx.group)
-        gm = g.movedim(ctx.dim, 0).contiguous()
-        out = gm.new_empty((gm.shape[0] // n, *gm.shape[1:]))
-        with collective():
-            dist.reduce_scatter_tensor(out, gm, group=ctx.group)
-        return out.movedim(0, ctx.dim).contiguous(), None, None
+        return reduce_scatter_dim(g, ctx.dim, ctx.group), None, None
+
+
+class _GatherWhole(torch.autograd.Function):
+    """:func:`take_whole`: forward, the all-gather of a DTensor's local
+    block ``x`` over each dimension of ``mesh`` that ``placements``
+    shard; backward, over ``model`` this rank's block of the gradient (the
+    ranks of ``model`` share one batch block and compute alike, so each
+    holds the whole gradient already), over the other axes the
+    reduce-scatter (sum) of the FSDP gather."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, placements):
+        from torch.distributed.tensor import Shard
+        ctx.dims = [(mesh.mesh_dim_names[i], pl.dim, mesh.get_group(i),
+                     mesh.get_local_rank(i))
+                    for i, pl in enumerate(placements)
+                    if isinstance(pl, Shard)][::-1]
+        for _, dim, group, _ in ctx.dims:
+            x = gather_dim(x, dim, group)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        for name, dim, group, rank in reversed(ctx.dims):
+            if name == "model":
+                n = g.shape[dim] // dist.get_world_size(group)
+                g = g.narrow(dim, rank * n, n).contiguous()
+            else:
+                g = reduce_scatter_dim(g, dim, group)
+        return g, None, None
+
+
+def unblock(x: torch.Tensor, mesh, spec: Sequence) -> torch.Tensor:
+    """The whole tensor of this rank's block ``x`` under ``spec`` (the
+    inverse of :func:`block_of`), gathered over each axis the spec
+    names, the minor axis of an entry first (not differentiable)."""
+    for d, entry in enumerate(spec):
+        for name in reversed(_names(entry)):
+            x = gather_dim(x, d, mesh.get_group(name))
+    return x
+
+
+def relayout(x: torch.Tensor, mesh, src: Sequence,
+             dst: Sequence) -> torch.Tensor:
+    """This rank's block under the spec ``dst`` of the tensor whose block
+    under ``src`` is ``x`` (gathered whole, then cut): the step that
+    carries a prefill's cache (its kv heads on ``model`` only where they
+    divide the axis) to the decode layout's (its sequence on ``model``
+    where they do not).  Not part of the reference's program, whose
+    decode takes its cache in its own spec."""
+    return block_of(unblock(x, mesh, src), mesh, dst).clone()
 
 
 def head_range(n_heads: int, split: Split) -> Tuple[int, int]:

@@ -13,18 +13,21 @@ compiler: its dry-run runs the port's own program once, as rank 0 of
 the cell's world under the cell's rules, and counts what it does.  Two
 programs, by cell (:func:`sharded_cell`):
 
-* the dense family's train and prefill cells run the reference's
-  layout, as its ``lower_cell`` jits them: every parameter, moment and
-  cache block placed by its spec (``distribute_model``: FSDP of
-  ``embed`` over ``data``, tensor parallelism of the heads, the MLP and
-  the vocab over ``model``), activations laid out as the rules say,
+* the dense and moe families' cells, train, prefill and decode, run the
+  reference's layout, as its ``lower_cell`` jits them: every parameter,
+  moment and cache block placed by its spec (``distribute_model``: FSDP
+  of ``embed`` over ``data``, tensor parallelism of the heads, the MLP,
+  the shared experts and the vocab over ``model``, the experts over
+  ``model`` beside them; kimi-k2's int8 moments by ``_opt_specs``'
+  structured and flat branches), activations laid out as the rules say,
   training through ``train.step.build_train_step`` with the cell's
-  microbatches and remat;
-* every other cell runs the replicated program: the experts placed
-  (``distribute_model``), the batch and, for the ssm prefill, the
-  sequence split, no FSDP or tensor parallelism of the parameters;
-  training through ``train.dp_shard.build_dp_train_step``, the
-  reference's ``shard_map`` twin, with no microbatches.
+  microbatches and remat, decode with the cache's sequence over
+  ``model`` where the kv heads do not divide it (the flash-decoding
+  combine, ``models/layers.py``);
+* every other cell runs the replicated program: the batch and, for the
+  ssm prefill, the sequence split, no FSDP or tensor parallelism of the
+  parameters; training through ``train.dp_shard.build_dp_train_step``,
+  the reference's ``shard_map`` twin, with no microbatches.
 
 Either is traced so:
 
@@ -45,12 +48,15 @@ Either is traced so:
   signature traced once and counted for each, :class:`PieceOnceAdamW`;
   the sharded step's microbatches likewise, :class:`MicrobatchOnceStep`);
   prefill ``Model.prefill``; decode ``Model.decode_step`` at the last
-  position (``seq_len - 1``).  Each runs under
+  position (``seq_len - 1``): rank 0's trace is rank 0's work, and on a
+  cell whose cache's sequence is split over ``model`` the last position
+  lies in the last rank's block, so rank 0 writes no key (the other
+  ranks' work is not traced in its place).  Each runs under
   ``use_rules(make_rules(...))`` after ``distribute_model``, on the
   inputs' local blocks: under the sharded layout by their whole specs;
   else along the axes the replicated program splits, the batch and the
   rules' ``act_seq`` (the decode cache's sequence and heads whole, as
-  the port's decode reads them);
+  the replicated decode reads them);
 * the counts: FLOPs by ``torch.utils.flop_counter.FlopCounterMode`` (the
   kernels' ops count their plain versions' products); bytes accessed by
   a dispatch mode, each op's input and output bytes, 0 for a view; the
@@ -110,7 +116,8 @@ from repro_torch.roofline import hlo_collectives
 from repro_torch.train import compression
 from repro_torch.train.dp_shard import build_dp_train_step
 from repro_torch.train.optimizer import (AdamW, AdamWState, Quantized,
-                                         local_tensor, param_leaves)
+                                         local_tensor, param_leaves,
+                                         quantized_spec)
 from repro_torch.train.step import TrainStep
 
 #: the logical axes of an input that the port's program splits
@@ -135,18 +142,7 @@ def _opt_specs(params_specs: Dict[str, tuple], m_abs: Dict, fsdp: bool,
     for path, st in m_abs.items():
         spec = params_specs[path]
         if isinstance(st, Quantized):
-            parts = list(spec) + [None] * (st.q.dim() - 1 - len(spec))
-            if st.q.dim() == len(parts) + 1:
-                # structured blocks (..., D/Q, Q): inherit the param spec;
-                # a sharded trailing param axis moves to the blocks axis
-                # when the block count still divides the mesh axis
-                last = parts[-1] if parts else None
-                keep_last = last if (last is not None and
-                                     st.q.shape[-2] % 16 == 0) else None
-                qspec = (*parts[:-1], keep_last, None)
-            else:                      # flat fallback (small params)
-                nb = st.q.shape[0]
-                qspec = ("data", None) if (fsdp and nb % dp == 0) else ()
+            qspec = quantized_spec(tuple(st.q.shape), spec, fsdp, dp)
             out[path] = Quantized(qspec, qspec)
         else:
             out[path] = spec
@@ -578,10 +574,10 @@ def _port_spec(rules, axes, sharded: bool = False) -> tuple:
 def sharded_cell(cfg, shape: ShapeConfig) -> bool:
     """Whether a cell runs the reference's sharded layout (every
     parameter, moment and cache block placed by its spec; the training
-    step ``train.step.build_train_step``): the dense family's train and
-    prefill cells.  Every other cell runs the replicated program (only
-    experts placed; training through ``build_dp_train_step``)."""
-    return cfg.family in LAYOUT_FAMILIES and shape.kind != "decode"
+    step ``train.step.build_train_step``): every cell of the dense and
+    moe families, decode included.  Every other cell runs the replicated
+    program (training through ``build_dp_train_step``)."""
+    return cfg.family in LAYOUT_FAMILIES
 
 
 def _local_zeros(dims, dtype, spec, mesh, device) -> torch.Tensor:
@@ -648,11 +644,12 @@ def cell_step(model, shape: ShapeConfig, parallel: ParallelismConfig,
     A sharded cell (:func:`sharded_cell`) runs the reference's program:
     training ``train.step.build_train_step`` (the cell's microbatches
     and remat) on this rank's block of the batch, prefill
-    ``Model.prefill`` on the blocks of the batch and of the cache by
-    their specs.  The others run the replicated program: training
-    ``build_dp_train_step`` over the rules' batch axes on the global
-    batch (each rank takes its block), prefill and decode on the batch's
-    blocks with the cache's sequence and heads whole."""
+    ``Model.prefill`` and decode ``Model.decode_step`` on the blocks of
+    the batch and of the cache by their specs.  The others run the
+    replicated program: training ``build_dp_train_step`` over the rules'
+    batch axes on the global batch (each rank takes its block), prefill
+    and decode on the batch's blocks with the cache's sequence and heads
+    whole."""
     sharded = sharded_cell(model.cfg, shape)
     if shape.is_train:
         opt = optimizer(state_dtype=parallel.opt_state_dtype)
@@ -723,8 +720,7 @@ def lower_cell(arch: str, shape: ShapeConfig, *, multi_pod: bool,
                 _StaticShapes():
             model = build(cfg)
             abstract_tree(model, getattr(torch, parallel.param_dtype), dev)
-            if sharded_cell(cfg, shape) or cfg.family not in LAYOUT_FAMILIES:
-                distribute_model(model, rules)
+            distribute_model(model, rules)
             tr = trace_step(model, shape, parallel, rules, dev,
                             PieceOnceAdamW, MicrobatchOnceStep)
     finally:

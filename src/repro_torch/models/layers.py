@@ -19,7 +19,7 @@ Sq decoder rows over Sk encoder rows.  One-token decode stays plain
 torch (``_sdpa``), windowed, cross or not: the reference has no kernel
 for it.
 
-Under the reference's layout (a dense model placed by
+Under the reference's layout (a dense or moe model placed by
 ``distributed.sharding.distribute_model``; each parameter a DTensor of
 its spec), the layers compute on each rank's local blocks, as XLA lays
 out the reference's arrays by ``make_rules``: a parameter is read
@@ -42,8 +42,13 @@ the rank's vocab block.  A replicated input of a tensor-parallel layer
 enters through ``sharding.replicated_to_partial`` (its gradient summed
 over ``model``), and so does a replicated weight that each rank uses
 for its own heads only (``wk``/``wv`` when the kv heads do not divide,
-``q_norm``, ``k_norm``).  With no placed parameter every path computes
-what it computes on one device.
+``q_norm``, ``k_norm``).  Decode (:func:`attention_decode`) takes the
+cache's blocks by the decode rules' spec: where they put the cache's
+sequence on ``model`` (the kv heads do not divide the axis), each rank
+holds its block of positions of every kv head, and the attention is the
+flash-decoding combine (:func:`_attention_decode_tp`), the partial
+softmaxes that XLA partitions the reference's ``_sdpa`` into.  With no
+placed parameter every path computes what it computes on one device.
 
 Where a bf16 activation meets float32 weights (the encdec family's
 encoder takes its frame embeddings as bf16 whatever the parameters'
@@ -56,11 +61,14 @@ from __future__ import annotations
 from typing import Dict, Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.sharding import (head_range, model_split,
-                                              regroup, replicated_to_partial,
+from repro_torch.distributed.sharding import (collective, gather_dim,
+                                              head_range, model_split,
+                                              reduce_scatter_dim, regroup,
+                                              replicated_to_partial,
                                               sum_to_replicated, take)
 from repro_torch.kernels.flash_attention.ops import flash_mha
 from repro_torch.models.params import ParamDef
@@ -187,7 +195,11 @@ def _sdpa(q, k, v, mask, cfg: ModelConfig):
                                                       device=q.device))
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgqs,bskh->bqkgh", probs, v.to(F32))
-    return out.reshape(B, Sq, H, hd).to(q.dtype)
+    # contiguous: the strides the einsum leaves on a size-1 dimension
+    # differ between real and fake tensors, and ``matmul`` with ``wo``
+    # folds the rows into one product only when they line up
+    return out.reshape(B, Sq, H, hd).to(q.dtype,
+                                         memory_format=torch.contiguous_format)
 
 
 def attention(p, x: torch.Tensor, cfg: ModelConfig, *,
@@ -290,22 +302,25 @@ def _kv_for_heads(k, v, start: int, end: int, group: int):
 
 
 def write_kv(cache_k: torch.Tensor, cache_v: torch.Tensor, k: torch.Tensor,
-             v: torch.Tensor, slot: int) -> None:
+             v: torch.Tensor, slot: Optional[int]) -> None:
     """Write one token's key and value (B, 1, K, hd) at ``slot`` of the
-    caches (B, S, K, hd), in place.  Like the reference's
-    ``dynamic_update_slice``, a key of another type than the cache raises
-    ``TypeError``."""
+    caches (B, S, K, hd), in place; ``slot`` None writes nothing (the
+    position lies in another rank's block of the sequence).  Like the
+    reference's ``dynamic_update_slice``, a key of another type than the
+    cache raises ``TypeError``."""
     if k.dtype != cache_k.dtype or v.dtype != cache_v.dtype:
         raise TypeError(
             f"the KV cache is {cache_k.dtype} and the new key/value "
             f"{k.dtype}: the cache must have the activations' type")
-    cache_k[:, slot] = k[:, 0]
-    cache_v[:, slot] = v[:, 0]
+    if slot is not None:
+        cache_k[:, slot] = k[:, 0]
+        cache_v[:, slot] = v[:, 0]
 
 
 def attention_decode(p, x: torch.Tensor, cfg: ModelConfig, *,
                      cache_k: torch.Tensor, cache_v: torch.Tensor,
-                     index: int, window: int = 0, use_rope: bool = True):
+                     index: int, window: int = 0, use_rope: bool = True,
+                     seq=None):
     """One-token decode against a preallocated KV cache.
 
     x: (B, 1, D); cache_k/v: (B, S_max, K, hd); index: the position.
@@ -313,8 +328,14 @@ def attention_decode(p, x: torch.Tensor, cfg: ModelConfig, *,
     returns updated copies; the caller keeps only the new cache either
     way; :func:`write_kv`) and returns ``(y, cache_k, cache_v)``.
     ``window > 0`` masks the keys at or below ``index - window``, as the
-    reference.
+    reference.  With ``wq`` sharded over ``model``, or ``seq`` (the
+    split of the cache's sequence, ``sharding.seq_split``), the decode
+    layout's (:func:`_attention_decode_tp`).
     """
+    split = model_split(p["wq"])
+    if split is not None or seq is not None:
+        return _attention_decode_tp(p, x, cfg, cache_k, cache_v, index,
+                                    window, use_rope, split, seq)
     B = x.shape[0]
     hd = cfg.resolved_head_dim
     pos = torch.full((1,), index, dtype=torch.int32, device=x.device)
@@ -328,8 +349,124 @@ def attention_decode(p, x: torch.Tensor, cfg: ModelConfig, *,
     mask = valid[None, None, None, None, :]
     out = _sdpa(q, cache_k, cache_v, mask, cfg)
     out = out.reshape(B, 1, cfg.n_heads * hd)
-    y = torch.matmul(out, p["wo"])
+    y = torch.matmul(out, take(p["wo"]))
     return y, cache_k, cache_v
+
+
+def _attention_decode_tp(p, x, cfg: ModelConfig, cache_k, cache_v,
+                         index: int, window: int, use_rope: bool, split,
+                         seq):
+    """Decode under the reference's decode layout, on this rank's blocks
+    (no gradient: the collectives here do not differentiate).
+
+    * ``split`` (``wq`` over ``model``) alone: q is the rank's heads
+      (regrouped into whole heads where they do not divide the axis, as
+      :func:`_attention_tp`), k and v the rank's kv heads where ``wk`` is
+      sharded, else every kv head; ``_sdpa`` on the rank's heads against
+      the cache's kv heads they read; ``wo`` row-parallel, summed over
+      ``model``.
+    * ``seq`` (the cache holds the rank's block of positions, from
+      ``seq.rank * S_local``): the new key and value go into the cache
+      only on the rank whose block holds ``index``, and the attention is
+      the flash-decoding combine (:func:`_sdpa_partial`): each rank
+      scores its block, the maxima and the sums of exponentials are
+      reduced over ``seq``'s group, each rank's probability-weighted
+      values are its partial of the output.  Where ``seq`` is the
+      ``model`` axis, the rank's block needs every head's query: q's
+      column blocks are all-gathered over ``model`` (B x H x hd), the
+      heads' partials reduce-scattered back into the column blocks
+      ``wo``'s rows take (B x H x hd float32): no regroup, whether the
+      heads divide the axis or not.  Elsewhere the partials are summed
+      over ``seq``'s group.
+    """
+    B, hd = x.shape[0], cfg.resolved_head_dim
+    H, K = cfg.n_heads, cfg.n_kv_heads
+    pos = torch.full((1,), index, dtype=torch.int32, device=x.device)
+    q = _mm(x, take(p["wq"]))
+    if "bq" in p:
+        q = q + take(p["bq"])
+    all_heads = split is None or (seq is not None and seq.axes == ("model",))
+    if split is not None and all_heads:
+        q = gather_dim(q, -1, split.group)
+        s, e = 0, H
+    elif split is not None:
+        s, e = head_range(H, split)
+        if H % split.size:
+            q = regroup(q, H, hd, split)
+    else:
+        s, e = 0, H
+    q = q.reshape(B, 1, e - s, hd)
+    kv_sharded = model_split(p["wk"]) is not None
+    k = _mm(x, take(p["wk"]))
+    v = _mm(x, take(p["wv"]))
+    if "bk" in p:
+        k, v = k + take(p["bk"]), v + take(p["bv"])
+    k = k.reshape(B, 1, -1, hd)
+    v = v.reshape(B, 1, -1, hd)
+    if "q_norm" in p:
+        q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
+        k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
+    if use_rope:
+        q = rotary(q, pos, cfg.rope_theta)
+        k = rotary(k, pos, cfg.rope_theta)
+    S = cache_k.shape[1]
+    start = seq.rank * S if seq is not None else 0
+    write_kv(cache_k, cache_v, k, v,
+             index - start if start <= index < start + S else None)
+    kc, vc = (cache_k, cache_v) if all_heads or kv_sharded else \
+        _kv_for_heads(cache_k, cache_v, s, e, H // K)
+    kpos = start + torch.arange(S, device=x.device)
+    valid = kpos <= index
+    if window:
+        valid &= kpos > index - window
+    mask = valid[None, None, None, None, :]
+    if seq is None:
+        out = _sdpa(q, kc, vc, mask, cfg)
+    else:
+        out = _sdpa_partial(q, kc, vc, mask, seq.group)
+        if all_heads and split is not None:
+            out = reduce_scatter_dim(out.reshape(B, 1, H * hd), -1,
+                                      split.group)
+        else:
+            out = out.contiguous()
+            with collective():
+                dist.all_reduce(out, group=seq.group)
+        out = out.to(q.dtype)
+    out = out.reshape(B, 1, -1)
+    if split is not None and not all_heads and H % split.size:
+        out = regroup(out, H, hd, split, to_heads=False)
+    y = torch.matmul(out, take(p["wo"]))
+    if split is not None:
+        y = sum_to_replicated(y, split.group)
+    return y, cache_k, cache_v
+
+
+def _sdpa_partial(q, k, v, mask, group) -> torch.Tensor:
+    """This rank's partial of grouped attention over a sequence split
+    over ``group`` (q:(B,Sq,H,hd), k/v:(B,Sk,K,hd) the rank's block of
+    positions, ``mask`` its validity): ``_sdpa``'s scores, their maximum
+    and sum of exponentials reduced over the group (a block wholly
+    masked scores ``NEG_INF`` everywhere, and its exponentials vanish
+    against the group's maximum, which position 0 makes a real score),
+    the probabilities times the block's values in float32 (B,Sq,H,hd):
+    the group's partials sum to ``_sdpa``'s output before its cast."""
+    B, Sq, H, hd = q.shape
+    K = k.shape[2]
+    G = H // K if K else 1
+    qg = q.reshape(B, Sq, K, G, hd).to(F32)
+    scores = torch.einsum("bqkgh,bskh->bkgqs", qg, k.to(F32)) \
+        * (1.0 / hd ** 0.5)
+    scores = torch.where(mask, scores, torch.full((), NEG_INF,
+                                                  device=q.device))
+    m = torch.amax(scores, dim=-1, keepdim=True)
+    with collective():
+        dist.all_reduce(m, op=dist.ReduceOp.MAX, group=group)
+    ex = torch.exp(scores - m)
+    total = torch.sum(ex, dim=-1, keepdim=True)
+    with collective():
+        dist.all_reduce(total, group=group)
+    out = torch.einsum("bkgqs,bskh->bqkgh", ex / total, v.to(F32))
+    return out.reshape(B, Sq, H, hd)
 
 
 # ---------------------------------------------------------------------------
@@ -347,15 +484,21 @@ def mlp_defs(cfg: ModelConfig, d_ff: Optional[int] = None) -> Dict:
 
 
 def mlp(p, x: torch.Tensor) -> torch.Tensor:
-    """The gated MLP; column- then row-parallel when ``wi_gate`` is
-    sharded over ``model``."""
-    split = model_split(p["wi_gate"])
+    """The gated MLP (:func:`gated_mlp`)."""
+    return gated_mlp(x, p["wi_gate"], p["wi_up"], p["wo"])
+
+
+def gated_mlp(x: torch.Tensor, w_gate, w_up, w_out) -> torch.Tensor:
+    """``silu(x @ w_gate) * (x @ w_up) @ w_out``; column- then
+    row-parallel when ``w_gate`` is sharded over ``model`` (the input's
+    gradient summed over ``model``, the output summed over it)."""
+    split = model_split(w_gate)
     if split is not None:
         x = replicated_to_partial(x, split.group)
-    g = torch.matmul(x, take(p["wi_gate"]))
-    u = torch.matmul(x, take(p["wi_up"]))
+    g = torch.matmul(x, take(w_gate))
+    u = torch.matmul(x, take(w_up))
     h = F.silu(g.to(F32)).to(x.dtype) * u
-    y = torch.matmul(h, take(p["wo"]))
+    y = torch.matmul(h, take(w_out))
     return y if split is None else sum_to_replicated(y, split.group)
 
 

@@ -24,7 +24,7 @@ local path.
   that order; an ``index_add_`` on the card would add them by atomics,
   in an order that changes from run to run.
 * **Shared experts** — one dense gated MLP of width
-  ``n_shared * d_ff_expert``.
+  ``n_shared * d_ff_expert`` (``layers.gated_mlp``).
 
 * **Expert parallelism** — the twin of the reference's ``shard_map``
   branch, taken when the sharding rules (``distributed/sharding.py``)
@@ -35,19 +35,33 @@ local path.
   (assignments to other ranks' experts go to the overflow row), in the
   same sorted order, and the partial outputs are summed by an
   ``all_reduce`` over the expert axis's group.  The aux loss is averaged
-  over the batch axes' group.  A rank's expert weights are its
-  ``Shard(0)`` block, read with ``.to_local()``
-  (``sharding.distribute_model``); a whole ``(E, ...)`` tensor is cut
-  to the rank's experts.  Gradients: the ranks of the expert axis share
-  one loss term (the same batch block), so the sum of the partial
-  outputs passes the gradient back as it is and the tokens and gates
-  entering the dispatch sum theirs over the group
-  (``sharding.sum_to_replicated`` / ``replicated_to_partial``): each
-  rank holds the whole gradient of its block's loss for the replicated
-  weights, and its experts' part for its own.  The aux loss's mean over
-  the data ranks sums its gradient back over them, so the data ranks'
-  gradients averaged (as the data-parallel step does) are those of the
-  mean loss, as ``jax.grad`` of the reference's ``shard_map`` gives.
+  over the batch axes' group.  A rank's expert weights are its block of
+  a placed ``we_*`` (``sharding.distribute_model``), read through
+  ``sharding.take``; a whole ``(E, ...)`` tensor is cut to the rank's
+  experts.  Gradients: the ranks of the expert axis share one loss term
+  (the same batch block), so the sum of the partial outputs passes the
+  gradient back as it is and the tokens and gates entering the dispatch
+  sum theirs over the group (``sharding.sum_to_replicated`` /
+  ``replicated_to_partial``): each rank holds the whole gradient of its
+  block's loss for the replicated weights, and its experts' part for its
+  own.  The aux loss's mean over the data ranks sums its gradient back
+  over them, so the data ranks' gradients averaged (as the data-parallel
+  step does) are those of the mean loss, as ``jax.grad`` of the
+  reference's ``shard_map`` gives.
+
+* **The reference's layout** (a model that ``distribute_model`` placed
+  whole): tensor parallelism beside expert parallelism on ``model``, as
+  XLA lays out the reference's arrays by ``make_rules``.  The shared
+  experts are column- then row-parallel over ``model``, like the dense
+  MLP, their sum over ``model`` an all-reduce of its own beside the
+  experts' (the reference's order of the two sums); the router is read
+  whole (``sharding.take_whole``: gathered over ``model`` and, under
+  FSDP, over ``data``, the reference's ``P(None, None)``), its bytes
+  stored by its spec; a rank's experts are its ``model`` block of the
+  ``we_*``, their ``embed`` shards gathered over ``data`` under FSDP, as
+  the ``shard_map``'s ``P(ep_axis, None, None)`` gathers them.  The
+  attention around the layer is the dense family's tensor-parallel one
+  (``models/layers.py``).
 
 Without rules the dispatch runs locally over all experts, the
 reference's path "without a mesh".
@@ -62,7 +76,9 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.sharding import (all_reduce_over, current_rules,
                                               replicated_to_partial,
-                                              sum_to_replicated)
+                                              sum_to_replicated, take,
+                                              take_whole)
+from repro_torch.models.layers import gated_mlp
 from repro_torch.models.params import ParamDef
 
 F32 = torch.float32
@@ -203,10 +219,12 @@ def _dispatch_local(x2d: torch.Tensor, top_e: torch.Tensor,
 def local_experts(w: torch.Tensor, rank: int, n_local: int,
                   n_experts: int) -> torch.Tensor:
     """Expert rank ``rank``'s ``n_local`` experts of ``w``: a DTensor's
-    local block, or that slice of a whole ``(n_experts, ...)`` tensor."""
+    block over ``model`` with its FSDP shards gathered
+    (``sharding.take``), or that slice of a whole ``(n_experts, ...)``
+    tensor."""
     from torch.distributed.tensor import DTensor
     if isinstance(w, DTensor):
-        local = w.to_local()
+        local = take(w)
         if local.shape[0] != n_local:
             raise ValueError(f"expert block of {local.shape[0]} experts, "
                              f"expected {n_local}")
@@ -223,14 +241,8 @@ def moe_ffn(p, x: torch.Tensor,
     e = cfg.moe
     B, S, D = x.shape
     rules = current_rules()
-    shared_y = 0.0
-    if "ws_gate" in p:
-        g = torch.matmul(x, p["ws_gate"])
-        u = torch.matmul(x, p["ws_up"])
-        h = F.silu(g.to(F32)).to(x.dtype) * u
-        shared_y = torch.matmul(h, p["ws_out"])
     x2d = x.reshape(B * S, D)
-    top_e, top_g, aux = _route(x2d, p["router"], e.top_k)
+    top_e, top_g, aux = _route(x2d, take_whole(p["router"]), e.top_k)
     cap = _capacity(B * S, e.top_k, e.n_experts, e.capacity_factor)
     if rules.enabled and rules.mesh is not None \
             and rules.ep_axis is not None:
@@ -250,4 +262,9 @@ def moe_ffn(p, x: torch.Tensor,
     else:
         y = _dispatch_local(x2d, top_e, top_g, cap, p["we_gate"],
                             p["we_up"], p["we_out"])
+    # the shared experts after the routed ones: x's gradient then sums
+    # their two products' first, as their tensor-parallel form does
+    shared_y = 0.0
+    if "ws_gate" in p:
+        shared_y = gated_mlp(x, p["ws_gate"], p["ws_up"], p["ws_out"])
     return y.reshape(B, S, D) + shared_y, aux * e.aux_loss_weight

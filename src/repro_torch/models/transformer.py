@@ -10,16 +10,19 @@ recomputes each block in the backward
 block, as the reference's ``jax.checkpoint`` of the scan body), under
 the sharding rules the forward ran under.
 
-The dense family runs the reference's sharded program when its
-parameters are placed (``sharding.distribute_model``) and the rules hold
-a mesh: the layers compute on local blocks (``models/layers.py``); each
-block's FSDP shards are gathered inside the body that ``_run``
-checkpoints, so remat gathers them again in the recompute; the loss is
-this rank's term of the mean over the global batch, its CE over the
-logits' vocab block (:func:`cross_entropy`); prefill writes the cache's
-local blocks.  Decode of a placed model raises ``ValueError`` (the
-reference's sharded decode puts the cache's sequence on ``model``, which
-is not ported).
+The dense and moe families run the reference's sharded program when
+their parameters are placed (``sharding.distribute_model``) and the
+rules hold a mesh (``sharding.layout_rules``): the layers compute on
+local blocks (``models/layers.py``, ``models/moe.py``); each block's
+FSDP shards are gathered inside the body that ``_run`` checkpoints, so
+remat gathers them again in the recompute; the loss is this rank's term
+of the mean over the global batch, its CE over the logits' vocab block
+(:func:`cross_entropy`), plus the moe's aux loss (already the mean over
+the batch ranks) over their count; prefill writes the cache's local
+blocks; decode takes the rank's block of the tokens and the cache's
+blocks by the decode rules' spec (the sequence over ``model`` where the
+kv heads do not divide it: the flash-decoding combine,
+``layers.attention_decode``) and returns the rank's vocab block.
 
 The vlm family is the dense stack with ``patch_embeds`` (B, P, d), cast
 to the activations' type, in front of the token embeddings; positions
@@ -76,10 +79,10 @@ import torch.distributed as dist
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import FAMILIES, ModelConfig
-from repro_torch.distributed.sharding import (LAYOUT_FAMILIES,
-                                              current_rules, group_of,
-                                              laid_out, layout_rules,
-                                              use_rules, vocab_parallel_nll)
+from repro_torch.distributed.sharding import (axis_rank, current_rules,
+                                              group_of, layout_rules,
+                                              seq_split, use_rules,
+                                              vocab_parallel_nll)
 from repro_torch.models import layers as lyr
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
@@ -335,19 +338,22 @@ def loss_fn(params, cfg: ModelConfig, batch: Dict, *,
     encoder family the class CE (labels (B,) int), plus the blocks'
     auxiliary loss.  Under the reference's layout
     (``sharding.layout_rules``) the CE runs over the logits' vocab block
-    and is this rank's term of the mean over the global batch."""
+    and is this rank's term of the mean over the global batch (the aux
+    loss, the same on every batch rank, its share)."""
     logits, aux = forward(params, cfg, batch, remat=remat)
     if cfg.family == "encoder":
         return cross_entropy(logits[:, None, :], batch["labels"][:, None],
                              cfg.n_classes) + aux
-    rules = layout_rules(cfg)
+    rules = layout_rules(params)
     if rules is None:
         return cross_entropy(logits, batch["labels"], cfg.vocab_size) + aux
     group = group_of(rules.mesh, rules.batch_axes) if rules.batch_axes \
         else None
+    # aux is the same mean on every batch rank: each adds its share
+    n = axis_rank(rules.mesh, rules.batch_axes)[1]
     return cross_entropy(logits, batch["labels"], cfg.vocab_size,
                          vocab=lyr.vocab_split(params["embed"]),
-                         batch_group=group) + aux
+                         batch_group=group) + aux / n
 
 
 # ---------------------------------------------------------------------------
@@ -442,20 +448,23 @@ def decode_step(params, cfg: ModelConfig, cache: Dict, tokens: torch.Tensor,
     reference), and so does the hybrid family, whose ring buffers ``ak``
     and ``av`` it updates in place.  As in the reference, float32
     parameters raise ``TypeError`` on the bf16 attention cache.
+
+    Under the reference's layout (``sharding.layout_rules``) ``tokens``
+    are this rank's block by ``("batch", None)``, ``cache`` the blocks by
+    the cache's spec (its sequence split where the rules map ``kv_seq``,
+    ``sharding.seq_split``), and the logits the rank's vocab block.
     """
     index = int(index)
-    if cfg.family in LAYOUT_FAMILIES and laid_out(params["embed"]):
-        raise ValueError(
-            "decode_step runs on a model whose parameters are whole: "
-            "the reference's sharded decode (kv_seq over model) is not "
-            "ported; decode a model that distribute_model did not place")
+    rules = layout_rules(params)
+    seq = seq_split(rules) if rules is not None else None
     x = lyr.embed(params["embed"], tokens)
     if cfg.family in ("dense", "moe", "vlm") + ENCDEC:
         for l, lp in enumerate(params["blocks"]):
             h = lyr.rmsnorm(x, lp["ln1"], cfg.norm_eps)
             a, _, _ = lyr.attention_decode(lp["attn"], h, cfg,
                                            cache_k=cache["k"][l],
-                                           cache_v=cache["v"][l], index=index)
+                                           cache_v=cache["v"][l], index=index,
+                                           seq=seq)
             x = x + a
             if "cross" in lp:
                 h = lyr.rmsnorm(x, lp["lnc"], cfg.norm_eps)

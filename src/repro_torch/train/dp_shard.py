@@ -12,8 +12,9 @@ contract of ``train/step.py`` with the error-feedback state beside it:
 
 * parameters are replicated (each rank holds all of them) and updated
   in place by the port's ``AdamW``; the experts that
-  ``distributed.sharding.distribute_model`` placed (the expert-parallel
-  moe, run under the cell's rules) are each rank's local blocks;
+  ``distributed.sharding.distribute_model(..., experts_only=True)``
+  placed (the expert-parallel moe, run under the cell's rules) are each
+  rank's local blocks;
 * every rank is handed the global batch and takes its contiguous slice
   along dim 0 by its index on ``axis`` — one mesh axis, or several taken
   together (the rules' batch axes, ``("pod", "data")``), the block

@@ -36,23 +36,37 @@ time, and rows of at most ``CHUNK`` elements — so the float32
 transients stay small.
 
 A parameter that ``distributed.sharding.distribute_model`` placed as a
-DTensor (the dense family's FSDP and tensor-parallel blocks, the experts
-of the expert-parallel moe) is held and updated as its local block: its
-state has the block's shape (the reference's ``_opt_specs``: a moment
-takes its parameter's spec), and its squared gradient is summed over the
+DTensor (the FSDP, tensor- and expert-parallel blocks of the dense and
+moe families, the experts of the data-parallel step's moe) is held and
+updated as its local block, and its squared gradient is summed over the
 groups of the mesh dimensions it is sharded on, so that ``gnorm`` (and
 the clipping) is the whole model's on every rank, each element counted
 once; a replicated parameter, whose gradient every rank holds whole, is
-counted once (:meth:`AdamW._sq_norm`).
+counted once (:meth:`AdamW._sq_norm`).  Its moments are laid out as the
+reference's ``_opt_specs`` lays them out (``launch/dryrun.py``): a
+float32 or bf16 moment takes its parameter's spec, so it has the local
+block's shape; an int8 moment of a model placed by the reference's
+layout takes :func:`quantized_spec` of the reference's blocks
+(:class:`MomentLayout`).  Where those blocks are the local block's own
+(the trailing axis whole, or split into whole blocks as the parameter
+is) the rank updates its block alone; where the spec keeps the blocks
+whole across a split trailing axis, the rank gathers its rows' gradient
+and parameter along it and updates whole blocks; the flat blocks (split
+over ``data`` or replicated) take the leaf whole.  Each rank codes whole
+blocks only, so the payloads are what one device codes from the same
+gradients.
 """
 from __future__ import annotations
 
 import math
+from functools import partial
 from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.distributed
 
+from repro_torch.distributed.sharding import (axis_rank, block_of, gather_dim,
+                                              group_of, unblock)
 from repro_torch.models.params import ParamDef, ParamTree, Stacked
 
 QBLOCK = 256
@@ -135,6 +149,105 @@ def _structured(shape: Tuple[int, ...]) -> bool:
     """Blocks follow the trailing axis (the reference's structure-
     preserving case): any row range of the leaf quantizes on its own."""
     return len(shape) >= 1 and shape[-1] % QBLOCK == 0
+
+
+def blocked_shape(shape: Tuple[int, ...]) -> Tuple[int, ...]:
+    """The shape of a leaf's int8 payload: (..., D/Q, Q) when the
+    trailing axis divides Q, else (ceil(n/Q), Q) of the flattened leaf."""
+    if _structured(shape):
+        return (*shape[:-1], shape[-1] // QBLOCK, QBLOCK)
+    return (-(-math.prod(shape) // QBLOCK), QBLOCK)
+
+
+def quantized_spec(blocked: Tuple[int, ...], spec: Tuple, fsdp: bool,
+                   dp: int) -> Tuple:
+    """The reference's ``_opt_specs`` for one int8 payload (and its
+    scales) of shape ``blocked``, whose parameter has the spec ``spec``:
+    structured blocks (..., D/Q, Q) inherit the parameter's spec, a
+    sharded trailing axis moving to the blocks axis where D/Q divides by
+    16 (the reference's literal); flat blocks split over ``data`` under
+    FSDP where their count divides the data axis, else replicated.  A
+    one-dimensional parameter's flat blocks take the first branch, as in
+    the reference."""
+    parts = list(spec) + [None] * (len(blocked) - 1 - len(spec))
+    if len(blocked) == len(parts) + 1:
+        last = parts[-1] if parts else None
+        keep_last = last if (last is not None and
+                             blocked[-2] % 16 == 0) else None
+        return (*parts[:-1], keep_last, None)
+    return ("data", None) if (fsdp and blocked[0] % dp == 0) else ()
+
+
+def param_spec(t: torch.Tensor) -> Tuple:
+    """A parameter's spec as placed: per dimension the mesh axis that
+    shards it (a tuple of several, major first), None elsewhere."""
+    from torch.distributed.tensor import DTensor, Shard
+    if not isinstance(t, DTensor):
+        return (None,) * t.dim()
+    axes = [()] * t.dim()
+    names = t.device_mesh.mesh_dim_names
+    for i, pl in enumerate(t.placements):
+        if isinstance(pl, Shard):
+            axes[pl.dim] += (names[i],)
+    return tuple(None if not a else a[0] if len(a) == 1 else a for a in axes)
+
+
+class MomentLayout(NamedTuple):
+    """An int8 moment's layout under the reference's: the leaf's spec
+    (a stacked leaf's with its layers' ``None``) and whole shape, its
+    payload's spec (:func:`quantized_spec`) and the mesh; ``mode`` is
+    how the rank updates it: ``"local"`` (its blocks are the local
+    block's), ``"trailing"`` (whole blocks across the split trailing
+    axis) or ``"whole"``."""
+    spec: Tuple
+    shape: Tuple[int, ...]
+    qspec: Tuple
+    mesh: object
+
+    @property
+    def mode(self) -> str:
+        if not any(self.qspec) and not any(self.spec):
+            return "local"
+        if _structured(self.shape):
+            if self.qspec == (*self.spec, None):
+                return "local"
+            if self.qspec == (*self.spec[:-1], None, None):
+                return "trailing"
+        return "whole"
+
+    def local_blocked(self) -> Tuple[int, ...]:
+        """The rank's block of the payload."""
+        out = list(blocked_shape(self.shape))
+        for d, entry in enumerate(self.qspec):
+            out[d] //= axis_rank(self.mesh, entry)[1]
+        return tuple(out)
+
+
+def moment_layouts(params: ParamTree) -> Dict[str, MomentLayout]:
+    """The int8 moments' layouts of a model placed by the reference's
+    layout, by leaf path; none for a model with no placed parameter or
+    placed ``experts_only`` (its moments have its local blocks' shapes).
+    FSDP is in force where some parameter is sharded over ``data``, as
+    the rules shard ``embed`` there."""
+    from torch.distributed.tensor import DTensor, Shard
+    placed = dict(params.named_parameters())
+    dts = [p for p in placed.values() if isinstance(p, DTensor)]
+    if not dts or getattr(params, "experts_only", False):
+        return {}
+    mesh = dts[0].device_mesh
+    names = mesh.mesh_dim_names
+    fsdp = any(isinstance(pl, Shard) and names[i] == "data"
+               for p in dts for i, pl in enumerate(p.placements))
+    dp = mesh.size(names.index("data")) if "data" in names else 1
+    out = {}
+    for leaf in param_leaves(params):
+        spec = param_spec(placed[leaf.names[0]])
+        if leaf.stacked:
+            spec = (None, *spec)
+        out[leaf.path] = MomentLayout(
+            spec, leaf.shape,
+            quantized_spec(blocked_shape(leaf.shape), spec, fsdp, dp), mesh)
+    return out
 
 
 def _blocks(x: torch.Tensor) -> torch.Tensor:
@@ -222,26 +335,32 @@ class AdamW:
 
     def init(self, params: ParamTree) -> AdamWState:
         """Zero moments for every reference leaf of ``params``, on the
-        parameters' device."""
+        parameters' device, each the rank's block of its layout."""
         named = dict(params.named_parameters())
+        layouts = self._layouts(params)
         m, v = {}, {}
         for leaf in local_leaves(params):
             dev = named[leaf.names[0]].device
-            m[leaf.path] = self._zero_state(leaf.shape, dev, torch.int8)
-            v[leaf.path] = self._zero_state(leaf.shape, dev, torch.uint8)
+            lay = layouts.get(leaf.path)
+            blocked = lay.local_blocked() if lay else None
+            m[leaf.path] = self._zero_state(leaf.shape, dev, torch.int8,
+                                            blocked)
+            v[leaf.path] = self._zero_state(leaf.shape, dev, torch.uint8,
+                                            blocked)
         step = torch.zeros((), dtype=torch.int32)
         return AdamWState(step, m, v)
 
-    def _zero_state(self, shape, device, code_dtype):
+    def _layouts(self, params: ParamTree) -> Dict[str, MomentLayout]:
+        return moment_layouts(params) if self.state_dtype == "int8" else {}
+
+    def _zero_state(self, shape, device, code_dtype, blocked=None):
         """The state of a zero moment, made directly (what ``_to_state``
-        of zeros gives, without the float32 leaf)."""
+        of zeros gives, without the float32 leaf); an int8 payload of
+        ``blocked`` shape where given, else of ``shape``'s blocks."""
         if self.state_dtype != "int8":
             return torch.zeros(shape, device=device,
                                dtype=getattr(torch, self.state_dtype))
-        if _structured(shape):
-            blocked = (*shape[:-1], shape[-1] // QBLOCK, QBLOCK)
-        else:
-            blocked = (-(-math.prod(shape) // QBLOCK), QBLOCK)
+        blocked = blocked or blocked_shape(shape)
         return Quantized(
             torch.zeros(blocked, dtype=code_dtype, device=device),
             torch.zeros((*blocked[:-1], 1), dtype=F32, device=device))
@@ -281,10 +400,15 @@ class AdamW:
         if isinstance(lr, torch.Tensor):
             lr = lr.to(dev)
 
+        layouts = self._layouts(params)
         with torch.no_grad():
             for leaf in leaves:
-                self._update_leaf(leaf, named, grads, state, scale, lr,
-                                  b1c, b2c)
+                lay = layouts.get(leaf.path)
+                mode = lay.mode if lay else "local"
+                update = {"local": self._update_leaf,
+                          "trailing": partial(self._update_trailing, lay),
+                          "whole": partial(self._update_whole, lay)}[mode]
+                update(leaf, named, grads, state, scale, lr, b1c, b2c)
         return params, AdamWState(step, state.m, state.v), gnorm
 
     def _sq_norm(self, pieces, sq):
@@ -375,6 +499,53 @@ class AdamW:
             vs = v if not leaf.stacked else (
                 Quantized(v.q[i], v.scale[i]) if quant else v[i])
             self._update_rows(t, g, ms, vs, scale, lr, b1c, b2c, decay)
+
+    def _update_trailing(self, lay: MomentLayout, leaf: Leaf, named, grads,
+                         state, scale, lr, b1c, b2c) -> None:
+        """An int8 leaf whose payload keeps its blocks whole across the
+        trailing axis that the parameter splits (``lay.mode ==
+        "trailing"``): each layer's parameter and gradient gathered
+        along that axis (the rank's rows, every column), its rows of the
+        moments updated whole, its columns of the parameter kept."""
+        entry = lay.spec[-1]
+        group = group_of(lay.mesh, entry)
+        r = axis_rank(lay.mesh, entry)[0]
+        m, v = state.m[leaf.path], state.v[leaf.path]
+        decay = len(leaf.shape) >= 2
+        for i, n in enumerate(leaf.names):
+            t = named[n]
+            wide = gather_dim(t, -1, group)
+            g = gather_dim(local_tensor(grads[n]), -1, group)
+            ms, vs = (Quantized(m.q[i], m.scale[i]),
+                      Quantized(v.q[i], v.scale[i])) if leaf.stacked \
+                else (m, v)
+            self._update_rows(wide, g, ms, vs, scale, lr, b1c, b2c, decay)
+            w = t.shape[-1]
+            t.copy_(wide.narrow(-1, r * w, w))
+
+    def _update_whole(self, lay: MomentLayout, leaf: Leaf, named, grads,
+                      state, scale, lr, b1c, b2c) -> None:
+        """An int8 leaf whose payload's blocks are not the local block's
+        (flat blocks, split over ``data`` or replicated): the leaf, its
+        gradient and its moments gathered whole, updated as on one
+        device (:meth:`_update_leaf`), the rank's blocks kept."""
+        mesh = lay.mesh
+        spec = lay.spec[1:] if leaf.stacked else lay.spec
+        whole = {n: unblock(named[n], mesh, spec) for n in leaf.names}
+        g = {n: unblock(local_tensor(grads[n]), mesh, spec)
+             for n in leaf.names}
+        m, v = state.m[leaf.path], state.v[leaf.path]
+        mw, vw = (Quantized(*(unblock(t, mesh, lay.qspec) for t in st))
+                  for st in (m, v))
+        self._update_leaf(leaf._replace(shape=lay.shape), whole, g,
+                          AdamWState(None, {leaf.path: mw},
+                                     {leaf.path: vw}),
+                          scale, lr, b1c, b2c)
+        for n in leaf.names:
+            named[n].copy_(block_of(whole[n], mesh, spec))
+        for dst, src in ((m, mw), (v, vw)):
+            for a, b in zip(dst, src):
+                a.copy_(block_of(b, mesh, lay.qspec))
 
     def _update_rows(self, t, g, m, v, scale, lr, b1c, b2c, decay) -> None:
         """Update one layer's tensor (and its state views) in row pieces

@@ -107,7 +107,7 @@ class TrainStep:
         else:
             loss, grads = self.loss_and_grads(model, params, batch)
             grads = [local_tensor(g) for g in grads]
-        rules = layout_rules(model.cfg)
+        rules = layout_rules(model)
         if rules is not None and rules.batch_axes:
             groups = {}
 

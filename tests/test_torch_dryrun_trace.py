@@ -27,7 +27,9 @@ it goes through (``repro_torch::flash_attention``, ``::flash_attention_bwd``,
   pure data parallelism over both axes) and a reduced llama3-405b
   training step on the reference's layout (FSDP and TP, 4 microbatches,
   block remat; the trace runs the first microbatch and counts it for the
-  rest) for real; rank 0's
+  rest) and a reduced kimi-k2 decode step on a (1, 4) mesh (the cache's
+  sequence over ``model``: the flash-decoding combine, rank 0 writing no
+  key) for real; rank 0's
   FLOPs, bytes accessed and collectives per kind (count and wire bytes)
   **equal** those of ``lower_cell`` on a fake world of 4 with the same
   mesh; in the same spawn one data-parallel step of the expert-parallel
@@ -78,7 +80,10 @@ SEQ = 64
 #: the real-execution cells: (arch, shape, mesh)
 REAL_CELLS = [("qwen3-8b", ("prefill_32k", 32, 4, "prefill"), (2, 2)),
               ("mamba2-1.3b", ("train_4k", 16, 256, "train"), (2, 2)),
-              ("llama3-405b", ("train_4k", 16, 8, "train"), (2, 2))]
+              ("llama3-405b", ("train_4k", 16, 8, "train"), (2, 2)),
+              # the sharded decode: the cache's sequence over model 4 (the
+              # combine), the experts beside the heads
+              ("kimi-k2-1t-a32b", ("decode_32k", 32, 4, "decode"), (1, 4))]
 
 
 def _k4_inputs(case):

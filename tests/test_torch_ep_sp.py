@@ -7,7 +7,9 @@ reference, in one world of 4 gloo ranks on the CPU
   ``test_moe_ep_matches_local_dispatch``: reduced deepseek-moe-16b in
   float32 at capacity factor 100 (no drops, so per-rank capacities
   cannot differ from the local dispatch's), each rank holding only its
-  experts (``distribute_model``), on a (2, 2) and a (1, 4) mesh of the
+  experts (``distribute_model(..., experts_only=True)``: the
+  data-parallel step's program, its loss the local mean), on a (2, 2)
+  and a (1, 4) mesh of the
   same world.  The gathered logits are held to the reference's local
   forward within its 1e-4.  The aux loss is the mean over the data ranks
   of each rank's batch block's, as the reference's ``pmean`` gives it:

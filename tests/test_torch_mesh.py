@@ -9,7 +9,8 @@ registry's ``default_parallelism``).
   debug mesh's layout, the production mesh's refusal, DTensor
   placements of the rules' specs, each rank's block of a batch,
   ``shard`` on plain tensors and DTensors, and ``distribute_model``
-  holding each rank's experts only.
+  with ``experts_only`` (the data-parallel step's expert-parallel
+  program) holding each rank's experts only.
 
 The card's world of one over NCCL is tested in
 ``tests/test_torch_cuda.py`` (``-k nccl``), which imports no jax.

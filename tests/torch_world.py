@@ -1,6 +1,6 @@
 """Small worlds of ranks for the port's multi-rank tests (not a test
 module: the ``test_torch_{mesh,dp,ep_sp,pp_elastic,dryrun_trace,
-fsdp_tp}.py`` files import it).
+fsdp_tp,layout_decode_moe}.py`` files import it).
 
 :func:`spawn` starts ``world`` Python processes of this file, one per
 rank.  Each joins a process group that meets on a file store under the
@@ -145,7 +145,7 @@ def case_mesh(rank, world, inputs, device):
 
     model = build(cfg).init(seed=0, device=device)
     full = {n: p.detach().clone() for n, p in model.named_parameters()}
-    distribute_model(model, rules)
+    distribute_model(model, rules, experts_only=True)
     kinds = {}
     for n, p in model.named_parameters():
         if isinstance(p, DTensor):
@@ -246,7 +246,7 @@ def case_ep_sp(rank, world, inputs, device):
         rules = make_rules(ep["cfg"], TRAIN_4K, ParallelismConfig(ep=True),
                            tp_size=shape[1], dp_size=shape[0], mesh=mesh)
         model = distribute_model(copy.deepcopy(base).requires_grad_(True),
-                                 rules)
+                                 rules, experts_only=True)
         local = local_block(tokens, rules, "batch", None)
         with use_rules(rules):
             logits, aux = model.forward({"tokens": local})
@@ -482,7 +482,7 @@ def case_nccl_world_of_one(rank, world, inputs, device):
     local, aux = model.forward({"tokens": toks})
     rules = make_rules(cfg, PREFILL_32K, default_parallelism(cfg, PREFILL_32K),
                        tp_size=1, dp_size=1, mesh=mesh)
-    distribute_model(model, rules)
+    distribute_model(model, rules, experts_only=True)
     n0 = flash_attention.launches
     with use_rules(rules):
         ep, ep_aux = model.forward({"tokens": toks})
@@ -568,7 +568,8 @@ def case_dryrun(rank, world, inputs, device):
     rules = make_rules(cfg, TRAIN_4K, ParallelismConfig(ep=True), tp_size=2,
                        dp_size=2, mesh=mesh)
     model = distribute_model(build(cfg).init(seed=0, dtype=torch.float32,
-                                             device=device), rules)
+                                             device=device), rules,
+                             experts_only=True)
     opt = AdamW(**inputs["ep_opt"])
     step = build_dp_train_step(model, opt, mesh, rules.batch_axes)
     with use_rules(rules):
@@ -686,10 +687,151 @@ def case_fsdp_tp(rank, world, inputs, device):
     return out
 
 
+def _moments_whole(model, state, mesh):
+    """Every leaf's moments gathered whole, by its path: a float32
+    moment by its parameter's placements, an int8 one (codes, scales) by
+    its payload's spec (``optimizer.moment_layouts``)."""
+    from torch.distributed.tensor import DTensor, Shard
+    from repro_torch.distributed.sharding import unblock
+    from repro_torch.train.optimizer import (Quantized, moment_layouts,
+                                             param_leaves)
+    placed = dict(model.named_parameters())
+    layouts = moment_layouts(model)
+    out = {}
+    for leaf in param_leaves(model):
+        lay = layouts.get(leaf.path)
+        m, v = state.m[leaf.path], state.v[leaf.path]
+        if isinstance(m, Quantized):
+            out[leaf.path] = tuple(Quantized(*(
+                unblock(t.contiguous(), mesh, lay.qspec) if lay else t
+                for t in st)) for st in (m, v))
+            continue
+        p = placed[leaf.names[0]]
+        pl = p.placements if isinstance(p, DTensor) else ()
+        if leaf.stacked and pl:
+            pl = tuple(Shard(x.dim + 1) if isinstance(x, Shard) else x
+                       for x in pl)
+        out[leaf.path] = tuple(_gather_placed(st, mesh, pl) if pl else
+                               st.detach().clone() for st in (m, v))
+    return out
+
+
+def case_layout_decode_moe(rank, world, inputs, device):
+    """The reference's sharded decode and the moe family's layout: for
+    each case of ``inputs`` (a config, a ``("data", "model")`` mesh
+    shape, the reference's initial parameters, a global batch):
+    ``steps`` steps of ``build_train_step`` under the train rules on the
+    placed model (if any), then on a fresh placement of the initial
+    parameters a prefill of ``prompt`` under the prefill rules, its
+    cache carried to the decode layout (``sharding.relayout``), and
+    ``decode`` steps of ``Model.decode_step`` under the decode rules at
+    ``s_max`` positions.  Returns the history, parameters and moments
+    (gathered whole), the prefill's and each decode step's logits, the
+    final cache, and per decode step whether this rank wrote the key
+    and whether its block of positions was wholly masked."""
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed.sharding import (distribute_model,
+                                                  local_block, make_rules,
+                                                  placements_of, relayout,
+                                                  seq_split, use_rules)
+    from repro_torch.models.params import partition_specs
+    from repro_torch.models.transformer import cache_defs
+    from repro_torch.train.optimizer import AdamW, moment_layouts
+    from repro_torch.train.step import build_train_step
+
+    out = {}
+    for key, case in inputs["cases"].items():
+        dp, tp = case["mesh"]
+        mesh = init_device_mesh(device, (dp, tp),
+                                mesh_dim_names=("data", "model"))
+        cfg = case["cfg"]
+        res = {}
+        if case["steps"]:
+            par = case["train_parallel"]
+            B, S = case["batch"]["tokens"].shape
+            rules = make_rules(cfg, ShapeConfig("train_4k", S, B, "train"),
+                               par, tp_size=tp, dp_size=dp, mesh=mesh)
+            model = distribute_model(_model(None, case["state"], cfg=cfg,
+                                            device=device), rules)
+            opt = AdamW(**case["opt"], state_dtype=par.opt_state_dtype)
+            state = opt.init(model)
+            step = build_train_step(model, par, opt)
+            batch = {k: local_block(v, rules, "batch", "act_seq")
+                     for k, v in case["batch"].items()}
+            hist = []
+            for _ in range(case["steps"]):
+                with use_rules(rules):
+                    model, state, m = step(model, state, batch)
+                hist.append((float(m["loss"]), float(m["grad_norm"])))
+            res.update(
+                hist=hist,
+                params={n: (p.detach().full_tensor()
+                            if isinstance(p, DTensor) else p.detach().clone())
+                        for n, p in model.named_parameters()},
+                moments=_moments_whole(model, state, mesh),
+                moment_local={path: tuple(st.q.shape) for path, st
+                              in state.m.items() if hasattr(st, "q")},
+                moment_modes={path: lay.mode for path, lay
+                              in moment_layouts(model).items()})
+        par = case["parallel"]
+        prompt = case["prompt"]
+        B, P = prompt.shape
+        s_max = case["s_max"]
+        pshape = ShapeConfig("prefill", P, B, "prefill")
+        dshape = ShapeConfig("decode", s_max, B, "decode")
+        prules = make_rules(cfg, pshape, par, tp_size=tp, dp_size=dp,
+                            mesh=mesh)
+        drules = make_rules(cfg, dshape, par, tp_size=tp, dp_size=dp,
+                            mesh=mesh)
+        cdefs = cache_defs(cfg, B, s_max)
+        pspecs = partition_specs(cdefs, prules.mapping)
+        dspecs = partition_specs(cdefs, drules.mapping)
+        model = distribute_model(_model(None, case["state"], cfg=cfg,
+                                        device=device), prules)
+        cache = {k: local_block(torch.zeros(d.shape, dtype=torch.float32,
+                                            device=device),
+                                prules, *d.axes).clone()
+                 for k, d in cdefs.items()}
+        with use_rules(prules):
+            logits, cache = model.prefill(
+                {"tokens": local_block(prompt, prules, "batch", None)},
+                cache)
+        vocab = prules.placements(mesh, "batch", None, "act_vocab")
+        res["prefill"] = _gather_placed(logits, mesh, vocab)
+        # the re-lay: the prefill's cache spec to the decode layout's
+        cache = {k: relayout(c, mesh, pspecs[k], dspecs[k])
+                 for k, c in cache.items()}
+        model = distribute_model(_model(None, case["state"], cfg=cfg,
+                                        device=device), drules)
+        seq = seq_split(drules)
+        S_l = cache["k"].shape[2]
+        start = seq.rank * S_l if seq is not None else 0
+        steps, wrote, masked = [], [], []
+        for i, tok in enumerate(case["decode"]):
+            index = P + i
+            with use_rules(drules):
+                logits, cache = model.decode_step(
+                    cache, local_block(tok, drules, "batch", None), index)
+            steps.append(_gather_placed(logits, mesh, vocab))
+            wrote.append(start <= index < start + S_l)
+            masked.append(start > index)
+        res.update(decode=steps, wrote=wrote, masked=masked,
+                   kv_seq=drules.mapping["kv_seq"],
+                   cache_local=tuple(cache["k"].shape),
+                   cache={k: _gather_placed(c, mesh, placements_of(
+                       mesh, dspecs[k])) for k, c in cache.items()})
+        out[key] = res
+    return out
+
+
 CASES = {"mesh": case_mesh, "dp": case_dp, "ep_sp": case_ep_sp,
          "pp_elastic": case_pp_elastic,
          "nccl_world_of_one": case_nccl_world_of_one,
-         "dryrun": case_dryrun, "fsdp_tp": case_fsdp_tp}
+         "dryrun": case_dryrun, "fsdp_tp": case_fsdp_tp,
+         "layout_decode_moe": case_layout_decode_moe}
 
 
 def _main(case: str, rank: int, world: int, d: str, device: str) -> int:
