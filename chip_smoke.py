@@ -78,7 +78,10 @@ into ``build/repro_torch/``), then:
    their plain versions at (1, 8192, 32 | 32, 64) in bf16 and float32;
    K4 and its backward at its training shape (2, 4096, 32 | 32, 64); K5
    at (1, 32768) and (2, 4096) with 64 heads, P 64, N 64, and its
-   backward at the latter; then K4 at internvl2-2b's prefill (4, 1024,
+   backward at the latter; K5 and its backward at a rank's shape of the
+   train multi cell under the reference's layout (``TP_RANK_SHAPE``:
+   8 x 4096, 4 of mamba2-1.3b's 64 heads, P 64, N 128), checked and
+   timed as at mamba2's; then K4 at internvl2-2b's prefill (4, 1024,
    16 | 8, 128) causal and its backward at (2, 1024); K4 at each of
    seamless-m4t-large-v2's three shapes, its encoder's (4, 128, 16 |
    16, 64) non-causal, its decoder's self-attention (4, 1024, 16 | 16,
@@ -122,7 +125,8 @@ into ``build/repro_torch/``), then:
    data-parallel step of mamba2-1.3b at 4 x 1024; here the same steps
    run for real under the same rules on the NCCL world of one inside the
    same counters (``dry_check``; (b) in ``dryrun_train_phase``, once
-   qwen3-8b is freed): FLOPs, bytes accessed and collectives per kind
+   qwen3-8b is freed, tensor parallelism off: the replicated program):
+   FLOPs, bytes accessed and collectives per kind
    equal, K4's op calls (36) and K5's and its backward's (48
    each) equal to the launches, the traced peak within ``DRY_PEAK_TOL``
    of ``max_memory_allocated``, the record's terms on the H100 profile
@@ -220,7 +224,27 @@ into ``build/repro_torch/``), then:
     the same seed with no rules: every parameter's and moment's digest,
     the loss, the gradient norm, the prefill's logits and cache equal,
     the decode steps by ``compare_decode``; K4 2 x 14 and its backward
-    14 times in the step, 14 in the prefill, none in decode;
+    14 times in the step, 14 in the prefill, none in decode; no global
+    switch makes the step deterministic (the dispatch's backward adds
+    without atomics); (d) the ssm and hybrid families under the
+    reference's layout at one NCCL rank (``ssm_layout_phase``):
+    mamba2-1.3b (48 layers) and zamba2-1.2b (38 layers) at their
+    published widths placed by ``distribute_model`` under the production
+    cells' rules (``production_rules``: train multi on a (1, 1, 1)
+    ``("pod", "data", "model")`` mesh, prefill_32k, decode_32k and
+    long_500k; the SSD heads, zamba2's shared attention and MLP and the
+    vocab over ``model``), ``SSM_LAYOUT_STEPS`` steps through
+    ``build_train_step`` (mamba2 4 x 1024; zamba2 2 x 4096 under block
+    remat), zamba2's 1 x 8192 prefill, decode from a zero cache under
+    the decode_32k rules (mamba2 8 steps of 4 rows; zamba2 12 steps of
+    4 rows on an 8-slot ring, which wraps) and zamba2's under the
+    long_500k rules (1 row, its ring's slots on ``data``: the combine
+    over one block), then the same from the same seed with no rules:
+    every digest, loss, gradient norm, the prefill's logits and the
+    decode_32k decodes bitwise, the long_500k decode bitwise or within
+    ``depth_tolerance``; K5, its backward and K4 launched as often on
+    both paths, none in decode; then ``dry_check`` of mamba2's decode
+    cell and zamba2's 1 x 8192 prefill cell on that layout;
 11. the hybrid family, zamba2-1.2b at its published widths and full
     depth (38 mamba2 layers, the shared attention block after every 6,
     1.17 B parameters; ``hybrid_phase``): (a) ``Model.prefill`` of 1 x
@@ -258,12 +282,15 @@ into ``build/repro_torch/``), then:
     below ln V, a uniform prediction's;
 14. the dry-run's production sweep (``sweep_phase``), after every timed
     phase: ``launch.dryrun`` over every assigned arch x shape on the
-    ``SWEEP_MESHES`` (single and multi), one process per arch,
+    ``SWEEP_MESHES`` (the multi-pod mesh), one process per arch,
     ``SWEEP_PROCS`` at a time; each
     cell's bottleneck and trace seconds, ok, failed and skipped, 0
-    failed and every applicable cell recorded; each dense and moe
-    cell's peak per rank on the sharded layout, each holding its
-    analytic bytes, and how many of all the cells fit 80 GB; then the
+    failed and every applicable cell recorded; the peak per rank of
+    each cell whose production rules run the sharded layout
+    (``sweep_sharded``: every dense and moe cell, the ssm and hybrid
+    cells with tensor parallelism), each holding its analytic bytes,
+    every other cell on the replicated program, and how many of all the
+    cells fit 80 GB; then the
     kernel JSON line (one
     row per kernel and shape; the rows of K5, its backward and K4 at moe
     also carry ``launches_sp``, ``launches_dp`` and ``launches_ep``,
@@ -273,7 +300,11 @@ into ``build/repro_torch/``), then:
     in the dry-run's real runs, and K4's and its backward's qwen3-8b rows
     ``launches_layout`` and ``launches_dry_layout``, theirs in the
     sharded layout's run and in its dry-run check, their moe rows
-    ``launches_layout``, theirs in ``moe_layout_phase``'s sharded run),
+    ``launches_layout``, theirs in ``moe_layout_phase``'s sharded run,
+    K5's and its backward's mamba2 rows and the zamba2 rows
+    ``launches_layout``, theirs in ``ssm_layout_phase``'s sharded runs,
+    zamba2's prefill rows ``launches_dry_layout``, theirs in its dry-run
+    check; the ``_tp`` rows' ``launches`` are mamba2's sharded steps'),
     the card line, and
     the result line
     ``{"ok": true, "device": {...}}`` last.
@@ -340,8 +371,11 @@ L2_FLUSH_BYTES = 2 * 50 * 2**20
 SPIN_CYCLES = 1_000_000
 BATCH = 256
 #: samples of the augmented and the decoded-hit main-path runs
-#: (multiples of BATCH)
-N_AUGMENTED = 16_384
+#: (multiples of BATCH).  This size, the workload's, the shards',
+#: N_VIT and LAYOUT_LAYERS were halved when the whole run passed its
+#: 1,200 s limit on one H100 (977 s, and over 1,200 s on another
+#: machine, with them at twice these): each phase keeps its checks
+N_AUGMENTED = 8_192
 N_DECODED = 2_048
 #: the ODS step at ImageNet-1k's size: jobs, timed steps per variant
 N_ODS = 1_281_167
@@ -349,7 +383,7 @@ ODS_JOBS = 3
 ODS_STEPS = 20
 #: the multi-job workload: samples, job arrivals (s), HBM tier as a
 #: share of the augmented set, DRAM cache as a share of it
-N_WORKLOAD = 16_384
+N_WORKLOAD = 8_192
 WORKLOAD_ARRIVALS = (0.0, 1.0, 2.0)
 WORKLOAD_HBM_FRAC = 0.5
 WORKLOAD_DRAM_FRAC = 0.1
@@ -358,8 +392,8 @@ WORKLOAD_DRAM_FRAC = 0.1
 #: the server's own under the device executor, (c) a shard kill
 #: under two jobs paced at KILL_RATE samples/s each (so the run lasts at
 #: least N_KILL / KILL_RATE seconds and the restart lands inside it)
-N_SHARDED_SIM, SIM_SHARDS = 16_384, 4
-N_SHARDED_PROCESS, PROCESS_SHARDS = 2_048, 2
+N_SHARDED_SIM, SIM_SHARDS = 8_192, 4
+N_SHARDED_PROCESS, PROCESS_SHARDS = 1_024, 2
 N_KILL, KILL_SHARDS, KILL_RATE = 4_096, 2, 1024.0
 
 
@@ -1481,8 +1515,8 @@ BWD_S_F32 = 200
 #: of its loader-fed run (two epochs of N_VIT / BATCH steps; the depth
 #: cut from ImageNet-1k's 1.28 M so both fit), and the steps of each
 #: epoch traced for the card's idle share
-N_VIT = 4_096
-VIT_TRACED_STEPS = 4
+N_VIT = 2_048
+VIT_TRACED_STEPS = 1
 #: vit-huge's learning rate.  One AdamW step moves every weight by about
 #: lr, which over 840 M weights fits the fixed batch of 256 at once from
 #: 3e-5 up (loss 7.44 -> 0.46 in two steps at 3e-5, -> 0.0155 in one at
@@ -1547,6 +1581,10 @@ CROSS_SQ, CROSS_SK = (37, 1000), (16, 100, 130, 1025)
 SSM_B, SSM_S, SSM_PREFIX = 4, 1024, 64
 #: mamba2-1.3b's training batch (of TRAIN_S tokens)
 SSM_TRAIN_B = 4
+#: (B, S, heads) of K5's launch on a rank of the train multi cell under
+#: the reference's layout: 256 sequences over 2 x 16 data ranks, 4,096
+#: tokens, 64 heads over 16 model ranks
+TP_RANK_SHAPE = (8, 4_096, 4)
 #: K5's backward in float32: a short S that is not a multiple of 64
 SSD_BWD_S_F32 = 300
 #: the gradients of K5's backward against its plain version, as a
@@ -1642,6 +1680,13 @@ def model_kernel_phase(dev, seed: int):
                               s.d_state, s.chunk)
     rows["ssd_scan_bwd"] = ssd_scan_bwd_row(dev, rng, SSM_B, SSM_S, nh,
                                             s.head_dim, s.d_state, s.chunk)
+    # ---- K5 and its backward at the train multi cell's rank: its block
+    # of the batch (256 over 2 x 16 data ranks) and its 4 of the 64 heads
+    # (over 16 model ranks), at the cell's 4,096 tokens
+    rows["ssd_scan_tp"] = k5_row(dev, rng, "_tp", *TP_RANK_SHAPE,
+                                 s.head_dim, s.d_state, s.chunk)
+    rows["ssd_scan_bwd_tp"] = ssd_scan_bwd_row(
+        dev, rng, *TP_RANK_SHAPE, s.head_dim, s.d_state, s.chunk, "_tp")
     rows.update(zamba2_kernel_rows(dev, rng))
     rows.update(vlm_encdec_kernel_rows(dev, rng))
     return rows
@@ -2062,7 +2107,8 @@ def ssd_scan_bwd_row(dev, rng, B, S, nh, P, N, chunk, suffix: str = ""):
     hmma = sass_count("ssd_scan_bwd", "HMMA", SSD_BWD_PRODUCT_PASSES)
     check(all(n > 0 for n in hmma.values()),
           f"K5 backward: a bf16 product pass's SASS holds no HMMA: {hmma}")
-    print(f"kernel ssd_scan_bwd: bound priced at the float32 CUDA-core rate "
+    print(f"kernel ssd_scan_bwd{suffix}: bound priced at the float32 "
+          f"CUDA-core rate "
           f"{bound(nbytes, flops)[0]:.4f} ms ({flops / 1e9:.2f} GFLOP); by "
           f"pass (torch.profiler, 10 calls): " + ", ".join(
               f"{k.split('::')[-1]} {split[k][0]:.4f} ms (mean of "
@@ -3998,10 +4044,14 @@ DRY_TRAIN = ("train", SSM_S, SSM_TRAIN_B, "train")
 #: the traced peak memory against the allocator's, relative
 DRY_PEAK_TOL = 0.05
 #: the production sweep's processes at once (one ``launch.dryrun`` per
-#: arch; the card's host has 8 cores and nothing else runs then), and its
-#: meshes
+#: arch, each with one intra-op thread: with torch's default of one per
+#: core the multi mesh's sweep took 120.7 s on an H100's 8-core host,
+#: with one 82.8 s; nothing else runs then), and its meshes: the
+#: multi-pod one only, since over both the sweep took 190 s of the
+#: script's 1,200; ``python -m repro_torch.launch.dryrun --arch all
+#: --shape all --mesh single,multi`` traces both
 SWEEP_PROCS = 8
-SWEEP_MESHES = ("single", "multi")
+SWEEP_MESHES = ("multi",)
 
 _DRY_CHILD = """
 import dataclasses, json, sys
@@ -4026,30 +4076,53 @@ print(json.dumps(rec))
 """
 
 
-def traced_cell(arch: str, shape, parallel=None, n_layers=None) -> dict:
+#: the dry-run children started by ``traced_cell``; ``main`` kills any
+#: still running when it ends
+_CHILDREN = []
+
+
+def traced_cell(arch: str, shape, parallel=None, n_layers=None):
     """``launch.dryrun.lower_cell`` of ``arch`` at ``shape`` on a fake
     world of one, a (1, 1) ``("data", "model")`` mesh, on CUDA (fake
     tensors: nothing runs), in a process of its own (a fake world and
     this run's NCCL world cannot both be the default group); under
     ``parallel`` (a ``ParallelismConfig``; the arch's default when None)
-    and at ``n_layers`` (full depth when None)."""
+    and at ``n_layers`` (full depth when None).  Starts the process and
+    returns a function that waits for it and gives its record, so that
+    the caller runs the card meanwhile; the function's ``cell`` names
+    what it traces, for :func:`dry_check`."""
+    from repro_torch.configs import registry
+    if n_layers == registry.get(arch).n_layers:
+        n_layers = None
     over = {"parallel": parallel and dataclasses.asdict(parallel),
             "n_layers": n_layers}
-    out = subprocess.run(
+    proc = subprocess.Popen(
         [sys.executable, "-c", _DRY_CHILD, arch, json.dumps(list(shape)),
          json.dumps(over)],
-        cwd=str(ROOT), capture_output=True, text=True, timeout=600,
-        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
-    check(out.returncode == 0, f"the trace of {arch} {shape} failed:\n"
-          f"{out.stderr[-4000:]}")
-    return json.loads(out.stdout.strip().splitlines()[-1])
+        cwd=str(ROOT), stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    _CHILDREN.append(proc)
+
+    def record() -> dict:
+        try:
+            out, err = proc.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.communicate()
+            raise
+        check(proc.returncode == 0, f"the trace of {arch} {shape} failed:\n"
+              f"{err[-4000:]}")
+        return json.loads(out.strip().splitlines()[-1])
+    record.proc = proc
+    record.cell = (arch, tuple(shape), parallel, n_layers)
+    return record
 
 
 def dry_check(model, shape_fields, mesh, card: str, kernels,
-              parallel=None) -> dict:
+              parallel=None, pending=None) -> dict:
     """One dry-run cell held against the real run: the child traces
-    ``model``'s arch at ``shape_fields`` (:func:`traced_cell`); here the
-    same step (``launch.dryrun.cell_step``) runs on ``model`` under the
+    ``model``'s arch at ``shape_fields`` (:func:`traced_cell`) while here
+    the same step (``launch.dryrun.cell_step``) runs on ``model`` under the
     same rules on ``mesh`` (the NCCL world of one) inside the same
     ``Trace``.  FLOPs, bytes accessed and the collectives per kind (count,
     wire bytes) must be equal, each of ``kernels``' op calls in the trace
@@ -4059,7 +4132,10 @@ def dry_check(model, shape_fields, mesh, card: str, kernels,
     ``max_memory_allocated()`` after ``reset_peak_memory_stats()`` less
     ``memory_allocated()`` before the step, its arguments made.
     ``parallel`` is the cell's layout (the arch's default when None);
-    ``model``'s depth is the trace's.  Returns the launches."""
+    ``model``'s depth is the trace's.  ``pending`` is the cell's child if
+    the caller started it earlier (:func:`traced_cell`, the same
+    arguments), so that it traced while the card ran the caller's
+    earlier work.  Returns the launches."""
     from repro_torch.configs import registry
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.distributed.sharding import (distribute_model,
@@ -4068,30 +4144,45 @@ def dry_check(model, shape_fields, mesh, card: str, kernels,
     cfg, dev = model.cfg, model.device
     shape = ShapeConfig(*shape_fields)
     t0 = time.perf_counter()
+    # the child traces while the card runs the step below
+    if pending is None:
+        pending = traced_cell(cfg.name, shape_fields, parallel,
+                              cfg.n_layers)
     depth = registry.get(cfg.name).n_layers
-    rec = traced_cell(cfg.name, shape_fields, parallel,
-                      None if cfg.n_layers == depth else cfg.n_layers)
-    child_s = time.perf_counter() - t0
-    parallel = parallel or registry.default_parallelism(cfg, shape)
-    rules = make_rules(cfg, shape, parallel, tp_size=1, dp_size=1, mesh=mesh)
-    distribute_model(model, rules)
-    for _ in range(2):        # a warm-up run, then the one timed bare
-        args, run, _ = dryrun.cell_step(model, shape, parallel, rules, dev)
-        with use_rules(rules):
-            out, secs = synced_seconds(run)
+    cell = (cfg.name, tuple(shape_fields), parallel,
+            None if cfg.n_layers == depth else cfg.n_layers)
+    try:
+        check(pending.cell == cell, f"dry-run child traces {pending.cell}, "
+              f"the run is {cell}")
+        parallel = parallel or registry.default_parallelism(cfg, shape)
+        rules = make_rules(cfg, shape, parallel, tp_size=1, dp_size=1,
+                           mesh=mesh)
+        distribute_model(model, rules)
+        for _ in range(2):        # a warm-up run, then the one timed bare
+            args, run, _ = dryrun.cell_step(model, shape, parallel, rules,
+                                            dev)
+            with use_rules(rules):
+                out, secs = synced_seconds(run)
+            del args, run, out
+        args, run, note = dryrun.cell_step(model, shape, parallel, rules,
+                                           dev)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        with use_rules(rules), dryrun.Trace(args) as tr:
+            out = run()
+        torch.cuda.synchronize()
+        new_peak = torch.cuda.max_memory_allocated() - before
+        launches = read_counts()
+        real = tr.result(out)
         del args, run, out
-    args, run, note = dryrun.cell_step(model, shape, parallel, rules, dev)
-    torch.cuda.synchronize()
-    before = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
-    reset_counts()
-    with use_rules(rules), dryrun.Trace(args) as tr:
-        out = run()
-    torch.cuda.synchronize()
-    new_peak = torch.cuda.max_memory_allocated() - before
-    launches = read_counts()
-    real = tr.result(out)
-    del args, run, out
+    except BaseException:
+        pending.proc.kill()
+        pending.proc.communicate()
+        raise
+    rec = pending()
+    child_s = time.perf_counter() - t0
     traced = rec["trace"]
     name = (f"{cfg.name} {note} {shape.global_batch} x {shape.seq_len} "
             f"({traced['layout']} layout)")
@@ -4135,20 +4226,32 @@ def dry_check(model, shape_fields, mesh, card: str, kernels,
     return launches
 
 
-def dryrun_phase(model, mesh, card: str) -> int:
+def dry_train_parallel():
+    """(b)'s layout: tensor parallelism off, the replicated program
+    (``build_dp_train_step``); the cell's default rules place the SSD
+    heads and run the layout, which ``ssm_layout_phase`` checks."""
+    from repro_torch.configs.base import ParallelismConfig
+    return ParallelismConfig(tp=False)
+
+
+def dryrun_phase(model, mesh, card: str):
     """(a) of the dry-run against the run: qwen3-8b's ``DRY_PREFILL`` on
-    ``model`` by :func:`dry_check` (K4 36 times).  Returns K4's
-    launches."""
+    ``model`` by :func:`dry_check` (K4 36 times).  Starts (b)'s child
+    first, so that both trace at once.  Returns K4's launches and (b)'s
+    child."""
+    pending = traced_cell("mamba2-1.3b", DRY_TRAIN, dry_train_parallel())
     return dry_check(model, DRY_PREFILL, mesh, card,
-                     ("flash_attention",))["flash_attention"]
+                     ("flash_attention",))["flash_attention"], pending
 
 
-def dryrun_train_phase(dev, mesh, seed: int, card: str):
+def dryrun_train_phase(dev, mesh, seed: int, card: str, pending):
     """(b) one data-parallel step of mamba2-1.3b at ``DRY_TRAIN`` by
-    :func:`dry_check` (K5 and its backward 48 times each).  Returns K5's
-    and its backward's launches."""
+    :func:`dry_check` (K5 and its backward 48 times each) under
+    ``dry_train_parallel``, its child ``pending`` started by
+    :func:`dryrun_phase`.  Returns K5's and its backward's launches."""
     model = build_model("mamba2-1.3b", dev, seed)
-    b = dry_check(model, DRY_TRAIN, mesh, card, ("ssd_scan", "ssd_scan_bwd"))
+    b = dry_check(model, DRY_TRAIN, mesh, card, ("ssd_scan", "ssd_scan_bwd"),
+                  dry_train_parallel(), pending)
     del model
     gc.collect()
     torch.cuda.empty_cache()
@@ -4158,10 +4261,11 @@ def dryrun_train_phase(dev, mesh, seed: int, card: str):
 #: the reference's layout at one NCCL rank: qwen3-8b at its published
 #: widths cut to ``LAYOUT_LAYERS`` of its 36 layers (two full models'
 #: runs in turn, each with float32 microbatch accumulators, int8 moments
-#: and a microbatch's bf16 gradients live at once, ~83 GB at full depth),
-#: under FSDP and TP with 2 microbatches and block remat, int8 moments
-#: as ``train_phase``'s
-LAYOUT_LAYERS = 24
+#: and a microbatch's bf16 gradients live at once, ~83 GB at full depth;
+#: 8 rather than 24 since the ssm layout phase joined the script, whose
+#: whole run at 24 took 1,160 s of its 1,200), under FSDP and TP with 2
+#: microbatches and block remat, int8 moments as ``train_phase``'s
+LAYOUT_LAYERS = 8
 LAYOUT_STEPS = 2
 LAYOUT_TRAIN = ("train", TRAIN_S, TRAIN_B, "train")
 LAYOUT_PREFILL = ("prefill", ATTN_S, ATTN_B, "prefill")
@@ -4390,8 +4494,12 @@ def layout_phase(dev, seed: int, card: str, mesh):
     microbatches, remat) and its backward 2 x L, L in the prefill and
     none in decode, on both paths.  Then the train cell's and the decode
     cell's dry-run against the run (``dry_check``, under the same layout
-    and depth).  Returns K4's and its backward's launches on the sharded
+    and depth; their children start first and trace while the card runs
+    the steps).  Returns K4's and its backward's launches on the sharded
     path (the steps and the prefill), and the train dry-run check's."""
+    children = [traced_cell("qwen3-8b", shape, layout_parallel(),
+                            LAYOUT_LAYERS)
+                for shape in (LAYOUT_TRAIN, LAYOUT_DECODE_CELL)]
     runs = {}
     for how in ("sharded", "plain"):
         runs[how] = layout_run(dev, seed, mesh, how == "sharded")
@@ -4473,8 +4581,9 @@ def layout_phase(dev, seed: int, card: str, mesh):
     torch.cuda.empty_cache()
     dry = dry_check(model, LAYOUT_TRAIN, mesh, card,
                     ("flash_attention", "flash_attention_bwd"),
-                    layout_parallel())
-    dry_check(model, LAYOUT_DECODE_CELL, mesh, card, (), layout_parallel())
+                    layout_parallel(), children[0])
+    dry_check(model, LAYOUT_DECODE_CELL, mesh, card, (), layout_parallel(),
+              children[1])
     del model
     gc.collect()
     torch.cuda.empty_cache()
@@ -4521,17 +4630,9 @@ def moe_layout_run(dev, seed: int, mesh, sharded: bool) -> dict:
     state = opt.init(model)
     step = build_train_step(model, par, opt)
     reset_counts()
-    # deterministic algorithms for the step: the dispatch's gathers are
-    # ``index_select``s, whose backward, an ``index_add_``, sums a
-    # token's rows by atomics on the card, in an order that changes from
-    # run to run
-    torch.use_deterministic_algorithms(True, warn_only=True)
-    try:
-        with ctx:
-            (model, state, m), secs = synced_seconds(
-                lambda: step(model, state, batch))
-    finally:
-        torch.use_deterministic_algorithms(False)
+    with ctx:
+        (model, state, m), secs = synced_seconds(
+            lambda: step(model, state, batch))
     out = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
            "seconds": secs, "digests": state_digests(model, state),
            "train_counts": read_counts(),
@@ -4556,10 +4657,9 @@ def moe_layout_phase(dev, seed: int, card: str, mesh):
     ``distribute_model`` under ``make_rules`` with expert and tensor
     parallelism (the attention, the shared experts and the vocab over
     ``model`` beside the experts; the router read whole), one step of 2 x
-    1024 through ``build_train_step`` (block remat, int8 moments; under
-    ``torch.use_deterministic_algorithms``, as ``moe_layout_run`` says
-    why), a 4 x
-    1024 prefill and ``MOE_LAYOUT_DECODE`` decode steps under the
+    1024 through ``build_train_step`` (block remat, int8 moments; the
+    dispatch's backward adds without atomics, ``moe._GatherRows``, so
+    the step is repeatable with no global switch), a 4 x 1024 prefill and ``MOE_LAYOUT_DECODE`` decode steps under the
     decode_32k cell's mapping (its 16 kv heads divide the production
     axis: the heads split, no combine); then the same from the same seed
     with no rules (two copies with moments do not fit at once).  Every
@@ -4625,6 +4725,342 @@ def moe_layout_phase(dev, seed: int, card: str, mesh):
             got["train_counts"]["flash_attention_bwd"])
 
 
+#: the ssm and hybrid families on the reference's layout at one NCCL rank,
+#: under the production cells' mappings: train multi (2 pods x 16 data x
+#: 16 model: the 256-sequence batch does not divide 512 ranks, so tensor
+#: parallelism), prefill_32k, decode_32k and long_500k (16 x 16).  The
+#: SSD heads (64 in both archs) and zamba2's attention heads and kv heads
+#: (32 each) split over ``model``; long_500k puts zamba2's ring slots on
+#: ``data`` (batch 1), so the combine runs over one block
+SSM_LAYOUT_STEPS = 2
+SSM_LAYOUT_DECODE = 8
+#: zamba2-1.2b's decode after its prefill: a cache of HYB_RING positions
+#: (the ring's W = min(s_max, 4096) slots), HYB_RING_DECODE steps from
+#: position 0, past W so that the ring wraps; its prefill of one row of
+#: HYB_LAYOUT_PREFILL tokens (past the 4,096-token window)
+HYB_RING, HYB_RING_DECODE = 8, 12
+HYB_LAYOUT_PREFILL = 8_192
+#: the dry-run cells held against the run on the layout, one a family:
+#: mamba2-1.3b's decode step and zamba2-1.2b's prefill of one row (their
+#: default rules at one rank place the SSD heads on ``model``)
+SSM_DRY_CELLS = {"mamba2-1.3b": (("decode", SSM_LAYOUT_DECODE, SSM_B,
+                                  "decode"), ()),
+                 "zamba2-1.2b": (("prefill", HYB_LAYOUT_PREFILL, 1,
+                                  "prefill"), ("ssd_scan",
+                                               "flash_attention"))}
+
+
+def pod_mesh():
+    """A (1, 1, 1) ``("pod", "data", "model")`` mesh on the NCCL world
+    of one: the multi-pod cells' rules name the ``pod`` axis.  One
+    all-reduce on each axis's group and on the batch axes' flattened one
+    sets their communicators up outside the timed steps."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.distributed.sharding import group_of
+    mesh = init_device_mesh("cuda", (1, 1, 1),
+                            mesh_dim_names=("pod", "data", "model"))
+    one = torch.ones(1, device="cuda")
+    for group in [mesh.get_group(a) for a in mesh.mesh_dim_names] + [
+            group_of(mesh, ("pod", "data"))]:
+        dist.all_reduce(one, group=group)
+    return mesh
+
+
+def production_rules(cfg, mesh) -> dict:
+    """The production cells' rules by shape name, each under its default
+    layout: train_4k on the multi-pod mesh, the others on one pod."""
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import SHAPES_BY_NAME
+    from repro_torch.distributed.sharding import make_rules
+    out = {}
+    for name in ("train_4k", "prefill_32k", "decode_32k", "long_500k"):
+        shape = SHAPES_BY_NAME[name]
+        out[name] = make_rules(cfg, shape, registry.default_parallelism(
+            cfg, shape), multi_pod=name == "train_4k", tp_size=DECODE_TP,
+            dp_size=16, mesh=mesh)
+    return out
+
+
+def ssm_layout_parallel(cfg):
+    """The train multi cell's layout (its default, which ``make_rules``
+    turns into tensor parallelism on 512 ranks), with block remat for
+    zamba2-1.2b: its 2 x 4096 tokens at 38 layers without remat ran out
+    of the card's 80 GB (mamba2-1.3b's 4 x 1024 peak at 57 GB)."""
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import SHAPES_BY_NAME
+    par = registry.default_parallelism(cfg, SHAPES_BY_NAME["train_4k"])
+    return par.replace(remat="block") if cfg.family == "hybrid" else par
+
+
+def ssm_decode_run(model, ctx, B: int, s_max: int, n: int, seed: int):
+    """``n`` decode steps of ``B`` rows from a zero cache of ``s_max``
+    positions, each under ``ctx()``: per step the logits on the host and
+    the seconds, the final cache on the host, and the launches."""
+    gen = torch.Generator(device=model.device).manual_seed(seed)
+    cache = model.init_cache(B, s_max)
+    logits, secs = [], []
+    reset_counts()
+    for i in range(n):
+        tok = torch.randint(0, model.cfg.vocab_size, (B, 1), generator=gen,
+                            device=model.device)
+        with ctx():
+            (lg, cache), t = synced_seconds(
+                lambda: model.decode_step(cache, tok, i))
+        logits.append(lg[:, 0].float().cpu())
+        secs.append(t)
+    return {"logits": logits, "seconds": secs, "counts": read_counts(),
+            "cache": {k: c.to("cpu", copy=True) for k, c in cache.items()}}
+
+
+def ssm_layout_run(dev, seed: int, mesh, arch: str, sharded: bool) -> dict:
+    """``arch`` at its published widths and full depth:
+    ``SSM_LAYOUT_STEPS`` steps of ``build_train_step`` under the train
+    multi cell's rules and layout (mamba2-1.3b ``SSM_TRAIN_B`` x
+    ``TRAIN_S``, zamba2-1.2b ``HYB_TRAIN_B`` x ``HYB_TRAIN_S``), then
+    zamba2's prefill of ``HYB_LAYOUT_PREFILL`` tokens under the
+    prefill_32k rules, then decode from a zero cache under the
+    decode_32k rules (mamba2 ``SSM_LAYOUT_DECODE`` steps of ``SSM_B``
+    rows; zamba2 ``HYB_RING_DECODE`` steps of ``HYB_B`` rows on a ring
+    of ``HYB_RING``) and, for zamba2, under the long_500k rules (one
+    row): with the model placed by the train rules (``sharded``), or
+    with no rules.  Returns per step the loss, gradient norm, seconds
+    and every tensor's digest, the steps' launches and peak memory, the
+    prefill's logits' digest, seconds and launches, and each decode
+    run's results (:func:`ssm_decode_run`)."""
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import SHAPES_BY_NAME
+    from repro_torch.distributed.sharding import distribute_model, use_rules
+    from repro_torch.launch.train import lm_batch_source
+    from repro_torch.train.optimizer import AdamW
+    from repro_torch.train.step import build_train_step
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(arch, dev, seed)
+    cfg = model.cfg
+    rules = production_rules(cfg, mesh)
+    moved = [n for n, r in rules.items() if r.mapping["ssm_inner"]]
+    check(moved == (["train_4k", "decode_32k", "long_500k"]
+                    if cfg.family == "ssm" else list(rules)),
+          f"{arch}: the rules place the SSD heads in {moved}")
+    if sharded:
+        distribute_model(model, rules["train_4k"])
+
+    def ctx(name):
+        return use_rules(rules[name]) if sharded else \
+            contextlib.nullcontext()
+
+    par = ssm_layout_parallel(cfg)
+    B, S = (SSM_TRAIN_B, TRAIN_S) if cfg.family == "ssm" else \
+        (HYB_TRAIN_B, HYB_TRAIN_S)
+    batch = lm_batch_source(model, B, S, seed + 2)()
+    opt = AdamW(lr=TRAIN_LR, state_dtype=par.opt_state_dtype)
+    state = opt.init(model)
+    step = build_train_step(model, par, opt)
+    reset_counts()
+    steps = []
+    for _ in range(SSM_LAYOUT_STEPS):
+        with ctx("train_4k"):
+            (model, state, m), secs = synced_seconds(
+                lambda: step(model, state, batch))
+        steps.append({"loss": float(m["loss"]),
+                      "grad_norm": float(m["grad_norm"]), "seconds": secs,
+                      "digests": state_digests(model, state)})
+    out = {"steps": steps, "train_counts": read_counts(),
+           "peak": torch.cuda.max_memory_allocated(), "model": model}
+    del state, opt, step, batch, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    if cfg.family == "hybrid":
+        gen = torch.Generator(device=dev).manual_seed(seed + 3)
+        tokens = torch.randint(0, cfg.vocab_size, (1, HYB_LAYOUT_PREFILL),
+                               generator=gen, device=dev)
+        cache = model.init_cache(1, HYB_LAYOUT_PREFILL)
+        reset_counts()
+        with ctx("prefill_32k"):
+            (logits, _), psecs = synced_seconds(
+                lambda: model.prefill({"tokens": tokens}, cache))
+        out.update(prefill=logits.to("cpu", copy=True), prefill_s=psecs,
+                   prefill_counts=read_counts())
+        del logits, cache, tokens
+        out["decode"] = ssm_decode_run(
+            model, lambda: ctx("decode_32k"), HYB_B, HYB_RING,
+            HYB_RING_DECODE, seed + 4)
+        out["long"] = ssm_decode_run(model, lambda: ctx("long_500k"), 1,
+                                     HYB_RING, HYB_RING_DECODE, seed + 5)
+    else:
+        out["decode"] = ssm_decode_run(
+            model, lambda: ctx("decode_32k"), SSM_B, SSM_LAYOUT_DECODE,
+            SSM_LAYOUT_DECODE, seed + 4)
+    return out
+
+
+def decode_held(got: dict, want: dict, n_layers: int, label: str,
+                bitwise: bool) -> str:
+    """Two :func:`ssm_decode_run` results: every step's logits and the
+    final cache bitwise, or (``bitwise`` false) each step's logits within
+    ``depth_tolerance(n_layers)`` relative RMS with every row's argmax
+    agreeing (near ties included) and each final cache tensor within
+    the same relative RMS.  Returns the phase line's words."""
+    same = all(torch.equal(g, w) for g, w in zip(got["logits"],
+                                                  want["logits"],
+                                                  strict=True)) and all(
+        torch.equal(got["cache"][k], c) for k, c in want["cache"].items())
+    if same:
+        return f"**bitwise** ({len(want['logits'])} steps' logits, the " \
+               f"final {', '.join(want['cache'])})"
+    check(not bitwise, f"{label}: the sharded decode differs from the "
+          f"plain decode")
+    tol = depth_tolerance(n_layers)
+    worst = 0.0
+    for i, (g, w) in enumerate(zip(got["logits"], want["logits"])):
+        rel, err, agree, exact = compare_logits(g, w)
+        check(rel <= tol and agree == 1.0, f"{label} decode step {i}: "
+              f"logits relative RMS {rel} (tolerance {tol}), argmax "
+              f"agreement {agree}")
+        worst = max(worst, rel)
+    cache = {k: rel_rms(got["cache"][k], c) for k, c in want["cache"].items()}
+    check(all(r <= tol for r in cache.values()),
+          f"{label}: the final cache's relative RMS {cache} (tolerance {tol})")
+    return (f"within tolerance, not bitwise: logits relative RMS at most "
+            f"{worst:.3e}, final cache " + ", ".join(
+                f"{k} {r:.3e}" for k, r in cache.items())
+            + f" (tolerance depth_tolerance({n_layers}) = {tol:.4f}), "
+            f"argmax agreement 1.0")
+
+
+def ssm_layout_phase(dev, seed: int, card: str, mesh):
+    """The ssm and hybrid families under the reference's layout at one
+    NCCL rank: mamba2-1.3b and zamba2-1.2b at their published widths and
+    full depth, each placed by ``distribute_model`` under the train
+    multi cell's production rules (``production_rules``: the SSD heads,
+    zamba2's shared attention and MLP and the vocab over ``model``;
+    ``make_rules(..., multi_pod=True, tp_size=16, dp_size=16)`` on a
+    ``pod_mesh``) and run by ``ssm_layout_run``, then the same from the
+    same seed with no rules (two copies with moments do not fit at
+    once).  Every parameter's and moment's digest, the loss and the
+    gradient norm after each step, zamba2's prefill logits, and the
+    decode_32k decode's logits and final state (``h``, ``conv``, the
+    ring's ``ak``/``av``) must be bitwise; zamba2's long_500k decode
+    (its ring's slots on ``data``: the flash-decoding combine over one
+    block) within ``depth_tolerance``.  K5, its backward and K4 launch
+    as often on both paths (K5 and its backward once per layer a step,
+    K5 twice under zamba2's remat, ``ssm_layout_parallel``; zamba2's
+    shared block K4 and its backward once per site;
+    the prefill K5 once per layer and K4 once per site; none in decode).
+    Then ``SSM_DRY_CELLS``' dry-run against the run (``dry_check``, on a
+    fresh model of each arch; their children start first and trace while
+    the card runs the layouts).  Returns the sharded path's launches by
+    name: each arch's steps, zamba2's prefill and the dry checks'."""
+    children = {arch: traced_cell(arch, shape)
+                for arch, (shape, _) in SSM_DRY_CELLS.items()}
+    pmesh = pod_mesh()
+    launches = {}
+    for arch in ("mamba2-1.3b", "zamba2-1.2b"):
+        got = ssm_layout_run(dev, seed, pmesh, arch, True)
+        cfg = got.pop("model").cfg
+        gc.collect()
+        torch.cuda.empty_cache()
+        want = ssm_layout_run(dev, seed, pmesh, arch, False)
+        want.pop("model")
+        L = cfg.n_layers
+        sites = L // cfg.hybrid_attn_every if cfg.family == "hybrid" else 0
+        # remat runs each ssm layer's forward again; the shared block,
+        # outside the checkpoint, once
+        fwd = 2 if ssm_layout_parallel(cfg).remat != "none" else 1
+        expect = {"ssd_scan": fwd * L * SSM_LAYOUT_STEPS,
+                  "ssd_scan_bwd": L * SSM_LAYOUT_STEPS,
+                  "flash_attention": sites * SSM_LAYOUT_STEPS,
+                  "flash_attention_bwd": sites * SSM_LAYOUT_STEPS}
+        for run in (got, want):
+            for k, n in expect.items():
+                check(run["train_counts"][k] == n, f"{arch} layout: {k} "
+                      f"launched {run['train_counts'][k]} times in "
+                      f"{SSM_LAYOUT_STEPS} steps, expected {n}")
+            for dec in ("decode", "long"):
+                if dec in run:
+                    check(not any(run[dec]["counts"].values()),
+                          f"{arch} layout: kernels launched in decode: "
+                          f"{run[dec]['counts']}")
+        for i, (g, w) in enumerate(zip(got["steps"], want["steps"])):
+            check(np.isfinite(g["loss"]) and g["loss"] == w["loss"]
+                  and g["grad_norm"] == w["grad_norm"],
+                  f"{arch} layout step {i + 1}: loss {g['loss']} / "
+                  f"{w['loss']}, grad norm {g['grad_norm']} / "
+                  f"{w['grad_norm']} (sharded / plain)")
+            differ = [k for k in w["digests"]
+                      if g["digests"].get(k) != w["digests"][k]]
+            check(g["digests"].keys() == w["digests"].keys() and not differ,
+                  f"{arch} layout step {i + 1}: {len(differ)} of "
+                  f"{len(w['digests'])} tensors differ from the plain "
+                  f"step's: {differ[:6]}")
+        decoded = decode_held(got["decode"], want["decode"], L,
+                              f"{arch} layout decode_32k", True)
+        n_tensors = len(want["steps"][0]["digests"])
+        words = (f"reference layout, {arch} ({L} layers, published widths; "
+                 f"the train multi cell's rules: SSD heads"
+                 f"{', shared attention and MLP' if sites else ''} and vocab "
+                 f"over model) at one NCCL rank: {SSM_LAYOUT_STEPS} steps "
+                 f"through build_train_step, losses "
+                 f"{[round(x['loss'], 4) for x in got['steps']]}, grad "
+                 f"norms {[round(x['grad_norm'], 4) for x in got['steps']]}: "
+                 f"**bitwise** equal to the unsharded steps (all {n_tensors} "
+                 f"parameter and moment digests, the loss, the gradient "
+                 f"norm); step seconds sharded "
+                 f"{[round(x['seconds'], 3) for x in got['steps']]} against "
+                 f"{[round(x['seconds'], 3) for x in want['steps']]}; peak "
+                 f"{got['peak'] / 1e9:.2f} GB against "
+                 f"{want['peak'] / 1e9:.2f}; launches K5 "
+                 f"{got['train_counts']['ssd_scan']}, its backward "
+                 f"{got['train_counts']['ssd_scan_bwd']}, K4 "
+                 f"{got['train_counts']['flash_attention']}, its backward "
+                 f"{got['train_counts']['flash_attention_bwd']} on both "
+                 f"paths (expected {expect}); decode_32k "
+                 f"{len(want['decode']['logits'])} steps: {decoded}, seconds "
+                 f"a step {[round(x, 4) for x in got['decode']['seconds']]} "
+                 f"against {[round(x, 4) for x in want['decode']['seconds']]}")
+        launches[arch] = got["train_counts"]
+        if sites:
+            pre = {"ssd_scan": L, "flash_attention": sites}
+            for run in (got, want):
+                for k, n in pre.items():
+                    check(run["prefill_counts"][k] == n, f"{arch} layout: "
+                          f"{k} launched {run['prefill_counts'][k]} times "
+                          f"in the prefill, expected {n}")
+            check(bool(torch.isfinite(want["prefill"].float()).all())
+                  and torch.equal(got["prefill"], want["prefill"]),
+                  f"{arch} layout: the sharded prefill's logits differ from "
+                  f"the plain prefill's, or are not finite")
+            long = decode_held(got["long"], want["long"], L,
+                               f"{arch} layout long_500k", False)
+            words += (f"; prefill 1 x {HYB_LAYOUT_PREFILL} under the "
+                      f"prefill_32k rules, logits **bitwise**, "
+                      f"{got['prefill_s']:.4f} s against "
+                      f"{want['prefill_s']:.4f} s, K5 "
+                      f"{got['prefill_counts']['ssd_scan']} and K4 "
+                      f"{got['prefill_counts']['flash_attention']} on both; "
+                      f"the ring of {HYB_RING} slots wraps at step "
+                      f"{HYB_RING + 1} of {HYB_RING_DECODE}; long_500k "
+                      f"(ring slots on data, the combine over one block) 1 "
+                      f"row: {long}, seconds a step "
+                      f"{[round(x, 4) for x in got['long']['seconds']]} "
+                      f"against {[round(x, 4) for x in want['long']['seconds']]}")
+            launches["prefill"] = got["prefill_counts"]
+        print(words + f" ({card})", flush=True)
+        del got, want
+        gc.collect()
+        torch.cuda.empty_cache()
+        model = build_model(arch, dev, seed)
+        dry_shape, kernels = SSM_DRY_CELLS[arch]
+        launches[f"dry {arch}"] = dry_check(model, dry_shape, mesh, card,
+                                            kernels, pending=children[arch])
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    return launches
+
+
 def sweep_phase(card: str) -> None:
     """(c) the production sweep, after the last timed phase (it needs no
     card, and beside a timed phase it would load the host):
@@ -4634,6 +5070,7 @@ def sweep_phase(card: str) -> None:
     under ``build/dryrun/``.  Prints each cell's bottleneck and trace
     seconds and the ok, failed and skipped counts; a failed cell, or an
     applicable cell without a record, fails the run."""
+    import collections
     from concurrent.futures import ThreadPoolExecutor
     from repro_torch.configs import registry
     from repro_torch.configs.base import ALL_SHAPES, shape_applicable
@@ -4651,7 +5088,8 @@ def sweep_phase(card: str) -> None:
              arch, "--shape", "all", "--mesh", ",".join(SWEEP_MESHES),
              "--out", str(path), "--force"], cwd=str(ROOT),
             capture_output=True, text=True, timeout=600,
-            env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+            env=dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+                     OMP_NUM_THREADS="1"))
         check(proc.returncode == 0, f"the sweep of {arch} exited "
               f"{proc.returncode}:\n{proc.stdout[-2000:]}"
               f"{proc.stderr[-2000:]}")
@@ -4687,8 +5125,11 @@ def sweep_phase(card: str) -> None:
     # analytic ones
     fit = sum(records[k]["memory_analysis"]["peak_memory_in_bytes"] <= 80e9
               for k in ok)
-    moved = [k for k in sorted(ok) if registry.get(
-        k.split("|")[0]).family in ("dense", "moe")]
+    moved = [k for k in sorted(ok) if sweep_sharded(k)]
+    for key in sorted(ok):
+        if key not in moved:
+            check(records[key]["trace"]["layout"] == "replicated",
+                  f"dry-run {key}: layout {records[key]['trace']['layout']}")
     for key in moved:
         r = records[key]
         peak = r["memory_analysis"]["peak_memory_in_bytes"]
@@ -4703,9 +5144,27 @@ def sweep_phase(card: str) -> None:
               f"{r['parallelism']['opt_state_dtype']}): peak per rank "
               f"{peak / 1e9:.1f} GB, held "
               f"{r['trace']['held_bytes']['total'] / 1e9:.2f} GB", flush=True)
-    print(f"dry-run: {fit} of {len(ok)} cells fit 80 GB a rank; the "
-          f"{len(moved)} dense and moe cells run the sharded layout, each "
+    families = collections.Counter(registry.get(k.split("|")[0]).family
+                                   for k in moved)
+    print(f"dry-run: {fit} of {len(ok)} cells fit 80 GB a rank; {len(moved)} "
+          f"cells run the sharded layout ({dict(families)} by family), each "
           f"holding its analytic bytes ({card})", flush=True)
+
+
+def sweep_sharded(key: str) -> bool:
+    """Whether the sweep's cell ``arch|shape|mesh`` runs the reference's
+    layout under its production rules (``launch.dryrun.sharded_cell``):
+    every dense and moe cell, the ssm and hybrid cells whose rules place
+    the SSD heads."""
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import SHAPES_BY_NAME
+    from repro_torch.distributed.sharding import make_rules
+    from repro_torch.launch.dryrun import sharded_cell
+    arch, name, mesh = key.split("|")
+    cfg, shape = registry.get(arch), SHAPES_BY_NAME[name]
+    rules = make_rules(cfg, shape, registry.default_parallelism(cfg, shape),
+                       multi_pod=mesh == "multi")
+    return sharded_cell(cfg, rules)
 
 
 def _leaves(tree):
@@ -4728,9 +5187,21 @@ def main(argv=None) -> int:
               f"{ROOT / 'chip_smoke.py'}; run it from the root of a checkout "
               f"of the repository", file=sys.stderr)
         return 2
+    try:
+        return smoke(args.seed)
+    finally:
+        for proc in _CHILDREN:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+
+
+def smoke(seed: int) -> int:
+    """Every phase in turn, then the kernel line, the card and the
+    contract's last line."""
     from repro_torch.kernels.device import build_all, resolve_device
     dev = resolve_device(None)
-    torch.manual_seed(args.seed)
+    torch.manual_seed(seed)
 
     card = card_line()
     print(f"card: {card}", flush=True)
@@ -4750,31 +5221,31 @@ def main(argv=None) -> int:
         return out
 
     phase("build (every csrc/*.cu, in parallel)", build_all)
-    rows = phase("loader kernels", kernel_phase, dev, args.seed)
+    rows = phase("loader kernels", kernel_phase, dev, seed)
     counts, unsharded = phase("loader main path, augmented",
                               main_path_augmented, dev, N_AUGMENTED,
-                              args.seed, card)
+                              seed, card)
     rows["decode_augment"]["launches"] = counts["decode_augment"]
     counts = phase("loader main path, decoded hits", main_path_decoded, dev,
-                   N_DECODED, args.seed, card)
+                   N_DECODED, seed, card)
     rows["decode"]["launches"] = counts["decode"]
     rows["augment"]["launches"] = counts["augment"]
-    phase("ods step, ImageNet-1k scale", ods_phase, dev, args.seed, card)
+    phase("ods step, ImageNet-1k scale", ods_phase, dev, seed, card)
     phase("multi-job workload, shared cache", workload_phase, dev,
-          args.seed, card)
-    counts = phase("sharded data plane", sharded_phase, dev, args.seed,
+          seed, card)
+    counts = phase("sharded data plane", sharded_phase, dev, seed,
                    card, unsharded)
     rows["decode_augment"]["launches"] += counts["decode_augment"]
     rows["augment"]["launches"] += counts["augment"]
-    rows.update(phase("model kernels", model_kernel_phase, dev, args.seed))
+    rows.update(phase("model kernels", model_kernel_phase, dev, seed))
     rows["flash_attention"]["launches"], model, tokens, logits = phase(
-        "serving, qwen3-8b", dense_phase, dev, args.seed, card)
+        "serving, qwen3-8b", dense_phase, dev, seed, card)
     mesh, store = phase("mesh: an NCCL world of one", mesh_world, card)
     rows["flash_attention"]["launches_pp"] = phase(
-        "pipeline, qwen3-8b", pp_phase, model, args.seed, card)
+        "pipeline, qwen3-8b", pp_phase, model, seed, card)
     phase("elastic resharding, qwen3-8b", elastic_phase, model, tokens,
           logits, card)
-    rows["flash_attention"]["launches_dry"] = phase(
+    rows["flash_attention"]["launches_dry"], dry_train = phase(
         "dry-run against the run, qwen3-8b prefill", dryrun_phase, model,
         mesh, card)
     del model, tokens, logits
@@ -4782,27 +5253,27 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     rows["ssd_scan"]["launches_dry"], rows["ssd_scan_bwd"]["launches_dry"] \
         = phase("dry-run against the run, mamba2-1.3b step",
-                dryrun_train_phase, dev, mesh, args.seed, card)
+                dryrun_train_phase, dev, mesh, seed, card, dry_train)
     (rows["flash_attention"]["launches_layout"],
      rows["flash_attention_bwd"]["launches_layout"],
      rows["flash_attention"]["launches_dry_layout"],
      rows["flash_attention_bwd"]["launches_dry_layout"]) = phase(
         "reference layout (FSDP + TP), qwen3-8b", layout_phase, dev,
-        args.seed, card, mesh)
+        seed, card, mesh)
     rows["ssd_scan"]["launches"], sp_launches = phase(
-        "serving, mamba2-1.3b", ssm_phase, dev, args.seed, card, mesh)
+        "serving, mamba2-1.3b", ssm_phase, dev, seed, card, mesh)
     rows["ssd_scan"]["launches_sp"] = sp_launches
     rows["flash_attention_bwd"]["launches"] = phase(
-        "training, qwen3-8b", train_phase, dev, args.seed,
+        "training, qwen3-8b", train_phase, dev, seed,
         card)["flash_attention_bwd"]
-    train = phase("training, mamba2-1.3b", train_phase, dev, args.seed,
+    train = phase("training, mamba2-1.3b", train_phase, dev, seed,
                   card, "mamba2-1.3b")
     rows["ssd_scan_bwd"]["launches"] = train["ssd_scan_bwd"]
     fwd, bwd = phase("data-parallel training, mamba2-1.3b", dp_phase, dev,
-                     args.seed, card, mesh, train["losses"])
+                     seed, card, mesh, train["losses"])
     rows["ssd_scan"]["launches_dp"] = fwd
     rows["ssd_scan_bwd"]["launches_dp"] = bwd
-    counts = phase("training, vit-huge", vit_phase, dev, args.seed, card)
+    counts = phase("training, vit-huge", vit_phase, dev, seed, card)
     rows["flash_attention_vit"]["launches"] = counts["flash_attention"]
     rows["flash_attention_bwd_vit"]["launches"] = \
         counts["flash_attention_bwd"]
@@ -4810,14 +5281,29 @@ def main(argv=None) -> int:
     rows["flash_attention_moe"]["launches"], ep_launches, \
         rows["flash_attention_bwd_moe"]["launches"] = phase(
             "serving and training, deepseek-moe-16b", moe_phase, dev,
-            args.seed, card, mesh)
+            seed, card, mesh)
     rows["flash_attention_moe"]["launches_ep"] = ep_launches
     (rows["flash_attention_moe"]["launches_layout"],
      rows["flash_attention_bwd_moe"]["launches_layout"]) = phase(
         "reference layout (EP + TP), deepseek-moe-16b", moe_layout_phase,
-        dev, args.seed, card, mesh)
+        dev, seed, card, mesh)
+    lay = phase("reference layout (TP of the SSD heads), mamba2-1.3b and "
+                "zamba2-1.2b", ssm_layout_phase, dev, seed, card, mesh)
+    for kernel in ("ssd_scan", "ssd_scan_bwd"):
+        rows[kernel]["launches_layout"] = lay["mamba2-1.3b"][kernel]
+        # the train multi rank's shape: at one rank the path's K5 runs
+        # every head, the row times a rank's 4
+        rows[f"{kernel}_tp"]["launches"] = lay["mamba2-1.3b"][kernel]
+    for kernel in ("flash_attention", "flash_attention_bwd", "ssd_scan",
+                   "ssd_scan_bwd"):
+        rows[f"{kernel}_zamba2_train"]["launches_layout"] = \
+            lay["zamba2-1.2b"][kernel]
+    for kernel in ("flash_attention", "ssd_scan"):
+        rows[f"{kernel}_zamba2"]["launches_layout"] = lay["prefill"][kernel]
+        rows[f"{kernel}_zamba2"]["launches_dry_layout"] = \
+            lay["dry zamba2-1.2b"][kernel]
     counts, train = phase("serving and training, zamba2-1.2b", hybrid_phase,
-                          dev, args.seed, card)
+                          dev, seed, card)
     rows["flash_attention_zamba2"]["launches"] = counts["flash_attention"]
     rows["ssd_scan_zamba2"]["launches"] = counts["ssd_scan"]
     for kernel in ("flash_attention", "flash_attention_bwd", "ssd_scan",
@@ -4826,7 +5312,7 @@ def main(argv=None) -> int:
     for arch in ("internvl2-2b", "seamless-m4t-large-v2"):
         for suffix, (fwd, bwd) in phase(
                 f"serving and training, {arch}", vlm_encdec_phase, dev,
-                args.seed, card, arch).items():
+                seed, card, arch).items():
             rows["flash_attention" + suffix]["launches"] = fwd
             rows["flash_attention_bwd" + suffix]["launches"] = bwd
 
@@ -4849,7 +5335,8 @@ def main(argv=None) -> int:
     kernels = [{k: rows[name][k] for k in keys if k in rows[name]}
                for name in ("decode_augment", "augment", "decode",
                             "flash_attention", "flash_attention_bwd",
-                            "ssd_scan", "ssd_scan_bwd", "flash_attention_vit",
+                            "ssd_scan", "ssd_scan_bwd", "ssd_scan_tp",
+                            "ssd_scan_bwd_tp", "flash_attention_vit",
                             "flash_attention_bwd_vit", "flash_attention_moe",
                             "flash_attention_bwd_moe", "flash_attention_zamba2",
                             "flash_attention_zamba2_train",

@@ -27,12 +27,13 @@ block of each array:
   ``with_sharding_constraint`` leaves values, and redistributes a
   DTensor on the rules' mesh to the spec's placements;
 * :func:`distribute_model` places the parameters by their specs: every
-  parameter of a family in :data:`LAYOUT_FAMILIES` (dense and moe) whose
-  spec names a mesh axis becomes a DTensor with :func:`placements_of`
-  its spec, holding only this rank's block: the reference's FSDP
-  (``embed`` over ``data``), tensor parallelism (``q_heads``,
-  ``kv_heads`` where the kv heads divide, ``mlp``, ``vocab`` over
-  ``model``) and expert parallelism (``expert`` over ``model``).  With
+  parameter of a family in :data:`LAYOUT_FAMILIES` (dense, moe, ssm and
+  hybrid) whose spec names a mesh axis becomes a DTensor with
+  :func:`placements_of` its spec, holding only this rank's block: the
+  reference's FSDP (``embed`` over ``data``), tensor parallelism
+  (``q_heads``, ``kv_heads`` where the kv heads divide, ``mlp``,
+  ``vocab``, ``ssm_inner`` over ``model``) and expert parallelism
+  (``expert`` over ``model``).  With
   ``experts_only``, and in the other families, only the experts are
   placed (``Shard(0)`` on ``model``): the expert-parallel program of the
   data-parallel step (``train/dp_shard.py``), whose other parameters
@@ -49,16 +50,21 @@ gathers it over ``model`` too (the moe router, which the reference's
 loss term; the pair :func:`replicated_to_partial` /
 :func:`sum_to_replicated` around work split over ranks that share one
 (tensor parallelism's input and output, the expert-parallel dispatch);
-:func:`regroup` for columns of heads moved between ranks; and the
-vocab-parallel reductions of ``transformer.cross_entropy``
+:func:`sum_over` for a statistic each rank adds its part to and then
+uses on its own columns (the ssm block's gated norm over ``ssm_inner``);
+:func:`gather_replicated` for columns gathered whole so that every rank
+computes alike (the ssm block's ``ssm_gather_out``); :func:`regroup`
+for columns of heads moved between ranks; and the vocab-parallel
+reductions of ``transformer.cross_entropy``
 (:func:`vocab_parallel_nll`).  Decode's collectives (the combine of a
 cache whose sequence is split, :func:`seq_split`) are in
 ``models/layers.py``.  Every collective goes through
 ``torch.distributed`` inside :func:`collective`, so
 ``roofline.hlo_collectives.record()`` sees it and the dry-run counts
 none of the ops its backend issues.  Whether a model runs the sharded
-program at all is :func:`layout_rules`: rules with a mesh, a family of
-:data:`LAYOUT_FAMILIES`, the model not placed ``experts_only``.
+program at all is :func:`layout_rules`: rules with a mesh that run the
+layout for the model's family (:func:`runs_layout`), the model not
+placed ``experts_only``.
 :func:`relayout` moves a block from one spec to another (a prefill's
 cache to the decode layout's).
 """
@@ -85,7 +91,20 @@ ACT_AXES = ("batch", "act_seq", "kv_seq", "act_heads", "act_kv", "act_mlp",
 #: parameter placed by its spec (:func:`distribute_model`), the layers
 #: tensor-parallel and FSDP-gathered, the loss over the global batch
 #: (:func:`layout_rules`)
-LAYOUT_FAMILIES = ("dense", "moe")
+LAYOUT_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+
+
+def runs_layout(family: str, mapping: Dict[str, Any]) -> bool:
+    """Whether rules of ``mapping`` run the reference's sharded program
+    for a model of ``family``: every rule set for the dense and moe
+    families; for the ssm and hybrid families those that place the SSD
+    heads (``ssm_inner`` on a mesh axis: tensor parallelism).  Their
+    other cells (pure data-parallel training, the ssm family's
+    sequence-parallel prefill) hold every parameter whole in the
+    reference too, and run the replicated program."""
+    if family not in LAYOUT_FAMILIES:
+        return False
+    return family in ("dense", "moe") or bool(mapping.get("ssm_inner"))
 
 
 def _names(entry) -> Tuple[str, ...]:
@@ -257,9 +276,10 @@ def distribute_model(model: nn.Module, rules: ShardingRules, *,
     as ``models/convert.py`` loads them) by ``rules`` on ``rules.mesh``.
     A parameter whose spec (:func:`_placed_spec`) names a mesh axis
     becomes a DTensor with :func:`placements_of` that spec, holding only
-    this rank's block, cut locally with no communication: in the dense
-    and moe families every such parameter (the reference's FSDP, tensor
-    and expert parallelism, ``partition_specs`` of its defs); with
+    this rank's block, cut locally with no communication: in the
+    families of :data:`LAYOUT_FAMILIES` every such parameter (the
+    reference's FSDP, tensor and expert parallelism, ``partition_specs``
+    of its defs); with
     ``experts_only``, and in the other families, the experts' ``we_*``
     (the model is marked so, and :func:`layout_rules` then leaves it
     out).  The rest stay plain and whole.  Returns ``model``."""
@@ -294,13 +314,14 @@ def distribute_model(model: nn.Module, rules: ShardingRules, *,
 
 def layout_rules(model: nn.Module) -> Optional["ShardingRules"]:
     """The rules in force when ``model`` runs the reference's sharded
-    program (rules with a mesh, a family of ``LAYOUT_FAMILIES``, not
-    placed ``experts_only``), else None: its loss is then the mean over
-    the global batch, each rank's loss its term of it, and the training
-    step sums the gradients over the batch axes."""
+    program (rules with a mesh that run it for the model's family,
+    :func:`runs_layout`; the model not placed ``experts_only``), else
+    None: its loss is then the mean over the global batch, each rank's
+    loss its term of it, and the training step sums the gradients over
+    the batch axes."""
     rules = _current.get()
     if not rules.enabled or rules.mesh is None \
-            or model.cfg.family not in LAYOUT_FAMILIES \
+            or not runs_layout(model.cfg.family, rules.mapping) \
             or getattr(model, "experts_only", False):
         return None
     return rules
@@ -644,10 +665,9 @@ def all_reduce_over(x: torch.Tensor, mesh, axes) -> Tuple[torch.Tensor, int]:
     product), and the peers' count.  Differentiable: the backward sums
     the gradient over the same peers, right where each peer's result
     enters its own loss term (the aux loss averaged over data ranks)."""
-    from torch.distributed.nn.functional import all_reduce
     n = 1
     for name in _names(axes):
-        x = all_reduce(x, group=mesh.get_group(name))
+        x = sum_over(x, mesh.get_group(name))
         n *= mesh.size(mesh.mesh_dim_names.index(name))
     return x, n
 
@@ -687,9 +707,59 @@ class _ReplicatedToPartial(torch.autograd.Function):
         return g, None
 
 
+class _SumOver(torch.autograd.Function):
+    """Forward: the sum over ``group``; backward: the gradient summed
+    over ``group``.  For a value each rank adds its part to and then
+    uses in a loss term: the moe's aux loss, each data rank's own term
+    (:func:`all_reduce_over`); the ssm block's gated-norm statistic,
+    which each rank of ``model`` applies to its own columns of one
+    shared term.  The sum's gradient is the sum of every use of it."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        x = x.clone(memory_format=torch.contiguous_format)
+        with collective():
+            dist.all_reduce(x, group=group)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone(memory_format=torch.contiguous_format)
+        with collective():
+            dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+class _GatherReplicated(torch.autograd.Function):
+    """Forward: each rank's block of ``x`` along ``dim`` all-gathered
+    over the ``model`` split; backward: this rank's block of the
+    gradient.  For columns gathered whole so that every rank of the
+    group computes the same shared loss term from them: each rank's
+    block enters that term once."""
+
+    @staticmethod
+    def forward(ctx, x, dim, split):
+        ctx.dim, ctx.split, ctx.n = dim, split, x.shape[dim]
+        return gather_dim(x, dim, split.group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g.narrow(ctx.dim, ctx.split.rank * ctx.n, ctx.n)
+                .contiguous(), None, None)
+
+
 def sum_to_replicated(x: torch.Tensor, group) -> torch.Tensor:
     return _SumToReplicated.apply(x, group)
 
 
 def replicated_to_partial(x: torch.Tensor, group) -> torch.Tensor:
     return _ReplicatedToPartial.apply(x, group)
+
+
+def sum_over(x: torch.Tensor, group) -> torch.Tensor:
+    return _SumOver.apply(x, group)
+
+
+def gather_replicated(x: torch.Tensor, dim: int, split: Split) -> torch.Tensor:
+    return _GatherReplicated.apply(x, dim, split)

@@ -13,17 +13,20 @@ compiler: its dry-run runs the port's own program once, as rank 0 of
 the cell's world under the cell's rules, and counts what it does.  Two
 programs, by cell (:func:`sharded_cell`):
 
-* the dense and moe families' cells, train, prefill and decode, run the
-  reference's layout, as its ``lower_cell`` jits them: every parameter,
-  moment and cache block placed by its spec (``distribute_model``: FSDP
-  of ``embed`` over ``data``, tensor parallelism of the heads, the MLP,
-  the shared experts and the vocab over ``model``, the experts over
-  ``model`` beside them; kimi-k2's int8 moments by ``_opt_specs``'
-  structured and flat branches), activations laid out as the rules say,
-  training through ``train.step.build_train_step`` with the cell's
-  microbatches and remat, decode with the cache's sequence over
-  ``model`` where the kv heads do not divide it (the flash-decoding
-  combine, ``models/layers.py``);
+* the dense and moe families' cells, train, prefill and decode, and the
+  ssm and hybrid cells whose rules place the SSD heads (tensor
+  parallelism: both archs' multi-mesh training, decode and long_500k,
+  zamba2's prefill) run the reference's layout, as its ``lower_cell``
+  jits them: every parameter, moment and cache block placed by its spec
+  (``distribute_model``: FSDP of ``embed`` over ``data``, tensor
+  parallelism of the heads, the MLP, the shared experts, the SSD heads
+  and the vocab over ``model``, the experts over ``model`` beside them;
+  kimi-k2's int8 moments by ``_opt_specs``' structured and flat
+  branches), activations laid out as the rules say, training through
+  ``train.step.build_train_step`` with the cell's microbatches and
+  remat, decode with the cache's sequence (or the hybrid ring's slots)
+  split where the rules map ``kv_seq`` (the flash-decoding combine,
+  ``models/layers.py``);
 * every other cell runs the replicated program: the batch and, for the
   ssm prefill, the sequence split, no FSDP or tensor parallelism of the
   parameters; training through ``train.dp_shard.build_dp_train_step``,
@@ -104,9 +107,9 @@ from repro_torch.configs import registry
 from repro_torch.configs.base import (ALL_SHAPES, SHAPES_BY_NAME,
                                       ParallelismConfig, ShapeConfig,
                                       shape_applicable)
-from repro_torch.distributed.sharding import (LAYOUT_FAMILIES, axis_rank,
-                                              distribute_model, in_collective,
-                                              make_rules, use_rules)
+from repro_torch.distributed.sharding import (axis_rank, distribute_model,
+                                              in_collective, make_rules,
+                                              runs_layout, use_rules)
 from repro_torch.kernels.device import as_card
 from repro_torch.launch.mesh import make_production_mesh, production_axes
 from repro_torch.models.model import build
@@ -571,13 +574,17 @@ def _port_spec(rules, axes, sharded: bool = False) -> tuple:
     return rules.spec(*(a if a in SPLIT_AXES else None for a in axes))
 
 
-def sharded_cell(cfg, shape: ShapeConfig) -> bool:
-    """Whether a cell runs the reference's sharded layout (every
-    parameter, moment and cache block placed by its spec; the training
-    step ``train.step.build_train_step``): every cell of the dense and
-    moe families, decode included.  Every other cell runs the replicated
-    program (training through ``build_dp_train_step``)."""
-    return cfg.family in LAYOUT_FAMILIES
+def sharded_cell(cfg, rules) -> bool:
+    """Whether a cell of ``rules`` runs the reference's sharded layout
+    (every parameter, moment and cache block placed by its spec; the
+    training step ``train.step.build_train_step``): every cell of the
+    dense and moe families, decode included, and the ssm and hybrid
+    cells whose rules place the SSD heads (``sharding.runs_layout``:
+    tensor parallelism; their pure data-parallel training and mamba2's
+    sequence-parallel prefill hold every parameter whole, in the
+    reference too).  Every other cell runs the replicated program
+    (training through ``build_dp_train_step``)."""
+    return runs_layout(cfg.family, rules.mapping)
 
 
 def _local_zeros(dims, dtype, spec, mesh, device) -> torch.Tensor:
@@ -650,7 +657,7 @@ def cell_step(model, shape: ShapeConfig, parallel: ParallelismConfig,
     batch axes on the global batch (each rank takes its block), prefill
     and decode on the batch's blocks with the cache's sequence and heads
     whole."""
-    sharded = sharded_cell(model.cfg, shape)
+    sharded = sharded_cell(model.cfg, rules)
     if shape.is_train:
         opt = optimizer(state_dtype=parallel.opt_state_dtype)
         state = opt.init(model)
@@ -691,7 +698,7 @@ def trace_step(model, shape: ShapeConfig, parallel: ParallelismConfig,
     held = held_bytes(args)
     with use_rules(rules), Trace(args) as tr:
         out = run()
-    layout = "sharded" if sharded_cell(model.cfg, shape) else "replicated"
+    layout = "sharded" if sharded_cell(model.cfg, rules) else "replicated"
     return {**tr.result(out), "note": note, "layout": layout,
             "held_bytes": held}
 

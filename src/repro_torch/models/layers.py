@@ -317,10 +317,27 @@ def write_kv(cache_k: torch.Tensor, cache_v: torch.Tensor, k: torch.Tensor,
         cache_v[:, slot] = v[:, 0]
 
 
+def _decode_mask(S: int, start: int, total: int, index: int, window: int,
+                 ring: bool, device) -> torch.Tensor:
+    """Which of the ``S`` cache slots from ``start`` (of ``total`` in the
+    whole cache) a query at position ``index`` reads, as a mask over the
+    scores: a linear cache's positions up to ``index`` (above ``index -
+    window`` with a window); a ring buffer's slots whose position ``index
+    - (index - slot) mod total`` is not negative."""
+    slot = start + torch.arange(S, device=device)
+    if ring:
+        valid = index - torch.remainder(index - slot, total) >= 0
+    else:
+        valid = slot <= index
+        if window:
+            valid &= slot > index - window
+    return valid[None, None, None, None, :]
+
+
 def attention_decode(p, x: torch.Tensor, cfg: ModelConfig, *,
                      cache_k: torch.Tensor, cache_v: torch.Tensor,
                      index: int, window: int = 0, use_rope: bool = True,
-                     seq=None):
+                     seq=None, ring: bool = False):
     """One-token decode against a preallocated KV cache.
 
     x: (B, 1, D); cache_k/v: (B, S_max, K, hd); index: the position.
@@ -328,25 +345,26 @@ def attention_decode(p, x: torch.Tensor, cfg: ModelConfig, *,
     returns updated copies; the caller keeps only the new cache either
     way; :func:`write_kv`) and returns ``(y, cache_k, cache_v)``.
     ``window > 0`` masks the keys at or below ``index - window``, as the
-    reference.  With ``wq`` sharded over ``model``, or ``seq`` (the
-    split of the cache's sequence, ``sharding.seq_split``), the decode
-    layout's (:func:`_attention_decode_tp`).
+    reference.  With ``ring``, the cache is the hybrid family's ring
+    buffer of W = S_max slots: the new key and value go to slot ``index
+    % W``, and slot j holds position ``index - (index - j) % W``, read
+    where that is not negative (the reference's
+    ``transformer._attention_decode_window``).  With ``wq`` sharded over
+    ``model``, or ``seq`` (the split of the cache's sequence, or of the
+    ring's slots, ``sharding.seq_split``), the decode layout's
+    (:func:`_attention_decode_tp`).
     """
     split = model_split(p["wq"])
     if split is not None or seq is not None:
         return _attention_decode_tp(p, x, cfg, cache_k, cache_v, index,
-                                    window, use_rope, split, seq)
+                                    window, use_rope, split, seq, ring)
     B = x.shape[0]
     hd = cfg.resolved_head_dim
     pos = torch.full((1,), index, dtype=torch.int32, device=x.device)
     q, k, v = _project_qkv(p, x, x, cfg, pos, pos, use_rope=use_rope)
-    write_kv(cache_k, cache_v, k, v, index)
     S_max = cache_k.shape[1]
-    kpos = torch.arange(S_max, device=x.device)
-    valid = kpos <= index
-    if window:
-        valid &= kpos > index - window
-    mask = valid[None, None, None, None, :]
+    write_kv(cache_k, cache_v, k, v, index % S_max if ring else index)
+    mask = _decode_mask(S_max, 0, S_max, index, window, ring, x.device)
     out = _sdpa(q, cache_k, cache_v, mask, cfg)
     out = out.reshape(B, 1, cfg.n_heads * hd)
     y = torch.matmul(out, take(p["wo"]))
@@ -355,7 +373,7 @@ def attention_decode(p, x: torch.Tensor, cfg: ModelConfig, *,
 
 def _attention_decode_tp(p, x, cfg: ModelConfig, cache_k, cache_v,
                          index: int, window: int, use_rope: bool, split,
-                         seq):
+                         seq, ring: bool = False):
     """Decode under the reference's decode layout, on this rank's blocks
     (no gradient: the collectives here do not differentiate).
 
@@ -378,6 +396,10 @@ def _attention_decode_tp(p, x, cfg: ModelConfig, cache_k, cache_v,
       ``wo``'s rows take (B x H x hd float32): no regroup, whether the
       heads divide the axis or not.  Elsewhere the partials are summed
       over ``seq``'s group.
+    * ``ring`` (a ring buffer, :func:`attention_decode`): with ``seq``
+      the rank holds the ring's slots from ``seq.rank * S_local`` of W =
+      ``S_local * seq.size``; slot ``index % W`` is written on the rank
+      whose block holds it, and each slot is read by its position.
     """
     B, hd = x.shape[0], cfg.resolved_head_dim
     H, K = cfg.n_heads, cfg.n_kv_heads
@@ -411,15 +433,13 @@ def _attention_decode_tp(p, x, cfg: ModelConfig, cache_k, cache_v,
         k = rotary(k, pos, cfg.rope_theta)
     S = cache_k.shape[1]
     start = seq.rank * S if seq is not None else 0
+    total = S * (seq.size if seq is not None else 1)
+    slot = index % total if ring else index
     write_kv(cache_k, cache_v, k, v,
-             index - start if start <= index < start + S else None)
+             slot - start if start <= slot < start + S else None)
     kc, vc = (cache_k, cache_v) if all_heads or kv_sharded else \
         _kv_for_heads(cache_k, cache_v, s, e, H // K)
-    kpos = start + torch.arange(S, device=x.device)
-    valid = kpos <= index
-    if window:
-        valid &= kpos > index - window
-    mask = valid[None, None, None, None, :]
+    mask = _decode_mask(S, start, total, index, window, ring, x.device)
     if seq is None:
         out = _sdpa(q, kc, vc, mask, cfg)
     else:

@@ -11,10 +11,16 @@ local path.
   those within the capacity gathered into a dense ``(E, C, D)`` buffer
   (an overflow row takes the dropped ones).  Each kept slot holds one
   assignment, so the buffer is a gather, not a scatter-add.  The
-  gathers are ``index_select``s, whose backward is an ``index_add_``:
-  advanced indexing's backward processes the many reads of the zero and
-  overflow rows one after another (70% of a forward and backward's device time
-  at deepseek-moe-16b's widths on an H100).
+  gathers are ``index_select``s (advanced indexing's backward processes
+  the many reads of the zero and overflow rows one after another: 70% of
+  a forward and backward's device time at deepseek-moe-16b's widths on
+  an H100), with a backward of their own (:class:`_GatherRows`):
+  ``index_select``'s is an ``index_add_``, which on the card adds a
+  token's k rows by atomics, in an order that changes from run to run.
+  Each source row's gradient is the sum of the rows that read it, added
+  one after another in ascending expert id, as the combine adds them,
+  so the step is bitwise repeatable without
+  ``torch.use_deterministic_algorithms``.
 * **Expert products** — three batched products over the experts
   (``torch.bmm``), plain matrix products as in the reference, which
   computes them outside any Pallas kernel.
@@ -189,9 +195,16 @@ def _dispatch_local(x2d: torch.Tensor, top_e: torch.Tensor,
     T, D = x2d.shape
     E = we_gate.shape[0]
     slot, src = dispatch_plan(top_e, E, capacity, e_start)
+    # each token's slots in ascending expert id: the order in which the
+    # combine adds its rows and the dispatch's backward their gradients
+    by_expert = torch.argsort(top_e, dim=1)
+    slot = torch.gather(slot, 1, by_expert)
+    gate = torch.gather(top_g, 1, by_expert)
+    none = E * capacity                   # the overflow row: no slot
     zero = x2d.new_zeros((1, D))
-    buf = torch.index_select(torch.cat([x2d, zero]), 0, src).reshape(
-        E, capacity, D)
+    buf = gather_rows(torch.cat([x2d, zero]), src, torch.cat(
+        [slot, slot.new_full((1, slot.shape[1]), none)])).reshape(
+            E, capacity, D)
 
     g = torch.bmm(buf, we_gate)
     u = torch.bmm(buf, we_up)
@@ -200,16 +213,58 @@ def _dispatch_local(x2d: torch.Tensor, top_e: torch.Tensor,
 
     # combine: each token's rows in ascending expert id, weighted by
     # their gates, added one after another (dropped rows read the zero
-    # overflow row)
+    # overflow row); buffer row slot[t, j] is read by token t alone
     y_pad = torch.cat([y.reshape(E * capacity, D), zero])
-    by_expert = torch.argsort(top_e, dim=1)
-    slot = torch.gather(slot, 1, by_expert)
-    gate = torch.gather(top_g, 1, by_expert)
+    tokens = torch.arange(T, dtype=slot.dtype, device=slot.device)
     out = torch.zeros_like(x2d)
     for j in range(slot.shape[1]):
-        out = out + torch.index_select(y_pad, 0, slot[:, j]) \
+        # the dropped assignments all name the overflow row, whose
+        # gradient the concatenation drops
+        reader = torch.full((none + 1, 1), T, dtype=slot.dtype,
+                            device=slot.device).scatter_(
+            0, slot[:, j, None], tokens[:, None])
+        out = out + gather_rows(y_pad, slot[:, j], reader) \
             * gate[:, j, None]
     return out
+
+
+def gather_rows(src: torch.Tensor, index: torch.Tensor,
+                readers: torch.Tensor) -> torch.Tensor:
+    """``torch.index_select(src, 0, index)``, with a backward that adds
+    without atomics (:class:`_GatherRows`).  ``readers`` (n, r) lists,
+    for each of ``src``'s n rows, the output rows that read it in the
+    order their gradients are added, ``len(index)`` for none."""
+    return _GatherRows.apply(src, index, readers)
+
+
+class _GatherRows(torch.autograd.Function):
+    """:func:`gather_rows`.  Backward: row i of ``src``'s gradient is
+    ``0 + g[readers[i, 0]] + g[readers[i, 1]] + ...``, one add after
+    another in ``readers``' order, skipping the absent ones, in float32
+    for a narrower type and rounded once: the sums ``index_select``'s
+    backward (``index_add_``) forms on the CPU, which adds the reads in
+    ascending output row in float32, and on the card without its
+    atomics."""
+
+    @staticmethod
+    def forward(ctx, src, index, readers):
+        ctx.save_for_backward(readers)
+        ctx.m = index.shape[0]
+        return torch.index_select(src, 0, index)
+
+    @staticmethod
+    def backward(ctx, g):
+        readers, = ctx.saved_tensors
+        acc = torch.promote_types(g.dtype, F32)
+        g_pad = torch.cat([g, g.new_zeros((1,) + tuple(g.shape[1:]))])
+        out = torch.zeros((readers.shape[0],) + tuple(g.shape[1:]),
+                          dtype=acc, device=g.device)
+        for j in range(readers.shape[1]):
+            r = readers[:, j]
+            read = (r < ctx.m).reshape(-1, *([1] * (g.dim() - 1)))
+            out = torch.where(read, out + torch.index_select(g_pad, 0, r),
+                              out)
+        return out.to(g.dtype), None, None
 
 
 # ---------------------------------------------------------------------------

@@ -22,7 +22,15 @@ the batch ranks) over their count; prefill writes the cache's local
 blocks; decode takes the rank's block of the tokens and the cache's
 blocks by the decode rules' spec (the sequence over ``model`` where the
 kv heads do not divide it: the flash-decoding combine,
-``layers.attention_decode``) and returns the rank's vocab block.
+``layers.attention_decode``) and returns the rank's vocab block.  The
+ssm and hybrid families run it where the rules place the SSD heads
+(``ssm_inner`` on ``model``, ``sharding.runs_layout``): their blocks are
+tensor-parallel over the heads (``models/ssm.py``), the hybrid's shared
+block the dense one's tensor-parallel attention and MLP; decode takes
+the rank's heads of the state ``h``, the whole conv buffer, and the
+shared block's ring buffers by their spec (the rank's kv heads; where
+the rules map ``kv_seq`` to ``data``, its block of the ring's slots and
+the combine over them).
 
 The vlm family is the dense stack with ``patch_embeds`` (B, P, d), cast
 to the activations' type, in front of the token embeddings; positions
@@ -418,24 +426,6 @@ def _cross_attention_cached(p, x: torch.Tensor, cfg: ModelConfig,
     return torch.matmul(out.reshape(B, 1, cfg.n_heads * hd), p["wo"])
 
 
-def _attention_decode_window(p, x: torch.Tensor, cfg: ModelConfig,
-                             ck: torch.Tensor, cv: torch.Tensor, index: int):
-    """Ring-buffer windowed decode: the new key and value go to slot
-    ``index % W`` of ck/cv (B, W, K, hd), in place; slot j holds position
-    ``index - (index - j) % W``, valid where that is >= 0."""
-    B = x.shape[0]
-    pos = torch.full((1,), index, dtype=torch.int32, device=x.device)
-    q, k, v = lyr._project_qkv(p, x, x, cfg, pos, pos)
-    W = ck.shape[1]
-    lyr.write_kv(ck, cv, k, v, index % W)
-    j = torch.arange(W, device=x.device)
-    slot_pos = index - torch.remainder(index - j, W)
-    mask = (slot_pos >= 0)[None, None, None, None, :]
-    out = lyr._sdpa(q, ck, cv, mask, cfg)
-    out = out.reshape(B, 1, cfg.n_heads * cfg.resolved_head_dim)
-    return torch.matmul(out, p["wo"])
-
-
 def decode_step(params, cfg: ModelConfig, cache: Dict, tokens: torch.Tensor,
                 index: int) -> Tuple[torch.Tensor, Dict]:
     """One-token decode. tokens: (B, 1) int; index: the position.
@@ -451,8 +441,9 @@ def decode_step(params, cfg: ModelConfig, cache: Dict, tokens: torch.Tensor,
 
     Under the reference's layout (``sharding.layout_rules``) ``tokens``
     are this rank's block by ``("batch", None)``, ``cache`` the blocks by
-    the cache's spec (its sequence split where the rules map ``kv_seq``,
-    ``sharding.seq_split``), and the logits the rank's vocab block.
+    the cache's spec (its sequence, or the hybrid ring's slots, split
+    where the rules map ``kv_seq``, ``sharding.seq_split``), and the
+    logits the rank's vocab block.
     """
     index = int(index)
     rules = layout_rules(params)
@@ -488,9 +479,10 @@ def decode_step(params, cfg: ModelConfig, cache: Dict, tokens: torch.Tensor,
             if every and (l + 1) % every == 0:
                 site, sp = (l + 1) // every - 1, params["shared"]
                 h = lyr.rmsnorm(x, sp["ln1"], cfg.norm_eps)
-                x = x + _attention_decode_window(
-                    sp["attn"], h, cfg, cache["ak"][site],
-                    cache["av"][site], index)
+                x = x + lyr.attention_decode(
+                    sp["attn"], h, cfg, cache_k=cache["ak"][site],
+                    cache_v=cache["av"][site], index=index, seq=seq,
+                    ring=True)[0]
                 h = lyr.rmsnorm(x, sp["ln2"], cfg.norm_eps)
                 x = x + lyr.mlp(sp["mlp"], h)
         new_cache = {"h": torch.stack(hs), "conv": torch.stack(convs)}

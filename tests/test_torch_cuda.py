@@ -792,6 +792,40 @@ def test_moe_bf16_prefill_is_bitwise_repeatable_on_card(cuda, monkeypatch):
     assert len(dropped) == 3 * cfg.n_layers and sum(dropped) > 0, dropped
 
 
+def test_moe_training_step_is_bitwise_repeatable_on_card(cuda):
+    """Two bf16 training steps of reduced deepseek-moe-16b from the same
+    seed on the card (4 x 256 tokens, assignments dropped at the
+    published capacity factor) give the same loss, gradient norm and
+    parameters, bit for bit, with ``torch.use_deterministic_algorithms``
+    off: the dispatch's backward adds each token's rows in ascending
+    expert id without atomics (``moe._GatherRows``)."""
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import ParallelismConfig
+    from repro_torch.models.model import build
+    from repro_torch.train.optimizer import AdamW
+    from repro_torch.train.step import build_train_step
+
+    assert not torch.are_deterministic_algorithms_enabled()
+    cfg = registry.get_reduced("deepseek-moe-16b")
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (4, 257))).to(cuda)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    runs = []
+    for _ in range(2):
+        model = build(cfg).init(seed=0, device=cuda)
+        opt = AdamW(lr=1e-3)
+        state = opt.init(model)
+        step = build_train_step(model, ParallelismConfig(), opt)
+        model, state, m = step(model, state, batch)
+        runs.append((float(m["loss"]), float(m["grad_norm"]),
+                     {n: p.detach().clone()
+                      for n, p in model.named_parameters()}))
+    (l0, n0, p0), (l1, n1, p1) = runs
+    assert np.isfinite(l0) and l0 == l1 and n0 == n1, (l0, l1, n0, n1)
+    for n, p in p0.items():
+        assert torch.equal(p, p1[n]), n
+
+
 #: K5's backward against its plain version, as a relative RMS by the
 #: type a gradient is stored in (chip_smoke.SSD_BWD_RMS)
 K5_BWD_RMS = {torch.bfloat16: 5e-4, torch.float32: 2e-4}

@@ -57,6 +57,7 @@ from repro.roofline import analysis as ref_analysis  # noqa: E402
 from repro_torch.configs import registry  # noqa: E402
 from repro_torch.configs.base import (ALL_SHAPES, ShapeConfig,  # noqa: E402
                                       shape_applicable)
+from repro_torch.distributed.sharding import make_rules  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as fa  # noqa: E402
 from repro_torch.kernels.ssd_scan import kernel as sk  # noqa: E402
 from repro_torch.launch import dryrun  # noqa: E402
@@ -186,11 +187,17 @@ def test_k5_op_fake_and_flops(case, which):
 
 
 def _reduced(get):
+    """The reduced configs, widened where the production mesh's 16 ranks
+    of ``model`` split them: 16 experts; 16 SSD heads (``d_model`` 128),
+    which the layout places over ``model`` in the ssm and hybrid cells
+    whose rules are tensor-parallel."""
     def cfg(arch):
         c = get(arch)
         if c.moe is not None:
             c = dataclasses.replace(c, moe=dataclasses.replace(
                 c.moe, n_experts=16))
+        if c.family in ("ssm", "hybrid"):
+            c = dataclasses.replace(c, d_model=128)
         return c
     return cfg
 
@@ -257,12 +264,13 @@ def test_pieces_traced_once_count_as_every_piece(arch, state, monkeypatch):
     from repro_torch.train import optimizer
     monkeypatch.setattr(registry, "get", _reduced(registry.get_reduced))
     shape = ShapeConfig("train_4k", SEQ, 256, "train")
+    par = registry.default_parallelism(registry.get(arch), shape).replace(
+        opt_state_dtype=state)
     # a sharded cell's rank holds a 16th of most leaves (tensor
     # parallelism over model): pieces of 256 elements give it as many
     monkeypatch.setattr(optimizer, "CHUNK", 256 if dryrun.sharded_cell(
-        registry.get(arch), shape) else 4096)
-    par = registry.default_parallelism(registry.get(arch), shape).replace(
-        opt_state_dtype=state)
+        registry.get(arch), make_rules(registry.get(arch), shape, par))
+        else 4096)
     added = []
     add = dryrun.Trace.add
     monkeypatch.setattr(dryrun.Trace, "add",

@@ -242,6 +242,69 @@ def test_dispatch_plan_fills_experts_in_sorted_order():
     assert src.tolist() == [0, 1, 0, 1, 2, 4]
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("factor", [1.0, 100.0])
+def test_dispatch_backward_is_index_selects(dtype, factor, monkeypatch):
+    """The dispatch's gather and the combine's (``moe.gather_rows``) give
+    ``index_select``'s rows and, in their own backward, which adds each
+    row's reads in ascending expert id without atomics, the bits of
+    ``index_select``'s (``index_add_``) on the CPU: at the published
+    capacity factor some assignments are dropped (their reads of the
+    zero row and writes to the overflow row contribute nothing), at 100
+    none are.  Also through a whole ``moe_ffn``: the gradients of its
+    input and weights equal those of the same layer with ``index_select``
+    gathers."""
+    dt = _TDT[dtype]
+    rng = np.random.default_rng(7)
+    T, k, E, D = 48, 3, 8, 16
+    x = torch.from_numpy(rng.standard_normal((T, D), np.float32)).to(dt)
+    top_e = torch.sort(torch.from_numpy(rng.standard_normal(
+        (T, E), np.float32)), dim=-1, descending=True,
+        stable=True).indices[:, :k]
+    cap = moe._capacity(T, k, E, factor)
+    slot, src = moe.dispatch_plan(top_e, E, cap)
+    assert (int((slot == E * cap).sum()) > 0) == (factor == 1.0)
+    slot = torch.gather(slot, 1, torch.argsort(top_e, dim=1))
+    g = torch.from_numpy(rng.standard_normal((E * cap, D), np.float32)
+                         ).to(dt)
+    xa = x.clone().requires_grad_(True)
+    xb = x.clone().requires_grad_(True)
+    none = slot.new_full((1, k), E * cap)
+    got = moe.gather_rows(torch.cat([xa, xa.new_zeros(1, D)]), src,
+                          torch.cat([slot, none]))
+    want = torch.index_select(torch.cat([xb, xb.new_zeros(1, D)]), 0, src)
+    assert torch.equal(got, want)
+    ga, = torch.autograd.grad(got, xa, g)
+    gb, = torch.autograd.grad(want, xb, g)
+    assert torch.equal(ga, gb)
+
+    cfg = registry.get_reduced(ARCH)
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=factor))
+    p = build(cfg).init(dtype=dt, seed=1, device="cpu")["blocks"][0]["moe"]
+    h = torch.from_numpy(rng.standard_normal((2, 24, cfg.d_model),
+                                             np.float32)).to(dt)
+
+    def grads():
+        names, ps = zip(*[(n, q) for n, q in p.named_parameters()])
+        hh = h.clone().requires_grad_(True)
+        y, aux = moe.moe_ffn(p, hh, cfg)
+        loss = (y.float() * torch.linspace(-1, 1, y.numel()).reshape(
+            y.shape)).sum() + aux
+        return torch.autograd.grad(loss, (hh,) + ps)
+
+    p.requires_grad_(True)
+    mine = grads()
+
+    def plain(src, index, readers):
+        return torch.index_select(src, 0, index)
+
+    monkeypatch.setattr(moe, "gather_rows", plain)
+    theirs = grads()
+    for a, b in zip(mine, theirs, strict=True):
+        assert torch.equal(a, b)
+
+
 # ------------------------------------------------------------ the model
 
 def test_decode_without_drops_matches_forward():

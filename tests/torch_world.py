@@ -1,6 +1,6 @@
 """Small worlds of ranks for the port's multi-rank tests (not a test
 module: the ``test_torch_{mesh,dp,ep_sp,pp_elastic,dryrun_trace,
-fsdp_tp,layout_decode_moe}.py`` files import it).
+fsdp_tp,layout_decode_moe,layout_ssm_hybrid}.py`` files import it).
 
 :func:`spawn` starts ``world`` Python processes of this file, one per
 rank.  Each joins a process group that meets on a file store under the
@@ -527,8 +527,8 @@ def case_dryrun(rank, world, inputs, device):
     config with seeded weights, through ``launch.dryrun.trace_step``
     under the cell's rules on a ``("data", "model")`` mesh; returns each
     cell's counts (FLOPs, bytes accessed, collectives, kernel calls).
-    Then one data-parallel step of the reduced deepseek-moe-16b, expert
-    parallel on a (2, 2) mesh, on ``inputs["ep_batch"]`` with
+    Then, given ``inputs["ep_batch"]``, one data-parallel step of the
+    reduced deepseek-moe-16b, expert parallel on a (2, 2) mesh, on it with
     ``AdamW(**inputs["ep_opt"])``: its gradient norm, its replicated
     parameters and its experts (gathered over ``model``) after the
     step."""
@@ -555,8 +555,10 @@ def case_dryrun(rank, world, inputs, device):
                                          "collective_counts",
                                          "kernel_calls")}
 
-    # one data-parallel step of the expert-parallel moe: the same weights
-    # on every rank, each model rank its own experts
+    # one data-parallel step of the expert-parallel moe (when asked): the
+    # same weights on every rank, each model rank its own experts
+    if "ep_batch" not in inputs:
+        return out
     import torch
     from torch.distributed.tensor import DTensor
     from repro_torch.configs.base import TRAIN_4K, ParallelismConfig
@@ -716,19 +718,24 @@ def _moments_whole(model, state, mesh):
     return out
 
 
-def case_layout_decode_moe(rank, world, inputs, device):
-    """The reference's sharded decode and the moe family's layout: for
+def case_layout(rank, world, inputs, device):
+    """The reference's sharded layout, train, prefill and decode: for
     each case of ``inputs`` (a config, a ``("data", "model")`` mesh
     shape, the reference's initial parameters, a global batch):
     ``steps`` steps of ``build_train_step`` under the train rules on the
     placed model (if any), then on a fresh placement of the initial
     parameters a prefill of ``prompt`` under the prefill rules, its
     cache carried to the decode layout (``sharding.relayout``), and
-    ``decode`` steps of ``Model.decode_step`` under the decode rules at
-    ``s_max`` positions.  Returns the history, parameters and moments
-    (gathered whole), the prefill's and each decode step's logits, the
-    final cache, and per decode step whether this rank wrote the key
-    and whether its block of positions was wholly masked."""
+    ``decode`` steps of ``Model.decode_step`` under the decode rules
+    (of the shape ``decode_name``, default ``"decode"``) at ``s_max``
+    positions.  Returns the history, parameters and moments (gathered
+    whole), the prefill's and each decode step's logits, the final
+    cache, and per decode step whether this rank wrote the key and
+    whether its block of positions was wholly masked (of the dense
+    cache ``k``, or of the hybrid's ring ``ak``; for the ssm family,
+    which has neither, both lists hold None).  The dense decode and moe
+    cases (``layout_decode_moe``) and the ssm and hybrid ones
+    (``layout_ssm_hybrid``) run this one program."""
     import torch
     from torch.distributed.device_mesh import init_device_mesh
     from torch.distributed.tensor import DTensor
@@ -737,13 +744,14 @@ def case_layout_decode_moe(rank, world, inputs, device):
                                                   local_block, make_rules,
                                                   placements_of, relayout,
                                                   seq_split, use_rules)
+    from repro_torch.models.layers import _decode_mask
     from repro_torch.models.params import partition_specs
     from repro_torch.models.transformer import cache_defs
     from repro_torch.train.optimizer import AdamW, moment_layouts
     from repro_torch.train.step import build_train_step
 
     out = {}
-    for key, case in inputs["cases"].items():
+    for name, case in inputs["cases"].items():
         dp, tp = case["mesh"]
         mesh = init_device_mesh(device, (dp, tp),
                                 mesh_dim_names=("data", "model"))
@@ -781,7 +789,8 @@ def case_layout_decode_moe(rank, world, inputs, device):
         B, P = prompt.shape
         s_max = case["s_max"]
         pshape = ShapeConfig("prefill", P, B, "prefill")
-        dshape = ShapeConfig("decode", s_max, B, "decode")
+        dshape = ShapeConfig(case.get("decode_name", "decode"), s_max, B,
+                             "decode")
         prules = make_rules(cfg, pshape, par, tp_size=tp, dp_size=dp,
                             mesh=mesh)
         drules = make_rules(cfg, dshape, par, tp_size=tp, dp_size=dp,
@@ -807,8 +816,10 @@ def case_layout_decode_moe(rank, world, inputs, device):
         model = distribute_model(_model(None, case["state"], cfg=cfg,
                                         device=device), drules)
         seq = seq_split(drules)
-        S_l = cache["k"].shape[2]
+        key = next((k for k in ("k", "ak") if k in cache), None)
+        S_l = cache[key].shape[2] if key else 0
         start = seq.rank * S_l if seq is not None else 0
+        total = S_l * (seq.size if seq is not None else 1)
         steps, wrote, masked = [], [], []
         for i, tok in enumerate(case["decode"]):
             index = P + i
@@ -816,14 +827,21 @@ def case_layout_decode_moe(rank, world, inputs, device):
                 logits, cache = model.decode_step(
                     cache, local_block(tok, drules, "batch", None), index)
             steps.append(_gather_placed(logits, mesh, vocab))
-            wrote.append(start <= index < start + S_l)
-            masked.append(start > index)
+            if key is None:
+                wrote.append(None)
+                masked.append(None)
+                continue
+            ring = key == "ak"
+            slot = index % total if ring else index
+            wrote.append(start <= slot < start + S_l)
+            masked.append(not bool(_decode_mask(
+                S_l, start, total, index, 0, ring, device).any()))
         res.update(decode=steps, wrote=wrote, masked=masked,
                    kv_seq=drules.mapping["kv_seq"],
-                   cache_local=tuple(cache["k"].shape),
+                   cache_local=tuple(cache[key or "h"].shape),
                    cache={k: _gather_placed(c, mesh, placements_of(
                        mesh, dspecs[k])) for k, c in cache.items()})
-        out[key] = res
+        out[name] = res
     return out
 
 
@@ -831,7 +849,8 @@ CASES = {"mesh": case_mesh, "dp": case_dp, "ep_sp": case_ep_sp,
          "pp_elastic": case_pp_elastic,
          "nccl_world_of_one": case_nccl_world_of_one,
          "dryrun": case_dryrun, "fsdp_tp": case_fsdp_tp,
-         "layout_decode_moe": case_layout_decode_moe}
+         "layout_decode_moe": case_layout,
+         "layout_ssm_hybrid": case_layout}
 
 
 def _main(case: str, rank: int, world: int, d: str, device: str) -> int:
