@@ -90,6 +90,10 @@ into ``build/repro_torch/``), then:
    the training batch of 2, with the same checks and yardsticks; K4 and
    its backward non-causal at Sq in ``CROSS_SQ`` x Sk in ``CROSS_SK``,
    bf16 and float32, against plain, two backward calls bitwise equal;
+   K4 and its backward at a tensor-parallel rank's shapes, one head a
+   launch (``tp_rank_k4_rows``): vit-huge's train_224 rank (64, 197, 1
+   | 1, 80) non-causal and seamless's train multi cross-attention rank
+   (8, 4096 | 512, 1 | 1, 64), with the same checks and yardsticks;
 6. serving path, dense: qwen3-8b at full width (random weights from
    ``--seed``): ``Model.prefill`` of 4 x 1024 tokens (K4 launched once
    per layer; prefill logits equal forward's; decode at index S agrees
@@ -244,7 +248,26 @@ into ``build/repro_torch/``), then:
     decode_32k decodes bitwise, the long_500k decode bitwise or within
     ``depth_tolerance``; K5, its backward and K4 launched as often on
     both paths, none in decode; then ``dry_check`` of mamba2's decode
-    cell and zamba2's 1 x 8192 prefill cell on that layout;
+    cell and zamba2's 1 x 8192 prefill cell on that layout; (e) the vlm,
+    encdec and encoder families under the reference's layout at one
+    NCCL rank (``row4_layout_phase``): internvl2-2b (24 layers),
+    seamless-m4t-large-v2 (24 + 24) and vit-huge (32) at their
+    published widths placed by ``distribute_model`` under their cells'
+    production rules (train multi on the ``pod_mesh``, prefill_32k and
+    decode_32k; vit-huge's train_224 on one pod: heads, MLP and vocab
+    over ``model``), ``ROW4_STEPS`` steps through ``build_train_step``
+    (2 x 1024; vit-huge on the first ``VIT_RANK_B`` images of the
+    loader's device route), for the LM archs a 4 x 1024 prefill and
+    ``ROW4_DECODE`` decode steps under the decode_32k rules (internvl2's
+    cache's sequence on ``model``, the combine over one block;
+    seamless's 16 kv heads on ``model``, the cross-attention reading the
+    prefill's cross rows), then the same from the same seed with no
+    rules: every digest, loss, gradient norm, the prefill's logits and
+    cache and seamless's decode bitwise, internvl2's decode bitwise or
+    within ``depth_tolerance(24)``; K4 and its backward launched as
+    often on both paths (by shape too), none in decode; then
+    ``dry_check`` of internvl2's decode cell and seamless's 4 x 1024
+    prefill cell on that layout;
 11. the hybrid family, zamba2-1.2b at its published widths and full
     depth (38 mamba2 layers, the shared attention block after every 6,
     1.17 B parameters; ``hybrid_phase``): (a) ``Model.prefill`` of 1 x
@@ -287,8 +310,9 @@ into ``build/repro_torch/``), then:
     cell's bottleneck and trace seconds, ok, failed and skipped, 0
     failed and every applicable cell recorded; the peak per rank of
     each cell whose production rules run the sharded layout
-    (``sweep_sharded``: every dense and moe cell, the ssm and hybrid
-    cells with tensor parallelism), each holding its analytic bytes,
+    (``sweep_sharded``: every dense and moe cell, the ssm, hybrid, vlm
+    and encdec cells with tensor parallelism), each holding its analytic
+    bytes,
     every other cell on the replicated program, and how many of all the
     cells fit 80 GB; then the
     kernel JSON line (one
@@ -304,7 +328,10 @@ into ``build/repro_torch/``), then:
     K5's and its backward's mamba2 rows and the zamba2 rows
     ``launches_layout``, theirs in ``ssm_layout_phase``'s sharded runs,
     zamba2's prefill rows ``launches_dry_layout``, theirs in its dry-run
-    check; the ``_tp`` rows' ``launches`` are mamba2's sharded steps'),
+    check, the internvl2, seamless and vit-huge rows ``launches_layout``,
+    theirs in ``row4_layout_phase``'s sharded runs; the ``_tp`` rows'
+    ``launches`` are mamba2's, vit-huge's and seamless's (at the
+    cross-attention's shape) sharded steps'),
     the card line, and
     the result line
     ``{"ok": true, "device": {...}}`` last.
@@ -1689,6 +1716,33 @@ def model_kernel_phase(dev, seed: int):
         dev, rng, *TP_RANK_SHAPE, s.head_dim, s.d_state, s.chunk, "_tp")
     rows.update(zamba2_kernel_rows(dev, rng))
     rows.update(vlm_encdec_kernel_rows(dev, rng))
+    rows.update(tp_rank_k4_rows(dev, rng))
+    return rows
+
+
+def tp_rank_k4_rows(dev, rng):
+    """K4 and its backward at a tensor-parallel rank's shapes under the
+    reference's layout, one head a launch: vit-huge's train_224 rank
+    (``VIT_RANK_B`` of the 1,024 images over 16 data ranks, 1 of its 16
+    heads over 16 model ranks, hd 80, non-causal) and seamless's train
+    multi cross-attention rank (256 sequences over 32 data ranks: 8, the
+    4,096 decoder rows over ``encdec_src_len(4096)`` = 512 frames, 1 of
+    16 heads, hd 64).  At one rank the layout phase launches every head;
+    these rows time a rank's launch of the production mesh."""
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import TRAIN_4K
+    from repro_torch.models.transformer import encdec_src_len
+    rows = {}
+    cfg = registry.get("vit-huge")
+    rows["flash_attention_vit_tp"], rows["flash_attention_bwd_vit_tp"] = \
+        k4_rows(dev, rng, "_vit_tp", VIT_RANK_B, cfg.frontend_tokens, 1, 1,
+                cfg.resolved_head_dim, causal=False)
+    cfg = registry.get("seamless-m4t-large-v2")
+    S = TRAIN_4K.seq_len
+    rows["flash_attention_seamless_cross_tp"], \
+        rows["flash_attention_bwd_seamless_cross_tp"] = k4_rows(
+            dev, rng, "_seamless_cross_tp", TRAIN_4K.global_batch // 32, S,
+            1, 1, cfg.resolved_head_dim, causal=False, Sk=encdec_src_len(S))
     return rows
 
 
@@ -4365,8 +4419,8 @@ def layout_run(dev, seed: int, mesh, sharded: bool) -> dict:
     gen = torch.Generator(device=dev).manual_seed(seed + 3)
     tokens = torch.randint(0, cfg.vocab_size, (ATTN_B, ATTN_S),
                            generator=gen, device=dev)
-    served = prefill_decode(model, prules, drules, mesh, tokens,
-                            LAYOUT_DECODE, seed, sharded)
+    served = prefill_decode(model, prules, drules, mesh,
+                            {"tokens": tokens}, LAYOUT_DECODE, seed, sharded)
     # one more step, traced: where the step's time goes (nothing is
     # compared after it)
     with ctx(rules):
@@ -4381,28 +4435,32 @@ def layout_run(dev, seed: int, mesh, sharded: bool) -> dict:
     return out
 
 
-def prefill_decode(model, prules, drules, mesh, tokens, n_decode: int,
+def prefill_decode(model, prules, drules, mesh, batch, n_decode: int,
                    seed: int, sharded: bool) -> dict:
-    """``Model.prefill`` of ``tokens`` into a cache of ``S + n_decode``
-    positions, then ``n_decode`` decode steps of tokens drawn from
-    ``seed``: under ``prules``, then ``drules`` with the cache carried
-    from the prefill's spec to the decode's by ``sharding.relayout`` (the
-    re-lay step, not part of the reference's program), or with no rules.
+    """``Model.prefill`` of ``batch`` (its tokens, after the vlm's patch
+    embeddings: S positions; beside the encdec's frame embeddings) into a
+    cache of ``S + n_decode`` positions, then ``n_decode`` decode steps
+    of tokens drawn from ``seed``: under ``prules``, then ``drules`` with
+    the cache carried from the prefill's spec to the decode's by
+    ``sharding.relayout`` (the re-lay step, not part of the reference's
+    program), or with no rules.
     Returns the prefill's logits and cache on the host, per decode step
     the logits and every layer's new key and value on the host, the
     final cache's digests, the seconds and the kernel launches of the
     prefill and of the decode steps."""
     from repro_torch.distributed.sharding import relayout, use_rules
     from repro_torch.models.params import partition_specs
-    cfg, dev = model.cfg, tokens.device
-    B, S = tokens.shape
+    cfg, dev = model.cfg, batch["tokens"].device
+    B, S = batch["tokens"].shape
+    if "patch_embeds" in batch:
+        S += batch["patch_embeds"].shape[1]
     ctx = (lambda r: use_rules(r)) if sharded else \
         (lambda r: contextlib.nullcontext())
     cache = model.init_cache(B, S + n_decode)
     reset_counts()
     with ctx(prules):
         (logits, cache), psecs = synced_seconds(
-            lambda: model.prefill({"tokens": tokens}, cache))
+            lambda: model.prefill(batch, cache))
     # copies: decode then writes into the cache in place
     out = {"logits": logits.to("cpu", copy=True),
            "cache": {k: c.to("cpu", copy=True) for k, c in cache.items()},
@@ -4643,8 +4701,9 @@ def moe_layout_run(dev, seed: int, mesh, sharded: bool) -> dict:
     gen = torch.Generator(device=dev).manual_seed(seed + 3)
     tokens = torch.randint(0, cfg.vocab_size, (ATTN_B, ATTN_S),
                            generator=gen, device=dev)
-    out.update(prefill_decode(model, prules, drules, mesh, tokens,
-                              MOE_LAYOUT_DECODE, seed, sharded))
+    out.update(prefill_decode(model, prules, drules, mesh,
+                              {"tokens": tokens}, MOE_LAYOUT_DECODE, seed,
+                              sharded))
     del model
     gc.collect()
     torch.cuda.empty_cache()
@@ -4767,15 +4826,16 @@ def pod_mesh():
     return mesh
 
 
-def production_rules(cfg, mesh) -> dict:
+def production_rules(cfg, mesh, shapes=None) -> dict:
     """The production cells' rules by shape name, each under its default
-    layout: train_4k on the multi-pod mesh, the others on one pod."""
+    layout: train_4k on the multi-pod mesh, the others on one pod;
+    ``shapes`` ({name: ShapeConfig}) the cells, by default the four of
+    ``ALL_SHAPES``."""
     from repro_torch.configs import registry
     from repro_torch.configs.base import SHAPES_BY_NAME
     from repro_torch.distributed.sharding import make_rules
     out = {}
-    for name in ("train_4k", "prefill_32k", "decode_32k", "long_500k"):
-        shape = SHAPES_BY_NAME[name]
+    for name, shape in (shapes or SHAPES_BY_NAME).items():
         out[name] = make_rules(cfg, shape, registry.default_parallelism(
             cfg, shape), multi_pod=name == "train_4k", tp_size=DECODE_TP,
             dp_size=16, mesh=mesh)
@@ -5061,6 +5121,252 @@ def ssm_layout_phase(dev, seed: int, card: str, mesh):
     return launches
 
 
+#: the vlm, encdec and encoder families under the reference's layout at
+#: one NCCL rank, at their published widths and full depth: internvl2-2b
+#: and seamless-m4t-large-v2 under their production rules (train multi:
+#: 256 sequences do not divide 512 ranks, so tensor parallelism;
+#: prefill_32k; decode_32k), vit-huge under train_224's (1,024 images
+#: over 16 data ranks, its 16 heads and d_ff over 16 model ranks).
+#: ROW4_STEPS steps each, then for the LM archs a prefill of ATTN_B x
+#: ATTN_S positions and ROW4_DECODE decode steps
+ROW4_ARCHS = ("internvl2-2b", "seamless-m4t-large-v2", "vit-huge")
+ROW4_STEPS = 2
+ROW4_DECODE = 8
+#: vit-huge's batch: the first rows of the loader's first batch, a data
+#: rank's block of train_224's 1,024 images over 16 ranks
+VIT_RANK_B = 64
+#: the dry-run cells held against the run on the layout: internvl2-2b's
+#: decode step and seamless-m4t-large-v2's prefill (encoder, self- and
+#: cross-attention, the cross keys and values written)
+ROW4_DRY_CELLS = {"internvl2-2b": (("decode", ROW4_DECODE, ATTN_B,
+                                    "decode"), ()),
+                  "seamless-m4t-large-v2": (("prefill", ATTN_S, ATTN_B,
+                                             "prefill"),
+                                            ("flash_attention",))}
+
+
+def row4_shapes(cfg) -> dict:
+    """The cells of ``cfg``'s arch the phase runs, by name: train_4k,
+    prefill_32k and decode_32k for the LM archs, train_224 for
+    vit-huge."""
+    from repro_torch.configs.base import SHAPES_BY_NAME
+    if cfg.family == "encoder":
+        from repro_torch.configs.vit_huge import TRAIN_224
+        return {"train_224": TRAIN_224}
+    return {n: SHAPES_BY_NAME[n] for n in ("train_4k", "prefill_32k",
+                                           "decode_32k")}
+
+
+def row4_layout_run(dev, seed: int, mesh, arch: str, sharded: bool,
+                    images=None) -> dict:
+    """``arch`` at its published widths and full depth: ``ROW4_STEPS``
+    steps of ``build_train_step`` under its train cell's rules and
+    default layout (internvl2-2b and seamless-m4t-large-v2 on
+    ``lm_batch_source``'s ``TRAIN_B`` x ``TRAIN_S``; vit-huge on
+    ``images``, the loader's batch), then for the LM archs
+    ``prefill_decode`` of ``ATTN_B`` x ``ATTN_S`` positions and
+    ``ROW4_DECODE`` decode steps under the prefill_32k and decode_32k
+    rules: with the model placed by the train rules (``sharded``), or
+    with no rules.  Returns per step the loss, gradient norm, seconds
+    and every tensor's digest, the steps' launches (by K4 shape too) and
+    peak memory, the model, and ``prefill_decode``'s results."""
+    from repro_torch.configs import registry
+    from repro_torch.distributed.sharding import (distribute_model,
+                                                  runs_layout, use_rules)
+    from repro_torch.launch.train import lm_batch_source
+    from repro_torch.train.optimizer import AdamW
+    from repro_torch.train.step import build_train_step
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(arch, dev, seed)
+    cfg = model.cfg
+    shapes = row4_shapes(cfg)
+    rules = production_rules(cfg, mesh, shapes)
+    train = next(iter(rules))
+    check(all(runs_layout(cfg.family, r.mapping) for r in rules.values()),
+          f"{arch}: a cell of {list(rules)} does not run the layout")
+    if sharded:
+        distribute_model(model, rules[train])
+
+    def ctx(name):
+        return use_rules(rules[name]) if sharded else \
+            contextlib.nullcontext()
+
+    par = registry.default_parallelism(cfg, shapes[train])
+    batch = images if cfg.family == "encoder" else \
+        lm_batch_source(model, TRAIN_B, TRAIN_S, seed + 2)()
+    opt = AdamW(lr=TRAIN_RUNS[arch]["lr"], state_dtype=par.opt_state_dtype)
+    state = opt.init(model)
+    step = build_train_step(model, par, opt)
+    reset_counts()
+    steps = []
+    with k4_shapes() as by_shape:
+        for _ in range(ROW4_STEPS):
+            with ctx(train):
+                (model, state, m), secs = synced_seconds(
+                    lambda: step(model, state, batch))
+            steps.append({"loss": float(m["loss"]),
+                          "grad_norm": float(m["grad_norm"]),
+                          "seconds": secs,
+                          "digests": state_digests(model, state)})
+        train_counts = read_counts()
+    out = {"steps": steps, "train_counts": train_counts, "train": train,
+           "train_shapes": dict(by_shape), "remat": par.remat,
+           "peak": torch.cuda.max_memory_allocated(), "model": model}
+    del state, opt, step, batch, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    if cfg.family == "encoder":
+        return out
+    pbatch = lm_batch_source(model, ATTN_B, ATTN_S, seed + 4)()
+    del pbatch["labels"]
+    out.update(prefill_decode(model, rules["prefill_32k"],
+                              rules["decode_32k"], mesh, pbatch,
+                              ROW4_DECODE, seed, sharded),
+               kv_seq=rules["decode_32k"].mapping["kv_seq"])
+    return out
+
+
+def row4_layout_phase(dev, seed: int, card: str, mesh):
+    """The vlm, encdec and encoder families under the reference's layout
+    at one NCCL rank: ``ROW4_ARCHS`` at their published widths and full
+    depth, each placed by ``distribute_model`` under its train cell's
+    rules (``production_rules`` of ``row4_shapes``; internvl2's and
+    seamless's train multi rules on a ``pod_mesh``) and run by
+    ``row4_layout_run``, then the same from the
+    same seed with no rules.  Every parameter's and moment's digest, the
+    loss and the gradient norm after each step, and the prefill's logits
+    and cache must be bitwise; internvl2's decode_32k decode (its 8 kv
+    heads do not divide 16: the cache's sequence on ``model``, the
+    combine over one block) within ``depth_tolerance``, seamless's (its
+    16 kv heads on ``model``, the cross-attention reading the prefill's
+    cross rows) bitwise.  vit-huge's batch is the loader's: the first
+    ``VIT_RANK_B`` rows of ``first_image_batch``.  K4 and its backward
+    launch as often on both paths (once per attention a step: internvl2
+    24, seamless 72, vit-huge 32; the prefill's once per attention; none
+    in decode).  Then ``ROW4_DRY_CELLS``' dry-run against the run
+    (``dry_check``, on the plain run's model; their children start first
+    and trace while the card runs the layouts).  Returns the sharded
+    path's launches by arch (the steps', their K4 shapes', the
+    prefill's) and the dry checks'."""
+    children = {arch: traced_cell(arch, shape)
+                for arch, (shape, _) in ROW4_DRY_CELLS.items()}
+    pmesh = pod_mesh()
+    from repro_torch.configs import registry
+    images = first_image_batch(dev, seed, registry.get("vit-huge"))
+    images = {k: v[:VIT_RANK_B].clone() for k, v in images.items()}
+    launches = {}
+    for arch in ROW4_ARCHS:
+        got = row4_layout_run(dev, seed, pmesh, arch, True, images)
+        cfg = got.pop("model").cfg
+        gc.collect()
+        torch.cuda.empty_cache()
+        want = row4_layout_run(dev, seed, pmesh, arch, False, images)
+        model = want.pop("model")
+        attns = cfg.n_layers * (2 if cfg.family in ("encdec", "audio")
+                                else 1) + cfg.n_encoder_layers
+        fwd = 2 if got["remat"] != "none" else 1
+        expect = {"flash_attention": fwd * attns * ROW4_STEPS,
+                  "flash_attention_bwd": attns * ROW4_STEPS}
+        for run in (got, want):
+            for k, n in expect.items():
+                check(run["train_counts"][k] == n, f"{arch} layout: {k} "
+                      f"launched {run['train_counts'][k]} times in "
+                      f"{ROW4_STEPS} steps, expected {n}")
+        check(got["train_shapes"] == want["train_shapes"],
+              f"{arch} layout: K4 by shape {got['train_shapes']} sharded, "
+              f"{want['train_shapes']} plain")
+        for i, (g, w) in enumerate(zip(got["steps"], want["steps"])):
+            check(np.isfinite(g["loss"]) and g["loss"] == w["loss"]
+                  and g["grad_norm"] == w["grad_norm"],
+                  f"{arch} layout step {i + 1}: loss {g['loss']} / "
+                  f"{w['loss']}, grad norm {g['grad_norm']} / "
+                  f"{w['grad_norm']} (sharded / plain)")
+            differ = [k for k in w["digests"]
+                      if g["digests"].get(k) != w["digests"][k]]
+            check(g["digests"].keys() == w["digests"].keys() and not differ,
+                  f"{arch} layout step {i + 1}: {len(differ)} of "
+                  f"{len(w['digests'])} tensors differ from the plain "
+                  f"step's: {differ[:6]}")
+        n_tensors = len(want["steps"][0]["digests"])
+        what = (f"{VIT_RANK_B} x {cfg.frontend_tokens} from the loader's "
+                f"device route" if cfg.family == "encoder" else
+                f"{TRAIN_B} x {TRAIN_S}")
+        words = (f"reference layout, {arch} ({cfg.n_layers} layers"
+                 + (f" + {cfg.n_encoder_layers} encoder"
+                    if cfg.n_encoder_layers else "")
+                 + f", published widths; the {got['train']} cell's rules: "
+                 f"heads, MLP"
+                 + ("" if cfg.family == "encoder" else " and vocab")
+                 + f" over model) at one NCCL rank: {ROW4_STEPS} steps of "
+                 f"{what} through build_train_step, losses "
+                 f"{[round(x['loss'], 4) for x in got['steps']]}, grad norms "
+                 f"{[round(x['grad_norm'], 4) for x in got['steps']]}: "
+                 f"**bitwise** equal to the unsharded steps (all {n_tensors} "
+                 f"parameter and moment digests, the loss, the gradient "
+                 f"norm); step seconds sharded "
+                 f"{[round(x['seconds'], 3) for x in got['steps']]} against "
+                 f"{[round(x['seconds'], 3) for x in want['steps']]}; peak "
+                 f"{got['peak'] / 1e9:.2f} GB against "
+                 f"{want['peak'] / 1e9:.2f}; launches K4 "
+                 f"{got['train_counts']['flash_attention']}, its backward "
+                 f"{got['train_counts']['flash_attention_bwd']} on both "
+                 f"paths (expected {expect})")
+        launches[arch] = {**got["train_counts"],
+                          "shapes": got["train_shapes"]}
+        if cfg.family != "encoder":
+            for run in (got, want):
+                for part, n in (("prefill_counts", attns),
+                                ("decode_counts", 0)):
+                    check(run[part]["flash_attention"] == n,
+                          f"{arch} layout: K4 launched "
+                          f"{run[part]['flash_attention']} times in "
+                          f"{part.split('_')[0]}, expected {n}")
+            check(bool(torch.isfinite(want["logits"].float()).all())
+                  and torch.equal(got["logits"], want["logits"])
+                  and got["cache"].keys() == want["cache"].keys()
+                  and all(torch.equal(got["cache"][k], c)
+                          for k, c in want["cache"].items()),
+                  f"{arch} layout: the sharded prefill's logits or cache "
+                  f"differ from the plain prefill's, or are not finite")
+            decoded = compare_decode(got, want, cfg.n_layers,
+                                     f"{arch} layout decode_32k")
+            cross = cfg.family in ("encdec", "audio")
+            check(not cross or decoded.startswith("**bitwise**"),
+                  f"{arch} layout: the sharded decode is not bitwise the "
+                  f"plain decode: {decoded}")
+            rows = (f", its cross keys and values "
+                    f"{tuple(want['cache']['ck'].shape)}" if cross else "")
+            words += (f"; prefill {ATTN_B} x {ATTN_S} under the prefill_32k "
+                      f"rules: logits and cache{rows} **bitwise**, "
+                      f"{got['prefill_s']:.4f} s against "
+                      f"{want['prefill_s']:.4f} s, K4 "
+                      f"{got['prefill_counts']['flash_attention']} on both; "
+                      f"decode_32k (kv_seq {got['kv_seq']}"
+                      + (", the combine over one block" if got["kv_seq"]
+                         else ", the rank's kv heads")
+                      + (", the cross-attention on prefill's rows" if cross
+                         else "")
+                      + f") {ROW4_DECODE} steps: {decoded}; seconds a step "
+                      f"{[round(x, 4) for x in got['decode_s']]} against "
+                      f"{[round(x, 4) for x in want['decode_s']]}")
+            launches[arch]["prefill"] = got["prefill_counts"]
+        print(words + f" ({card})", flush=True)
+        del got, want
+        gc.collect()
+        torch.cuda.empty_cache()
+        if arch in ROW4_DRY_CELLS:
+            dry_shape, kernels = ROW4_DRY_CELLS[arch]
+            launches[f"dry {arch}"] = dry_check(
+                model, dry_shape, mesh, card, kernels,
+                pending=children[arch])
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    return launches
+
+
 def sweep_phase(card: str) -> None:
     """(c) the production sweep, after the last timed phase (it needs no
     card, and beside a timed phase it would load the host):
@@ -5120,8 +5426,8 @@ def sweep_phase(card: str) -> None:
     check(not errors, f"dry-run cells failed: {errors}")
     check(len(ok) == len(applicable), f"dry-run cells without a record: "
           f"{sorted(set(applicable) - set(ok))}")
-    # every cell's peak against 80 GB; the dense and moe families' cells
-    # run the reference's sharded layout, whose held bytes must be the
+    # every cell's peak against 80 GB; the cells of sweep_sharded run
+    # the reference's sharded layout, whose held bytes must be the
     # analytic ones
     fit = sum(records[k]["memory_analysis"]["peak_memory_in_bytes"] <= 80e9
               for k in ok)
@@ -5155,7 +5461,8 @@ def sweep_sharded(key: str) -> bool:
     """Whether the sweep's cell ``arch|shape|mesh`` runs the reference's
     layout under its production rules (``launch.dryrun.sharded_cell``):
     every dense and moe cell, the ssm and hybrid cells whose rules place
-    the SSD heads."""
+    the SSD heads, the vlm and encdec cells whose rules place the
+    attention heads."""
     from repro_torch.configs import registry
     from repro_torch.configs.base import SHAPES_BY_NAME
     from repro_torch.distributed.sharding import make_rules
@@ -5302,6 +5609,26 @@ def smoke(seed: int) -> int:
         rows[f"{kernel}_zamba2"]["launches_layout"] = lay["prefill"][kernel]
         rows[f"{kernel}_zamba2"]["launches_dry_layout"] = \
             lay["dry zamba2-1.2b"][kernel]
+    row4 = phase("reference layout (TP), internvl2-2b, seamless-m4t-large-v2 "
+                "and vit-huge", row4_layout_phase, dev, seed, card, mesh)
+    for suffix, arch in (("_internvl2", "internvl2-2b"), ("_vit", "vit-huge")):
+        rows["flash_attention" + suffix]["launches_layout"] = \
+            row4[arch]["flash_attention"] + row4[arch].get(
+                "prefill", {}).get("flash_attention", 0)
+        rows["flash_attention_bwd" + suffix]["launches_layout"] = \
+            row4[arch]["flash_attention_bwd"]
+    for suffix, shape in seamless_shapes(TRAIN_S).items():
+        for kernel in ("flash_attention", "flash_attention_bwd"):
+            rows[kernel + suffix]["launches_layout"] = \
+                row4["seamless-m4t-large-v2"]["shapes"][(kernel, *shape)]
+    # the rank's shapes of the production mesh: at one rank the path's K4
+    # runs every head (vit-huge's 16 a launch, seamless's cross-attention
+    # at its 1,024 x 128), the rows time a rank's one
+    for kernel in ("flash_attention", "flash_attention_bwd"):
+        rows[f"{kernel}_vit_tp"]["launches"] = row4["vit-huge"][kernel]
+        rows[f"{kernel}_seamless_cross_tp"]["launches"] = \
+            row4["seamless-m4t-large-v2"]["shapes"][
+                (kernel, *seamless_shapes(TRAIN_S)["_seamless_cross"])]
     counts, train = phase("serving and training, zamba2-1.2b", hybrid_phase,
                           dev, seed, card)
     rows["flash_attention_zamba2"]["launches"] = counts["flash_attention"]
@@ -5350,7 +5677,11 @@ def smoke(seed: int) -> int:
                             "flash_attention_seamless_self",
                             "flash_attention_bwd_seamless_self",
                             "flash_attention_seamless_cross",
-                            "flash_attention_bwd_seamless_cross")]
+                            "flash_attention_bwd_seamless_cross",
+                            "flash_attention_vit_tp",
+                            "flash_attention_bwd_vit_tp",
+                            "flash_attention_seamless_cross_tp",
+                            "flash_attention_bwd_seamless_cross_tp")]
     import torch.distributed as dist
     dist.destroy_process_group()
     store.unlink(missing_ok=True)

@@ -27,17 +27,18 @@ block of each array:
   ``with_sharding_constraint`` leaves values, and redistributes a
   DTensor on the rules' mesh to the spec's placements;
 * :func:`distribute_model` places the parameters by their specs: every
-  parameter of a family in :data:`LAYOUT_FAMILIES` (dense, moe, ssm and
-  hybrid) whose spec names a mesh axis becomes a DTensor with
+  parameter of the model (every family is in :data:`LAYOUT_FAMILIES`)
+  whose spec names a mesh axis becomes a DTensor with
   :func:`placements_of` its spec, holding only this rank's block: the
   reference's FSDP (``embed`` over ``data``), tensor parallelism
   (``q_heads``, ``kv_heads`` where the kv heads divide, ``mlp``,
   ``vocab``, ``ssm_inner`` over ``model``) and expert parallelism
-  (``expert`` over ``model``).  With
-  ``experts_only``, and in the other families, only the experts are
-  placed (``Shard(0)`` on ``model``): the expert-parallel program of the
-  data-parallel step (``train/dp_shard.py``), whose other parameters
-  stay plain tensors, replicated on every rank.
+  (``expert`` over ``model``), in the decoder's ``blocks``, the encdec
+  family's ``enc_blocks`` and cross-attention alike.  With
+  ``experts_only`` only the experts are placed (``Shard(0)`` on
+  ``model``): the expert-parallel program of the data-parallel step
+  (``train/dp_shard.py``), whose other parameters stay plain tensors,
+  replicated on every rank.
 
 The layers read a placed parameter through :func:`take`: its local
 block, with its shards over every mesh axis but ``model`` gathered (the
@@ -79,7 +80,8 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
-from repro_torch.configs.base import ModelConfig, ParallelismConfig, ShapeConfig
+from repro_torch.configs.base import (FAMILIES, ModelConfig,
+                                      ParallelismConfig, ShapeConfig)
 
 # Logical axis names used across the model zoo.
 PARAM_AXES = ("layers", "embed", "q_heads", "kv_heads", "mlp", "vocab",
@@ -90,21 +92,27 @@ ACT_AXES = ("batch", "act_seq", "kv_seq", "act_heads", "act_kv", "act_mlp",
 #: the families whose layers run the reference's whole layout: every
 #: parameter placed by its spec (:func:`distribute_model`), the layers
 #: tensor-parallel and FSDP-gathered, the loss over the global batch
-#: (:func:`layout_rules`)
-LAYOUT_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+#: (:func:`layout_rules`): every family of the pool
+LAYOUT_FAMILIES = FAMILIES
+#: the families that run the layout only where the rules place their heads
+#: (tensor parallelism), by the logical axis that says so: the SSD heads,
+#: or the attention's q heads
+_PLACED_BY = {"ssm": "ssm_inner", "hybrid": "ssm_inner", "vlm": "q_heads",
+              "encdec": "q_heads", "audio": "q_heads", "encoder": "q_heads"}
 
 
 def runs_layout(family: str, mapping: Dict[str, Any]) -> bool:
     """Whether rules of ``mapping`` run the reference's sharded program
     for a model of ``family``: every rule set for the dense and moe
-    families; for the ssm and hybrid families those that place the SSD
-    heads (``ssm_inner`` on a mesh axis: tensor parallelism).  Their
-    other cells (pure data-parallel training, the ssm family's
-    sequence-parallel prefill) hold every parameter whole in the
-    reference too, and run the replicated program."""
+    families; for the others those that place the heads (tensor
+    parallelism): ``ssm_inner`` on a mesh axis for the ssm and hybrid
+    families, ``q_heads`` for the vlm, encdec (and audio) and encoder
+    families.  Their other cells (pure data-parallel training, the ssm
+    family's sequence-parallel prefill) hold every parameter whole in
+    the reference too, and run the replicated program."""
     if family not in LAYOUT_FAMILIES:
         return False
-    return family in ("dense", "moe") or bool(mapping.get("ssm_inner"))
+    return family not in _PLACED_BY or bool(mapping.get(_PLACED_BY[family]))
 
 
 def _names(entry) -> Tuple[str, ...]:
@@ -276,21 +284,22 @@ def distribute_model(model: nn.Module, rules: ShardingRules, *,
     as ``models/convert.py`` loads them) by ``rules`` on ``rules.mesh``.
     A parameter whose spec (:func:`_placed_spec`) names a mesh axis
     becomes a DTensor with :func:`placements_of` that spec, holding only
-    this rank's block, cut locally with no communication: in the
-    families of :data:`LAYOUT_FAMILIES` every such parameter (the
-    reference's FSDP, tensor and expert parallelism, ``partition_specs``
-    of its defs); with
-    ``experts_only``, and in the other families, the experts' ``we_*``
-    (the model is marked so, and :func:`layout_rules` then leaves it
-    out).  The rest stay plain and whole.  Returns ``model``."""
+    this rank's block, cut locally with no communication: every such
+    parameter (the reference's FSDP, tensor and expert parallelism,
+    ``partition_specs`` of its defs: the decoder's ``blocks``, the encdec
+    family's ``enc_blocks`` and cross-attention ``cross.{wq,wk,wv,wo}``,
+    the encoder family's ``pos_embed`` by ``(None, "embed")`` and
+    ``head`` by ``("embed", "classes")``, which stay plain unless the
+    rules shard ``embed``); with ``experts_only`` the experts' ``we_*``
+    alone (the model is marked so, and :func:`layout_rules` then leaves
+    it out).  The rest stay plain and whole.  Returns ``model``."""
     from torch.distributed.tensor import DTensor
     from repro_torch.models.params import ParamDef, ParamTree
     mesh = rules.mesh
     if not rules.enabled or mesh is None:
         return model
     cfg = getattr(model, "cfg", None)
-    whole = (cfg is not None and cfg.family in LAYOUT_FAMILIES
-             and not experts_only)
+    whole = cfg is not None and not experts_only
     model.experts_only = experts_only
     for tree in model.modules():
         if not isinstance(tree, ParamTree):

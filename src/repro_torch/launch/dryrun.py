@@ -13,24 +13,29 @@ compiler: its dry-run runs the port's own program once, as rank 0 of
 the cell's world under the cell's rules, and counts what it does.  Two
 programs, by cell (:func:`sharded_cell`):
 
-* the dense and moe families' cells, train, prefill and decode, and the
+* the dense and moe families' cells, train, prefill and decode, the
   ssm and hybrid cells whose rules place the SSD heads (tensor
   parallelism: both archs' multi-mesh training, decode and long_500k,
-  zamba2's prefill) run the reference's layout, as its ``lower_cell``
+  zamba2's prefill) and the vlm and encdec cells whose rules place the
+  attention heads (internvl2's and seamless's multi-mesh training,
+  prefill and decode) run the reference's layout, as its ``lower_cell``
   jits them: every parameter, moment and cache block placed by its spec
   (``distribute_model``: FSDP of ``embed`` over ``data``, tensor
-  parallelism of the heads, the MLP, the shared experts, the SSD heads
-  and the vocab over ``model``, the experts over ``model`` beside them;
-  kimi-k2's int8 moments by ``_opt_specs``' structured and flat
-  branches), activations laid out as the rules say, training through
-  ``train.step.build_train_step`` with the cell's microbatches and
-  remat, decode with the cache's sequence (or the hybrid ring's slots)
-  split where the rules map ``kv_seq`` (the flash-decoding combine,
-  ``models/layers.py``);
-* every other cell runs the replicated program: the batch and, for the
-  ssm prefill, the sequence split, no FSDP or tensor parallelism of the
-  parameters; training through ``train.dp_shard.build_dp_train_step``,
-  the reference's ``shard_map`` twin, with no microbatches.
+  parallelism of the heads, the MLP, the shared experts, the SSD heads,
+  the encoder blocks, the cross-attention and the vocab over ``model``,
+  the experts over ``model`` beside them; kimi-k2's int8 moments by
+  ``_opt_specs``' structured and flat branches), activations laid out
+  as the rules say, training through ``train.step.build_train_step``
+  with the cell's microbatches and remat, decode with the cache's
+  sequence (or the hybrid ring's slots, or the encdec cross cache's
+  rows) split where the rules map ``kv_seq`` (the flash-decoding
+  combine, ``models/layers.py``);
+* every other cell runs the replicated program (the pure data-parallel
+  train cells, mamba2's sequence-parallel prefill): the batch and, for
+  the ssm prefill, the sequence split, no FSDP or tensor parallelism of
+  the parameters; training through
+  ``train.dp_shard.build_dp_train_step``, the reference's ``shard_map``
+  twin, with no microbatches.
 
 Either is traced so:
 
@@ -577,13 +582,16 @@ def _port_spec(rules, axes, sharded: bool = False) -> tuple:
 def sharded_cell(cfg, rules) -> bool:
     """Whether a cell of ``rules`` runs the reference's sharded layout
     (every parameter, moment and cache block placed by its spec; the
-    training step ``train.step.build_train_step``): every cell of the
-    dense and moe families, decode included, and the ssm and hybrid
-    cells whose rules place the SSD heads (``sharding.runs_layout``:
-    tensor parallelism; their pure data-parallel training and mamba2's
-    sequence-parallel prefill hold every parameter whole, in the
-    reference too).  Every other cell runs the replicated program
-    (training through ``build_dp_train_step``)."""
+    training step ``train.step.build_train_step``), by
+    ``sharding.runs_layout``: every cell of the dense and moe families,
+    decode included; the ssm and hybrid cells whose rules place the SSD
+    heads, the vlm, encdec and encoder cells whose rules place the
+    attention heads (tensor parallelism).  The others (pure
+    data-parallel training: internvl2's, seamless's, mamba2's and
+    zamba2's single-mesh train cells; mamba2's sequence-parallel
+    prefill) hold every parameter whole, in the reference too, and run
+    the replicated program (training through
+    ``build_dp_train_step``)."""
     return runs_layout(cfg.family, rules.mapping)
 
 

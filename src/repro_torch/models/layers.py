@@ -19,7 +19,7 @@ Sq decoder rows over Sk encoder rows.  One-token decode stays plain
 torch (``_sdpa``), windowed, cross or not: the reference has no kernel
 for it.
 
-Under the reference's layout (a dense or moe model placed by
+Under the reference's layout (a model placed by
 ``distributed.sharding.distribute_model``; each parameter a DTensor of
 its spec), the layers compute on each rank's local blocks, as XLA lays
 out the reference's arrays by ``make_rules``: a parameter is read
@@ -47,8 +47,10 @@ cache's blocks by the decode rules' spec: where they put the cache's
 sequence on ``model`` (the kv heads do not divide the axis), each rank
 holds its block of positions of every kv head, and the attention is the
 flash-decoding combine (:func:`_attention_decode_tp`), the partial
-softmaxes that XLA partitions the reference's ``_sdpa`` into.  With no
-placed parameter every path computes what it computes on one device.
+softmaxes that XLA partitions the reference's ``_sdpa`` into; the encdec
+family's decode-time cross-attention (:func:`cross_attention_decode`)
+reads its cross cache's blocks alike, with no new key and no mask.  With
+no placed parameter every path computes what it computes on one device.
 
 Where a bf16 activation meets float32 weights (the encdec family's
 encoder takes its frame embeddings as bf16 whatever the parameters'
@@ -235,13 +237,19 @@ def _attention_tp(p, x, kv_x, cfg: ModelConfig, positions, kv_positions,
                   return_kv: bool, split):
     """Tensor-parallel attention on this rank's heads (the module's
     docstring).  ``return_kv`` gives the keys and values the cache holds:
-    the rank's kv heads when they are sharded, else all of them."""
+    the rank's kv heads when they are sharded, else all of them.  A
+    ``kv_x`` other than ``x`` (cross-attention) comes as the caller made
+    it partial: the encoder's output enters every layer's
+    cross-attention through one ``replicated_to_partial``
+    (``transformer._encode``), so that its gradient sums over the layers
+    in the unsharded order before one reduction over ``model``."""
     B, hd = x.shape[0], cfg.resolved_head_dim
     H, K = cfg.n_heads, cfg.n_kv_heads
     grp = split.group
     self_attn = kv_x is x
     x = replicated_to_partial(x, grp)
-    kv_x = x if self_attn else replicated_to_partial(kv_x, grp)
+    if self_attn:
+        kv_x = x
     q = _mm(x, take(p["wq"]))
     if "bq" in p:
         q = q + take(p["bq"])
@@ -404,20 +412,7 @@ def _attention_decode_tp(p, x, cfg: ModelConfig, cache_k, cache_v,
     B, hd = x.shape[0], cfg.resolved_head_dim
     H, K = cfg.n_heads, cfg.n_kv_heads
     pos = torch.full((1,), index, dtype=torch.int32, device=x.device)
-    q = _mm(x, take(p["wq"]))
-    if "bq" in p:
-        q = q + take(p["bq"])
-    all_heads = split is None or (seq is not None and seq.axes == ("model",))
-    if split is not None and all_heads:
-        q = gather_dim(q, -1, split.group)
-        s, e = 0, H
-    elif split is not None:
-        s, e = head_range(H, split)
-        if H % split.size:
-            q = regroup(q, H, hd, split)
-    else:
-        s, e = 0, H
-    q = q.reshape(B, 1, e - s, hd)
+    q, s, e, all_heads = _decode_q(p, x, cfg, split, seq)
     kv_sharded = model_split(p["wk"]) is not None
     k = _mm(x, take(p["wk"]))
     v = _mm(x, take(p["wv"]))
@@ -440,13 +435,48 @@ def _attention_decode_tp(p, x, cfg: ModelConfig, cache_k, cache_v,
     kc, vc = (cache_k, cache_v) if all_heads or kv_sharded else \
         _kv_for_heads(cache_k, cache_v, s, e, H // K)
     mask = _decode_mask(S, start, total, index, window, ring, x.device)
+    y = _decode_out(p, q, kc, vc, mask, cfg, split, seq, all_heads)
+    return y, cache_k, cache_v
+
+
+def _decode_q(p, x, cfg: ModelConfig, split, seq):
+    """One decode row's query on this rank's heads, ``(q, start, end,
+    all_heads)``: q (B, 1, end - start, hd) of heads ``[start, end)``;
+    ``all_heads`` where every head's query is needed (no ``model``
+    split, or the cache's sequence on ``model``: q's column blocks
+    all-gathered), else the rank's heads (regrouped into whole heads
+    where they do not divide the axis)."""
+    B, hd, H = x.shape[0], cfg.resolved_head_dim, cfg.n_heads
+    q = _mm(x, take(p["wq"]))
+    if "bq" in p:
+        q = q + take(p["bq"])
+    all_heads = split is None or (seq is not None and seq.axes == ("model",))
+    if split is not None and all_heads:
+        q = gather_dim(q, -1, split.group)
+        s, e = 0, H
+    elif split is not None:
+        s, e = head_range(H, split)
+        if H % split.size:
+            q = regroup(q, H, hd, split)
+    else:
+        s, e = 0, H
+    return q.reshape(B, 1, e - s, hd), s, e, all_heads
+
+
+def _decode_out(p, q, kc, vc, mask, cfg: ModelConfig, split, seq,
+                all_heads: bool) -> torch.Tensor:
+    """The attention of :func:`_decode_q`'s ``q`` over the rank's keys
+    and values ``kc``/``vc`` (the heads q reads; with ``seq``, the rank's
+    block of positions: the combine, :func:`_sdpa_partial`), through
+    ``wo`` (row-parallel and summed over ``model`` under ``split``)."""
+    B, hd, H = q.shape[0], cfg.resolved_head_dim, cfg.n_heads
     if seq is None:
         out = _sdpa(q, kc, vc, mask, cfg)
     else:
         out = _sdpa_partial(q, kc, vc, mask, seq.group)
         if all_heads and split is not None:
             out = reduce_scatter_dim(out.reshape(B, 1, H * hd), -1,
-                                      split.group)
+                                     split.group)
         else:
             out = out.contiguous()
             with collective():
@@ -458,7 +488,27 @@ def _attention_decode_tp(p, x, cfg: ModelConfig, cache_k, cache_v,
     y = torch.matmul(out, take(p["wo"]))
     if split is not None:
         y = sum_to_replicated(y, split.group)
-    return y, cache_k, cache_v
+    return y
+
+
+def cross_attention_decode(p, x: torch.Tensor, cfg: ModelConfig,
+                           ck: torch.Tensor, cv: torch.Tensor,
+                           seq=None) -> torch.Tensor:
+    """Decode-time cross-attention of one row against the encoder's keys
+    and values ``ck``/``cv`` (B, S_src, K, hd): no rotary, no mask, no
+    norm of q (the reference's ``_cross_attention_cached``).  With
+    ``wq`` sharded over ``model``, or ``seq`` (the cross cache's rows
+    split as the self-attention cache's sequence is), on this rank's
+    blocks as :func:`_attention_decode_tp`, without the new key: q the
+    rank's heads (every head where ``seq`` is the ``model`` axis), ck/cv
+    the rank's kv heads where ``wk`` is sharded, else those its heads
+    read; over split rows the combine with every row valid; ``wo``
+    row-parallel, summed over ``model``."""
+    split = model_split(p["wq"])
+    q, s, e, all_heads = _decode_q(p, x, cfg, split, seq)
+    kc, vc = (ck, cv) if all_heads or model_split(p["wk"]) is not None \
+        else _kv_for_heads(ck, cv, s, e, cfg.n_heads // cfg.n_kv_heads)
+    return _decode_out(p, q, kc, vc, None, cfg, split, seq, all_heads)
 
 
 def _sdpa_partial(q, k, v, mask, group) -> torch.Tensor:
@@ -469,15 +519,17 @@ def _sdpa_partial(q, k, v, mask, group) -> torch.Tensor:
     masked scores ``NEG_INF`` everywhere, and its exponentials vanish
     against the group's maximum, which position 0 makes a real score),
     the probabilities times the block's values in float32 (B,Sq,H,hd):
-    the group's partials sum to ``_sdpa``'s output before its cast."""
+    the group's partials sum to ``_sdpa``'s output before its cast.
+    ``mask`` None: every position is valid (the cross cache's rows)."""
     B, Sq, H, hd = q.shape
     K = k.shape[2]
     G = H // K if K else 1
     qg = q.reshape(B, Sq, K, G, hd).to(F32)
     scores = torch.einsum("bqkgh,bskh->bkgqs", qg, k.to(F32)) \
         * (1.0 / hd ** 0.5)
-    scores = torch.where(mask, scores, torch.full((), NEG_INF,
-                                                  device=q.device))
+    if mask is not None:
+        scores = torch.where(mask, scores, torch.full((), NEG_INF,
+                                                      device=q.device))
     m = torch.amax(scores, dim=-1, keepdim=True)
     with collective():
         dist.all_reduce(m, op=dist.ReduceOp.MAX, group=group)

@@ -30,7 +30,18 @@ block the dense one's tensor-parallel attention and MLP; decode takes
 the rank's heads of the state ``h``, the whole conv buffer, and the
 shared block's ring buffers by their spec (the rank's kv heads; where
 the rules map ``kv_seq`` to ``data``, its block of the ring's slots and
-the combine over them).
+the combine over them).  The vlm, encdec and encoder families run it
+where the rules place the attention heads (``q_heads`` on ``model``):
+the vlm's patch embeddings, the rank's block of the batch, go in front
+of the vocab-parallel token embedding; the encdec encoder's blocks are
+the dense ones, tensor-parallel, and its output enters every decoder
+layer's cross-attention through one ``replicated_to_partial``
+(:func:`_encode`); prefill writes the rank's kv heads of the cross
+keys and values, decode reads them (or, where the cache's sequence is
+split, its block of their rows, with the combine:
+``layers.cross_attention_decode``); the encoder family's class logits
+are whole on every rank of ``model`` and its loss is the rank's term of
+the mean over the global batch.
 
 The vlm family is the dense stack with ``patch_embeds`` (B, P, d), cast
 to the activations' type, in front of the token embeddings; positions
@@ -89,7 +100,9 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import FAMILIES, ModelConfig
 from repro_torch.distributed.sharding import (axis_rank, current_rules,
                                               group_of, layout_rules,
-                                              seq_split, use_rules,
+                                              model_split,
+                                              replicated_to_partial,
+                                              seq_split, take, use_rules,
                                               vocab_parallel_nll)
 from repro_torch.models import layers as lyr
 from repro_torch.models import moe as moe_mod
@@ -258,11 +271,19 @@ def run_encoder(params, src: torch.Tensor, cfg: ModelConfig,
 
 def _encode(params, cfg: ModelConfig, batch: Dict, remat: str = "none"):
     """The encoder's output for an encdec batch (its ``src_embeds`` taken
-    as bf16, as the reference takes them), None for the other families."""
+    as bf16, as the reference takes them), None for the other families.
+    Where the decoder's cross-attention is tensor-parallel (its ``wq``
+    over ``model``) the output enters every layer's cross-attention
+    through one ``replicated_to_partial``: its gradient, summed over the
+    layers as on one device, is reduced over ``model`` once."""
     if cfg.family not in ENCDEC:
         return None
-    return run_encoder(params, batch["src_embeds"].to(torch.bfloat16), cfg,
-                       remat)[0]
+    enc_out = run_encoder(params, batch["src_embeds"].to(torch.bfloat16),
+                          cfg, remat)[0]
+    split = model_split(params["blocks"][0]["cross"]["wq"])
+    if split is not None:
+        enc_out = replicated_to_partial(enc_out, split.group)
+    return enc_out
 
 
 def _embed_inputs(params, cfg: ModelConfig, batch: Dict) -> torch.Tensor:
@@ -291,12 +312,13 @@ def forward(params, cfg: ModelConfig, batch: Dict, *,
     if cfg.family == "encoder":
         # bf16 embeddings plus the parameter: float32 parameters promote
         # the stream to float32, as jnp promotes it
-        x = batch["patch_embeds"].to(torch.bfloat16) + params["pos_embed"]
+        x = batch["patch_embeds"].to(torch.bfloat16) + take(
+            params["pos_embed"])
         positions = torch.arange(x.shape[1], device=x.device)
         x, aux = run_decoder(params, x, cfg, positions, causal=False,
                              use_rope=False, remat=remat)
         x = lyr.rmsnorm(x, params["final_norm"], cfg.norm_eps)
-        return torch.matmul(x[:, 0], params["head"]), aux
+        return torch.matmul(x[:, 0], take(params["head"])), aux
     enc_out = _encode(params, cfg, batch, remat)
     x = _embed_inputs(params, cfg, batch)
     positions = torch.arange(x.shape[1], device=x.device)
@@ -346,19 +368,24 @@ def loss_fn(params, cfg: ModelConfig, batch: Dict, *,
     encoder family the class CE (labels (B,) int), plus the blocks'
     auxiliary loss.  Under the reference's layout
     (``sharding.layout_rules``) the CE runs over the logits' vocab block
-    and is this rank's term of the mean over the global batch (the aux
-    loss, the same on every batch rank, its share)."""
+    (the encoder's over its whole class logits) and is this rank's term
+    of the mean over the global batch (the aux loss, the same on every
+    batch rank, its share)."""
     logits, aux = forward(params, cfg, batch, remat=remat)
-    if cfg.family == "encoder":
-        return cross_entropy(logits[:, None, :], batch["labels"][:, None],
-                             cfg.n_classes) + aux
     rules = layout_rules(params)
     if rules is None:
+        if cfg.family == "encoder":
+            return cross_entropy(logits[:, None, :], batch["labels"][:, None],
+                                 cfg.n_classes) + aux
         return cross_entropy(logits, batch["labels"], cfg.vocab_size) + aux
     group = group_of(rules.mesh, rules.batch_axes) if rules.batch_axes \
         else None
     # aux is the same mean on every batch rank: each adds its share
     n = axis_rank(rules.mesh, rules.batch_axes)[1]
+    if cfg.family == "encoder":
+        # the class logits are whole on every rank of ``model``
+        return cross_entropy(logits[:, None, :], batch["labels"][:, None],
+                             cfg.n_classes, batch_group=group) + aux / n
     return cross_entropy(logits, batch["labels"], cfg.vocab_size,
                          vocab=lyr.vocab_split(params["embed"]),
                          batch_group=group) + aux / n
@@ -415,17 +442,6 @@ def encdec_src_len(seq_len: int) -> int:
     return max(seq_len // 8, 16)
 
 
-def _cross_attention_cached(p, x: torch.Tensor, cfg: ModelConfig,
-                            ck: torch.Tensor, cv: torch.Tensor):
-    """Decode-time cross-attention of one row against the encoder's keys
-    and values ck/cv (B, S_src, K, hd): no rotary, no mask."""
-    B = x.shape[0]
-    hd = cfg.resolved_head_dim
-    q = torch.matmul(x, p["wq"]).reshape(B, 1, cfg.n_heads, hd)
-    out = lyr._sdpa(q, ck, cv, None, cfg)
-    return torch.matmul(out.reshape(B, 1, cfg.n_heads * hd), p["wo"])
-
-
 def decode_step(params, cfg: ModelConfig, cache: Dict, tokens: torch.Tensor,
                 index: int) -> Tuple[torch.Tensor, Dict]:
     """One-token decode. tokens: (B, 1) int; index: the position.
@@ -441,9 +457,9 @@ def decode_step(params, cfg: ModelConfig, cache: Dict, tokens: torch.Tensor,
 
     Under the reference's layout (``sharding.layout_rules``) ``tokens``
     are this rank's block by ``("batch", None)``, ``cache`` the blocks by
-    the cache's spec (its sequence, or the hybrid ring's slots, split
-    where the rules map ``kv_seq``, ``sharding.seq_split``), and the
-    logits the rank's vocab block.
+    the cache's spec (its sequence, the hybrid ring's slots or the encdec
+    cross cache's rows split where the rules map ``kv_seq``,
+    ``sharding.seq_split``), and the logits the rank's vocab block.
     """
     index = int(index)
     rules = layout_rules(params)
@@ -459,9 +475,9 @@ def decode_step(params, cfg: ModelConfig, cache: Dict, tokens: torch.Tensor,
             x = x + a
             if "cross" in lp:
                 h = lyr.rmsnorm(x, lp["lnc"], cfg.norm_eps)
-                x = x + _cross_attention_cached(lp["cross"], h, cfg,
-                                                cache["ck"][l],
-                                                cache["cv"][l])
+                x = x + lyr.cross_attention_decode(
+                    lp["cross"], h, cfg, cache["ck"][l], cache["cv"][l],
+                    seq=seq)
             h = lyr.rmsnorm(x, lp["ln2"], cfg.norm_eps)
             x = x + _ffn(lp, h, cfg)[0]
         new_cache = cache
@@ -504,8 +520,10 @@ def prefill(params, cfg: ModelConfig, batch: Dict,
     Under the reference's layout the batch and ``cache`` are this rank's
     blocks (the cache's by its specs: batch over ``data``, ``act_kv``
     over ``model`` where the kv heads divide), the attention writes the
-    rank's kv heads, or all of them where they are replicated, and the
-    logits are the rank's block of the vocab."""
+    rank's kv heads, or all of them where they are replicated (the
+    encdec's cross keys and values alike, ``encdec_src_len(S)`` rows in
+    place of the cache's), and the logits are the rank's block of the
+    vocab."""
     if cfg.family in ("ssm", "hybrid"):
         logits, _ = forward(params, cfg, batch)
         return logits, cache

@@ -1,6 +1,7 @@
 """Small worlds of ranks for the port's multi-rank tests (not a test
 module: the ``test_torch_{mesh,dp,ep_sp,pp_elastic,dryrun_trace,
-fsdp_tp,layout_decode_moe,layout_ssm_hybrid}.py`` files import it).
+fsdp_tp,layout_decode_moe,layout_ssm_hybrid,layout_vlm_encdec}.py``
+files import it).
 
 :func:`spawn` starts ``world`` Python processes of this file, one per
 rank.  Each joins a process group that meets on a file store under the
@@ -724,18 +725,23 @@ def case_layout(rank, world, inputs, device):
     shape, the reference's initial parameters, a global batch):
     ``steps`` steps of ``build_train_step`` under the train rules on the
     placed model (if any), then on a fresh placement of the initial
-    parameters a prefill of ``prompt`` under the prefill rules, its
-    cache carried to the decode layout (``sharding.relayout``), and
-    ``decode`` steps of ``Model.decode_step`` under the decode rules
-    (of the shape ``decode_name``, default ``"decode"``) at ``s_max``
-    positions.  Returns the history, parameters and moments (gathered
-    whole), the prefill's and each decode step's logits, the final
-    cache, and per decode step whether this rank wrote the key and
-    whether its block of positions was wholly masked (of the dense
-    cache ``k``, or of the hybrid's ring ``ak``; for the ssm family,
-    which has neither, both lists hold None).  The dense decode and moe
-    cases (``layout_decode_moe``) and the ssm and hybrid ones
-    (``layout_ssm_hybrid``) run this one program."""
+    parameters a prefill of ``prompt`` (tokens, beside the modality
+    inputs of ``prompt_inputs``: the vlm's patch embeddings, the
+    encdec's frame embeddings) under the prefill rules, its cache
+    carried to the decode layout (``sharding.relayout``), and ``decode``
+    steps of ``Model.decode_step`` under the decode rules (of the shape
+    ``decode_name``, default ``"decode"``) at ``s_max`` positions; no
+    prefill where ``prompt`` is None (the encoder family).  Every input
+    goes to the rank as its block by its logical axes
+    (``Model.batch_logical_axes``).  Returns the history, parameters
+    and moments (gathered whole), the prefill's and each decode step's
+    logits, the final cache, and per decode step whether this rank wrote
+    the key and whether its block of positions was wholly masked (of the
+    dense cache ``k``, or of the hybrid's ring ``ak``; for the ssm
+    family, which has neither, both lists hold None).  The dense decode
+    and moe cases (``layout_decode_moe``), the ssm and hybrid ones
+    (``layout_ssm_hybrid``) and the vlm, encdec and encoder ones
+    (``layout_vlm_encdec``) run this one program."""
     import torch
     from torch.distributed.device_mesh import init_device_mesh
     from torch.distributed.tensor import DTensor
@@ -759,7 +765,8 @@ def case_layout(rank, world, inputs, device):
         res = {}
         if case["steps"]:
             par = case["train_parallel"]
-            B, S = case["batch"]["tokens"].shape
+            labels = case["batch"]["labels"]      # (B, S), or (B,) classes
+            B, S = labels.shape[0], labels.shape[-1]
             rules = make_rules(cfg, ShapeConfig("train_4k", S, B, "train"),
                                par, tp_size=tp, dp_size=dp, mesh=mesh)
             model = distribute_model(_model(None, case["state"], cfg=cfg,
@@ -767,7 +774,9 @@ def case_layout(rank, world, inputs, device):
             opt = AdamW(**case["opt"], state_dtype=par.opt_state_dtype)
             state = opt.init(model)
             step = build_train_step(model, par, opt)
-            batch = {k: local_block(v, rules, "batch", "act_seq")
+            axes = model.batch_logical_axes(ShapeConfig("train_4k", S, B,
+                                                        "train"))
+            batch = {k: local_block(v, rules, *axes[k])
                      for k, v in case["batch"].items()}
             hist = []
             for _ in range(case["steps"]):
@@ -784,9 +793,16 @@ def case_layout(rank, world, inputs, device):
                               in state.m.items() if hasattr(st, "q")},
                 moment_modes={path: lay.mode for path, lay
                               in moment_layouts(model).items()})
+        if case["prompt"] is None:
+            out[name] = res
+            continue
         par = case["parallel"]
         prompt = case["prompt"]
-        B, P = prompt.shape
+        extra = case.get("prompt_inputs", {})
+        B = prompt.shape[0]
+        # the decoder's positions: the vlm's patches, then the tokens
+        P = prompt.shape[1] + (extra["patch_embeds"].shape[1]
+                               if "patch_embeds" in extra else 0)
         s_max = case["s_max"]
         pshape = ShapeConfig("prefill", P, B, "prefill")
         dshape = ShapeConfig(case.get("decode_name", "decode"), s_max, B,
@@ -804,10 +820,11 @@ def case_layout(rank, world, inputs, device):
                                             device=device),
                                 prules, *d.axes).clone()
                  for k, d in cdefs.items()}
+        inputs = {"tokens": local_block(prompt, prules, "batch", None),
+                  **{k: local_block(v, prules, "batch", None, "act_embed")
+                     for k, v in extra.items()}}
         with use_rules(prules):
-            logits, cache = model.prefill(
-                {"tokens": local_block(prompt, prules, "batch", None)},
-                cache)
+            logits, cache = model.prefill(inputs, cache)
         vocab = prules.placements(mesh, "batch", None, "act_vocab")
         res["prefill"] = _gather_placed(logits, mesh, vocab)
         # the re-lay: the prefill's cache spec to the decode layout's
@@ -838,6 +855,7 @@ def case_layout(rank, world, inputs, device):
                 S_l, start, total, index, 0, ring, device).any()))
         res.update(decode=steps, wrote=wrote, masked=masked,
                    kv_seq=drules.mapping["kv_seq"],
+                   local={k: tuple(c.shape) for k, c in cache.items()},
                    cache_local=tuple(cache[key or "h"].shape),
                    cache={k: _gather_placed(c, mesh, placements_of(
                        mesh, dspecs[k])) for k, c in cache.items()})
@@ -850,7 +868,8 @@ CASES = {"mesh": case_mesh, "dp": case_dp, "ep_sp": case_ep_sp,
          "nccl_world_of_one": case_nccl_world_of_one,
          "dryrun": case_dryrun, "fsdp_tp": case_fsdp_tp,
          "layout_decode_moe": case_layout,
-         "layout_ssm_hybrid": case_layout}
+         "layout_ssm_hybrid": case_layout,
+         "layout_vlm_encdec": case_layout}
 
 
 def _main(case: str, rank: int, world: int, d: str, device: str) -> int:
